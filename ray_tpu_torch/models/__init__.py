@@ -1,0 +1,1 @@
+"""Models of the PyTorch/CUDA port: Llama, cached generation, the paged DecodeEngine."""

@@ -1,0 +1,133 @@
+"""Refcounted allocator over the engine's paged KV block pool.
+
+Own copy of `ray_tpu/models/block_pool.py` (the port imports nothing
+of the JAX package); the two stay line-for-line alike below.
+
+The paged DecodeEngine keeps EVERY request's K/V in fixed-size token
+blocks of one device pool ``[L, NB, T, KV, D]`` and addresses them
+through per-request block tables — the vLLM/PagedAttention memory
+plane. This module is the pure-host ledger for that pool: which block
+ids are free, and how many holders reference each allocated block.
+
+Reference counting is what turns prefix-cache hits into zero-copy
+SHARES: a warm admission increfs the matched blocks instead of copying
+them (the dense engine's ``_prefix_copy_in`` gather disappears),
+the trie holds one reference of its own for every cached block, and a
+block returns to the free list only when its LAST holder drops it —
+so a shared block can never be recycled under a live reader (the
+refcount-never-evicted property, tested). Everything here is host-side
+integers: alloc/incref/decref cost zero device dispatches.
+
+Block id 0 is RESERVED as the null/scratch block, same convention as
+the prefix pool: unoccupied block-table entries point at it, padded
+gather/scatter programs write garbage into it, and it is never handed
+out by ``alloc``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+
+class BlockPool:
+    """Host ledger of a device block pool: free list + refcounts.
+
+    ``alloc(n)`` hands out n block ids (each with refcount 1) or None
+    if fewer than n are free — the caller decides whether to evict
+    cold prefix-cache blocks or preempt a victim request. ``incref``
+    adds a holder (a warm admission sharing a cached block, or the
+    trie registering a row's freshly filled block); ``decref`` drops
+    one, freeing the block when the count reaches zero. All O(1) per
+    block, pure host state."""
+
+    def __init__(self, n_blocks: int, *, label: str = "kv"):
+        if n_blocks < 2:
+            raise ValueError(
+                "n_blocks must be >= 2 (block 0 is the reserved "
+                "null/scratch block); raise kv_pool_bytes or shrink "
+                "kv_block_tokens")
+        self.n_blocks = n_blocks
+        # Which plane this ledger backs — the speculative engine runs
+        # TWO pools side by side (target "kv" + "draft_kv"), and the
+        # label keeps their snapshots distinguishable in the state API.
+        self.label = label
+        # Stack of free ids, low ids on top (pop order is deterministic
+        # so engine runs — and their compiled gather shapes — replay
+        # identically across processes).
+        self._free: List[int] = list(range(n_blocks - 1, 0, -1))
+        self._refs = [0] * n_blocks
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def blocks_total(self) -> int:
+        return self.n_blocks - 1          # scratch block 0 excluded
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.blocks_total - len(self._free)
+
+    def ref(self, bid: int) -> int:
+        """Current holder count of a block (0 = free)."""
+        return self._refs[bid]
+
+    def snapshot(self) -> dict:
+        """Plain-dict ledger view for the state API / status CLI:
+        totals plus how sharing is distributed (blocks with >1 holder
+        are the zero-copy prefix shares; `refs_max` is the hottest
+        block's holder count). Pure host arithmetic over the refcount
+        list — no allocation state is touched."""
+        shared = sum(1 for r in self._refs if r > 1)
+        return {
+            "label": self.label,
+            "blocks_total": self.blocks_total,
+            "blocks_in_use": self.blocks_in_use,
+            "free_blocks": len(self._free),
+            "blocks_shared": shared,
+            "refs_max": max(self._refs) if self._refs else 0,
+        }
+
+    # -- alloc / share / release -------------------------------------------
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Take n blocks off the free list, each with refcount 1.
+        All-or-nothing: returns None (and takes nothing) when fewer
+        than n are free, so a caller never holds a partial chain."""
+        if n < 0:
+            raise ValueError("alloc(n) needs n >= 0")
+        if n > len(self._free):
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        for bid in ids:
+            self._refs[bid] = 1
+        return ids
+
+    def incref(self, ids) -> None:
+        """Add one holder to each block (shared admission / trie
+        registration). Blocks must be allocated — sharing a free block
+        is a ledger bug, not a recoverable condition."""
+        for bid in ids:
+            if self._refs[bid] <= 0:
+                raise ValueError(
+                    f"incref on free block {bid}: sharing requires an "
+                    "existing holder")
+            self._refs[bid] += 1
+
+    def decref(self, ids) -> List[int]:
+        """Drop one holder from each block; returns the ids FREED by
+        this call (refcount hit zero), in drop order."""
+        freed: List[int] = []
+        for bid in ids:
+            r = self._refs[bid]
+            if r <= 0:
+                raise ValueError(f"decref on free block {bid}")
+            r -= 1
+            self._refs[bid] = r
+            if r == 0:
+                self._free.append(bid)
+                freed.append(bid)
+        return freed
