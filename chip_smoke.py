@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases, each of which must pass:
   1. device  — the card's name and count, nvidia-smi's name and power
                limit; TF32 off for matmuls and cuDNN.
-  2. build   — nvcc builds the kernels from ray_tpu_torch/csrc/.
+  2. build   — nvcc builds the kernels from ray_tpu_torch/csrc/ (one nvcc
+               per source, all started together).
   3. kernel  — the paged decode-attention kernel against its plain
                PyTorch version at Llama-3-8B decode shapes (bf16, int8
                and fp8 pools; 1 and 5 queries per row), with times at
@@ -21,15 +22,36 @@ Phases, each of which must pass:
                iterations, every block must return to the pool, and a
                second run through the plain attention must agree on
                every request's first token.
+  6. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+               against their plain PyTorch versions at the flagship
+               training shape, the Llama-3-8B shape (GQA) and ragged and
+               edge cases; times at the first two beside the bound and
+               torch's scaled_dot_product_attention forward and backward
+               (timed here only; the port never calls it).
+  7. train   — bench.py:flagship_config()'s widths at full depth (only
+               remat_policy changed, to "full") train on batch 8 x 2048
+               tokens with f32 master weights and adamw(3e-4,
+               weight_decay=0.0): one warm-up step and 5 timed steps. The
+               loss must fall, the kernels' launch counts must equal
+               2 x layers x steps (forward and its recompute under remat)
+               and layers x steps (dq, dk/dv), and the plain attention
+               must never run. Prints tokens/s, MFU, step time and peak
+               memory beside the card's name and power limit.
+  8. parity  — one training step's loss, grad norm and gradients at the
+               flagship widths with 2 layers, kernels against the plain
+               attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises, exits
 non-zero and prints no result line; so does a machine without CUDA.
 """
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -41,6 +63,31 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor rate
 ATOL = RTOL = 2e-2                 # bf16 output rounding + bf16 probs
 N_REQUESTS, NEW_TOKENS = 8, 32
+F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+
+# Flash attention cases: (name, B, H, Hkv, Sq, Sk, D, dtype, causal).
+# (a) the flagship training shape, (b) Llama-3-8B's (GQA 32/8), then
+# ragged and edge cases: a kv prefix (q_offset > 0), Sq > Sk (fully
+# masked rows), non-causal, D=64, and an f32 instance.
+FLASH_CASES = [
+    ("a_flagship", 8, 12, 12, 2048, 2048, 128, "bf16", True),
+    ("b_llama3_8b", 2, 32, 8, 2048, 2048, 128, "bf16", True),
+    ("c_prefix", 2, 8, 2, 1000, 1500, 128, "bf16", True),
+    ("c_masked_rows", 1, 8, 2, 1500, 1000, 128, "bf16", True),
+    ("c_noncausal", 2, 8, 8, 777, 777, 128, "bf16", False),
+    ("c_d64", 2, 8, 4, 1024, 1024, 64, "bf16", True),
+    ("c_f32", 1, 4, 2, 512, 512, 128, "f32", True),
+]
+FLASH_TIMED = ("a_flagship", "b_llama3_8b")
+# bf16: outputs are bf16 and the kernel rounds p to bf16 per tile where
+# the plain version rounds it once (as B2 uses); f32: exact f32 FMAs in
+# both, the online softmax and the tile order change the summation order.
+FLASH_TOL = {"bf16": 2e-2, "f32": 1e-4}
+TRAIN_STEPS = 5
+# Kernel vs plain attention over a 2-layer training step in bf16
+# activations: the attention outputs differ by bf16 rounding, which
+# moves the loss by ~1e-4 relative and the gradients by ~1e-3.
+PARITY_LOSS_RTOL, PARITY_NORM_RTOL, PARITY_MIN_COS = 2e-3, 2e-2, 0.999
 
 
 def log(msg):
@@ -69,9 +116,14 @@ def device_phase():
 def build_phase():
     from ray_tpu_torch import _build
 
+    names = ("paged_attention", "flash_attention")
     t0 = time.perf_counter()
-    _build.library("paged_attention")
-    log(f"[build] paged_attention ready in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    for name in names:
+        _build.library(name)
+    log(f"[build] {', '.join(names)} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _time_ms(fn, iters):
@@ -313,23 +365,287 @@ def serve_phase(smi):
         f"later tokens)")
     return launches
 
+def _flash_pairs(Sq, Sk, causal):
+    """Unmasked (q, k) pairs of one head: q row i sees kv columns
+    <= i + Sk - Sq under the causal mask."""
+    if not causal:
+        return Sq * Sk
+    return int(np.clip(np.arange(Sq) + Sk - Sq + 1, 0, Sk).sum())
+
+
+def _flash_bound_ms(kernel, B, H, Hkv, Sq, Sk, D, causal, dtype):
+    """Least time of one kernel on these inputs: each input read once and
+    each output written once over the memory rate, or its products over
+    the tensor rate (2 flop per multiply-add per unmasked pair and head
+    dim: 2 products in the forward, s/dp/dq in dq, s/dp/dv/dk in dk/dv),
+    whichever is larger. Returns (ms, bound_by)."""
+    item = 2 if dtype == "bf16" else 4
+    q_b, kv_b, rows = B * H * Sq * D * item, B * Hkv * Sk * D * item, \
+        B * H * Sq * 4
+    products, nbytes = {
+        "fwd": (2, 2 * q_b + 2 * kv_b + rows),     # q, k, v -> o, lse
+        "dq": (3, 3 * q_b + 2 * kv_b + 2 * rows),  # q, dO, k, v, lse,
+                                                   # delta -> dq
+        "dkv": (4, 2 * q_b + 4 * kv_b + 2 * rows),  # -> dk, dv
+    }[kernel]
+    flops = products * 2 * D * B * H * _flash_pairs(Sq, Sk, causal)
+    rate = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _time_flash(q, k, v, do, o, lse, scale, causal, gqa):
+    """CUDA-event ms of each kernel, its plain version and torch's SDPA
+    forward and backward on the same inputs."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    delta = fa._delta(o, do)
+    t = {
+        "fwd": _time_ms(lambda: fak.flash_fwd_kernel(q, k, v, scale, causal,
+                                                     True), 20),
+        "dq": _time_ms(lambda: fak.flash_bwd_dq_kernel(
+            q, k, v, do, lse, delta, scale, causal), 20),
+        "dkv": _time_ms(lambda: fak.flash_bwd_dkv_kernel(
+            q, k, v, do, lse, delta, scale, causal), 20),
+        "plain_fwd": _time_ms(lambda: fa._flash_fwd_reference(
+            q, k, v, scale, causal), 3),
+        "plain_bwd": _time_ms(lambda: fa._flash_bwd_reference(
+            q, k, v, o, lse, do, scale, causal), 3),
+    }
+    sdpa = dict(is_causal=causal, scale=scale, enable_gqa=gqa)
+    t["sdpa_fwd"] = _time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), 20)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, **sdpa)
+    t["sdpa_bwd"] = _time_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 20)
+    return t
+
+
+def flash_phase():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for name, B, H, Hkv, Sq, Sk, D, dts, causal in FLASH_CASES:
+        dt = torch.bfloat16 if dts == "bf16" else torch.float32
+        tol = FLASH_TOL[dts]
+        g = torch.Generator(device="cuda").manual_seed(Sq + Sk + D)
+        q, do = (torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        scale = D ** -0.5
+        o, lse = fa._flash_fwd(q, k, v, scale, causal, with_lse=True)
+        dq, dk, dv = fa._flash_bwd(q, k, v, o, lse, do, scale, causal)
+        ro, rlse = fa._flash_fwd_reference(q, k, v, scale, causal)
+        # the backward kernels and their plain version from the same o, lse
+        rdq, rdk, rdv = fa._flash_bwd_reference(q, k, v, o, lse, do, scale,
+                                                causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for key, got, want in (("o", o, ro), ("lse", lse, rlse),
+                               ("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            got, want = got.float(), want.float()
+            assert torch.isfinite(got).all(), f"[flash] {name} {key}: inf/nan"
+            err = (got - want).abs()
+            errs[key] = err.max().item()
+            assert bool((err <= tol + tol * want.abs()).all()), \
+                f"[flash] {name} {key}: max_abs_err {errs[key]:.3e} FAILED"
+        dead = Sq - Sk if causal else 0
+        if dead > 0:
+            assert bool((o[:, :, :dead] == 0).all()), f"{name}: dead o"
+            assert bool((dq[:, :, :dead] == 0).all()), f"{name}: dead dq"
+        line = (f"[flash] {name}: B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} D={D} "
+                f"{dts} {'causal' if causal else 'non-causal'}: max_abs_err "
+                + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+                + f" (atol = rtol = {tol})"
+                + (f"; {dead} fully masked rows exactly 0 in o and dq"
+                   if dead > 0 else ""))
+        res = {"fwd": {"max_abs_err": max(errs["o"], errs["lse"])},
+               "dq": {"max_abs_err": errs["dq"]},
+               "dkv": {"max_abs_err": max(errs["dk"], errs["dv"])}}
+        if name in FLASH_TIMED:
+            t = _time_flash(q, k, v, do, o, lse, scale, causal, H != Hkv)
+            for kern, plain, lib in (("fwd", "plain_fwd", "sdpa_fwd"),
+                                     ("dq", "plain_bwd", "sdpa_bwd"),
+                                     ("dkv", "plain_bwd", "sdpa_bwd")):
+                bound, by = _flash_bound_ms(kern, B, H, Hkv, Sq, Sk, D,
+                                            causal, dts)
+                res[kern].update(ms=t[kern], plain_ms=t[plain],
+                                 library_ms=t[lib], bound_ms=bound,
+                                 bound_by=by)
+                line += (f"\n[flash]   {kern}: kernel {t[kern]:.4f} ms, "
+                         f"bound {bound:.4f} ms ({by}, {bound / t[kern]:.1%}"
+                         f" of bound), plain {t[plain]:.4f} ms, SDPA "
+                         f"{t[lib]:.4f} ms")
+            line += ("\n[flash]   (the plain backward and SDPA's backward "
+                     "each compute dq, dk and dv in one call)")
+        log(line)
+        results[name] = res
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def _plain_attention_forbidden():
+    """Every plain attention version raises while the block runs."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain attention ran on the main path")
+
+    with mock.patch.object(attn, "mha_reference", refuse), \
+            mock.patch.object(fa, "_flash_fwd_reference", refuse), \
+            mock.patch.object(fa, "_flash_bwd_reference", refuse):
+        yield
+
+
+def train_phase(smi):
+    from ray_tpu_torch.models.llama import llama_flops_per_token
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+    from ray_tpu_torch.profile_train import (BATCH, BENCH_REMAT_POLICY, SEQ,
+                                             build_trainer, flagship_config,
+                                             train_batch)
+
+    cfg = flagship_config()
+    log(f"[train] bench.py:flagship_config() widths at full depth: vocab "
+        f"{cfg.vocab_size}, dim {cfg.dim}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim} "
+        f"({cfg.num_params() / 1e6:.1f} M params); bf16 activations, f32 "
+        f"master weights; batch {BATCH} x {SEQ} tokens; adamw(3e-4, "
+        f"weight_decay=0.0); changed: remat_policy {BENCH_REMAT_POLICY!r} "
+        f"-> 'full' (only full remat is ported, ROADMAP A11b)")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, step_fn = build_trainer(cfg)
+    batch = train_batch(cfg)
+    with _plain_attention_forbidden():
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
+        log(f"[train] warm-up step {time.perf_counter() - t0:.3f} s, loss "
+            f"{losses[0]:.4f}, grad norm {norms[0]:.4f}")
+        torch.cuda.synchronize()
+        fak.fwd_launches = fak.dq_launches = fak.dkv_launches = 0
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            losses.append(m["loss"].item())       # waits for the step
+            norms.append(m["grad_norm"].item())
+            times.append(time.perf_counter() - t0)
+        launches = {"fwd": fak.fwd_launches, "dq": fak.dq_launches,
+                    "dkv": fak.dkv_launches}
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), \
+        (losses, norms)
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    L = cfg.n_layers
+    want = {"fwd": 2 * L * TRAIN_STEPS, "dq": L * TRAIN_STEPS,
+            "dkv": L * TRAIN_STEPS}
+    assert launches == want, f"launches {launches} != {want}"
+    tok_s = BATCH * SEQ * TRAIN_STEPS / sum(times)
+    mfu = tok_s * llama_flops_per_token(cfg, SEQ) / BF16_FLOPS_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"[train] kernel launches in {TRAIN_STEPS} steps: forward "
+        f"{launches['fwd']} = 2 x {L} layers x {TRAIN_STEPS} (forward + "
+        f"remat recompute), dq {launches['dq']}, dk/dv {launches['dkv']} "
+        f"= {L} x {TRAIN_STEPS}; plain attention never ran")
+    log(f"[train] step {np.mean(times) * 1e3:.1f} ms mean (min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); {tok_s:.0f}"
+        f" tokens/s; MFU {mfu:.2%} of 989 TFLOP/s bf16 "
+        f"({llama_flops_per_token(cfg, SEQ) / 1e9:.3f} GFLOP/token); peak "
+        f"memory {peak / 2**30:.2f} GiB; on {smi}")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parity_phase():
+    from ray_tpu_torch import llama_loss
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.models.training import _leaves, _tree_map
+    from ray_tpu_torch.profile_train import flagship_config, train_batch
+
+    cfg = flagship_config(n_layers=2)
+    params = llama_init(cfg, seed=0, device="cuda", dtype=torch.float32)
+    batch = train_batch(cfg)
+    got = {}
+    for impl in ("kernel", "reference"):
+        tree = _tree_map(lambda p: p.detach().clone().requires_grad_(),
+                         params)
+        leaves = _leaves(tree)
+        loss = llama_loss(tree, batch, dataclasses.replace(cfg,
+                                                          attn_impl=impl))
+        grads = torch.autograd.grad(loss, leaves)
+        norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        got[impl] = (loss.item(), norm.item(), grads)
+    (lk, nk, gk), (lr, nr, gr) = got["kernel"], got["reference"]
+    cos = [torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+        for a, b in zip(gk, gr)]
+    line = (f"[parity] flagship widths, 2 layers, one step's loss, grad norm"
+            f" and gradients: loss kernel {lk:.6f} vs plain {lr:.6f} "
+            f"(rtol {PARITY_LOSS_RTOL}), grad norm {nk:.6f} vs {nr:.6f} "
+            f"(rtol {PARITY_NORM_RTOL}), min cosine over {len(cos)} grad "
+            f"leaves {min(cos):.6f} (>= {PARITY_MIN_COS})")
+    assert abs(lk - lr) <= PARITY_LOSS_RTOL * abs(lr), line + " FAILED"
+    assert abs(nk - nr) <= PARITY_NORM_RTOL * abs(nr), line + " FAILED"
+    assert min(cos) >= PARITY_MIN_COS, line + " FAILED"
+    log(line)
+
+
+def _kernel_entry(name, source, replaces, launches, res):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res.get("library_ms")}
+
 
 def main():
-    name, count, smi = device_phase()
-    build_phase()
-    kres = kernel_phase()
-    small_phase()
-    launches = serve_phase(smi)
-    main_case = kres[("bf16", 1)]
-    log(json.dumps({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "ray_tpu/ops/paged_attention_kernel.py:104",
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None}]}))
+    spent = {}
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[label] = time.perf_counter() - t0
+        return out
+
+    name, count, smi = phase("device", device_phase)
+    phase("build", build_phase)
+    kres = phase("kernel", kernel_phase)
+    fres = phase("flash", flash_phase)
+    phase("small", small_phase)
+    launches = phase("serve", serve_phase, smi)
+    tlaunches = phase("train", train_phase, smi)
+    phase("parity", parity_phase)
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
+        + f"; total {sum(spent.values()):.1f} s")
+    flash_src = "ray_tpu_torch/csrc/flash_attention.cu"
+    flash_py = "ray_tpu/ops/flash_attention.py"
+    main_flash = fres["a_flagship"]
+    log(json.dumps({"kernels": [
+        _kernel_entry("paged_attention",
+                      "ray_tpu_torch/csrc/paged_attention.cu",
+                      "ray_tpu/ops/paged_attention_kernel.py:104",
+                      launches, kres[("bf16", 1)]),
+        _kernel_entry("flash_fwd", flash_src, f"{flash_py}:130",
+                      tlaunches["fwd"], main_flash["fwd"]),
+        _kernel_entry("flash_bwd_dq", flash_src, f"{flash_py}:192",
+                      tlaunches["dq"], main_flash["dq"]),
+        _kernel_entry("flash_bwd_dkv", flash_src, f"{flash_py}:239",
+                      tlaunches["dkv"], main_flash["dkv"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
 

@@ -9,7 +9,7 @@ same numbers to both packages through it.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -18,14 +18,19 @@ from ray_tpu_torch.models.llama import LlamaConfig, resolve_device
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, *,
-                      device="cuda") -> Dict[str, Any]:
-    """Numpy param tree -> the port's params in ``cfg.dtype`` on
-    ``device`` (see `llama.py` for why serving stores cfg.dtype)."""
+                      device="cuda",
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Numpy param tree -> the port's params on ``device`` in ``dtype``
+    (default ``cfg.dtype``, as serving stores them; training passes
+    torch.float32 for f32 master weights — see `llama.py`)."""
     device = resolve_device(device)
+    dtype = dtype or cfg.dtype
 
     def conv(x):
-        return torch.from_numpy(np.asarray(x, np.float32)).to(
-            device=device, dtype=cfg.dtype)
+        # np.array copies: the tensors never alias the caller's arrays,
+        # which a training step then updates in place
+        return torch.from_numpy(np.array(x, np.float32)).to(
+            device=device, dtype=dtype)
 
     return {
         "tok_embed": conv(tree["tok_embed"]),

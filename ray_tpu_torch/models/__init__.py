@@ -1,1 +1,2 @@
-"""Models of the PyTorch/CUDA port: Llama, cached generation, the paged DecodeEngine."""
+"""Models of the PyTorch/CUDA port: Llama, cached generation, the paged
+DecodeEngine and the train step."""

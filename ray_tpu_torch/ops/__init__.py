@@ -1,1 +1,2 @@
-"""Ops of the PyTorch/CUDA port: paged decode attention and KV quantization."""
+"""Ops of the PyTorch/CUDA port: the attention dispatch, flash
+attention, paged decode attention and KV quantization."""

@@ -1,10 +1,14 @@
-"""Paged decode attention: dispatch seam + the plain PyTorch version.
+"""Attention dispatch seams and their plain PyTorch versions.
 
-Port of `ray_tpu/ops/attention.py:paged_attention`. ``impl="auto"``
-launches the hand-written Hopper kernel for CUDA tensors
-(`ops.paged_attention_kernel`) and runs the plain version for CPU
-tensors; "kernel" and "reference" force one. There is no fallback: on
-a CUDA tensor "auto" launches the kernel or raises.
+Port of `ray_tpu/ops/attention.py`: `_repeat_kv`, `mha_reference`, the
+`attention` dispatch (training and prefill attention over contiguous
+K/V) and `paged_attention` (decode over the paged pool). In both seams
+``impl="auto"`` launches the hand-written Hopper kernels for CUDA
+tensors (`ops.flash_attention`, `ops.paged_attention_kernel`) and runs
+the plain version for CPU tensors; "kernel" and "reference" force one.
+There is no fallback: on a CUDA tensor "auto" launches the kernel or
+raises. The JAX dispatch's `shard_map` branch under a mesh waits for
+tensor parallelism (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -16,6 +20,89 @@ import torch
 from ray_tpu_torch.ops.paged_attention_kernel import paged_attention_kernel
 
 _NEG_INF = -1e30
+_IMPLS = ("auto", "kernel", "reference")
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, Hkv, S, D] -> [B, Hkv*n_rep, S, D] for grouped-query attention."""
+    if n_rep == 1:
+        return k
+    b, hkv, s, d = k.shape
+    return k[:, :, None].expand(b, hkv, n_rep, s, d).reshape(
+        b, hkv * n_rep, s, d)
+
+
+def mha_reference(q: torch.Tensor,
+                  k: torch.Tensor,
+                  v: torch.Tensor,
+                  *,
+                  causal: bool = True,
+                  sm_scale: Optional[float] = None,
+                  segment_ids: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Stable-softmax attention. q: [B,H,Sq,D]; k,v: [B,Hkv,Sk,D].
+
+    Computes in float32 whatever the input dtype (f32 operands: a bf16
+    product is exact in f32, so this is JAX's bf16 einsum with
+    preferred_element_type=float32) and returns q.dtype. A causal mask
+    lets q row i see kv columns <= i + (Sk - Sq) (a kv prefix, as in
+    decode). A row with no unmasked column attends to nothing: its
+    output and gradient are zero, as in the kernels."""
+    h, sq, d = q.shape[-3:]
+    hkv = k.shape[1]
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    sk = k.shape[2]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = None
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        mask = qi >= ki
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = seg if mask is None else (mask[None, None] & seg)
+    if mask is not None:
+        logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor,
+              k: torch.Tensor,
+              v: torch.Tensor,
+              *,
+              causal: bool = True,
+              sm_scale: Optional[float] = None,
+              impl: str = "auto",
+              block_q: Optional[int] = None,
+              block_k: Optional[int] = None) -> torch.Tensor:
+    """Dispatch: impl in {'auto', 'kernel', 'reference'}. "kernel" is
+    `ops.flash_attention.flash_attention` (the CUDA kernels on CUDA
+    tensors, their plain versions on CPU tensors); "reference" is
+    `mha_reference`. block_q/block_k are the JAX kernel's tile sizes:
+    validated, passed on, and ignored by the CUDA kernels (see
+    `flash_attention`)."""
+    for nm, b in (("block_q", block_q), ("block_k", block_k)):
+        if b is not None and b <= 0:
+            raise ValueError(f"{nm} must be positive, got {b}")
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+    if impl == "auto":
+        impl = "kernel" if q.is_cuda else "reference"
+    if impl == "kernel":
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               block_q=block_q, block_k=block_k)
+    return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def paged_attention(q: torch.Tensor,
@@ -51,7 +138,7 @@ def paged_attention(q: torch.Tensor,
     an all -1e30 row averages v uniformly, while the kernel (like the
     Pallas kernel) writes 0. The engine never forms such a row (a
     query's own slot is always live)."""
-    if impl not in ("auto", "kernel", "reference"):
+    if impl not in _IMPLS:
         raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
     B, S, H, D = q.shape
     NB, T, KV, _ = k_pages.shape

@@ -1,20 +1,32 @@
-"""PyTorch port, the hand-written paged-attention kernel on the card.
+"""PyTorch port, the hand-written attention kernels on the card.
 
-Holds `paged_attention(impl="kernel")` against the port's plain version
-(`impl="reference"`) on the same CUDA tensors, over every template
-instance the kernel is built for: q in f32 and bf16; pages in f32,
-bf16, int8 and fp8-e4m3; head dims 64 and 128; GQA groups of 1, 4 and
-8 query heads; one query per row and a 5-query window; ragged rows,
-garbage block-table entries and a row with no live slot. The kernel has
-no CPU mode, so every test needs a CUDA card and nvcc and skips without
-them. The file imports no JAX, so it also runs where JAX is missing:
+Holds each kernel against the port's plain version on the same CUDA
+tensors, over every template instance it is built for.
+
+Paged decode attention (`paged_attention(impl="kernel")` against
+`impl="reference"`): q in f32 and bf16; pages in f32, bf16, int8 and
+fp8-e4m3; head dims 64 and 128; GQA groups of 1, 4 and 8 query heads;
+one query per row and a 5-query window; ragged rows, garbage
+block-table entries and a row with no live slot. Tolerances: f32 q,
+1e-5 abs/rel (f32 arithmetic in both, summed in another order); bf16 q,
+2e-2 abs/rel (the kernel writes bf16, the plain version is evaluated in
+f32 from the same bf16 or quantized inputs).
+
+Flash attention (kernels B1, B3a, B3b against `_flash_fwd_reference`
+and `_flash_bwd_reference`): inputs in f32 and bf16, gradients in the
+input type or f32 (``grad_dtype``), head dims 64 and 128, at three
+shapes: GQA with lengths no tile divides, a kv prefix (Sq < Sk,
+non-causal) and Sq > Sk causal (fully masked rows, which must be exactly
+0 in o and dq). Tolerances: f32, 1e-4 abs/rel (the online softmax and
+the tile order change the summation order); bf16, 2e-2 abs/rel (bf16
+outputs; p rounded to bf16 per tile in the kernel, once in the plain
+version).
+
+The kernels have no CPU mode, so every test needs a CUDA card and nvcc
+and skips without them. The file imports no JAX, so it also runs where
+JAX is missing:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_kernel.py -q
-
-Tolerances: f32 q with any page type, 1e-5 abs/rel (f32 arithmetic in
-both, summed in another order); bf16 q, 2e-2 abs/rel (the kernel writes
-bf16, the plain version is evaluated in f32 from the same bf16 or
-quantized inputs).
 """
 
 import faulthandler
@@ -23,9 +35,11 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import flash_attention_kernel as fak
 from ray_tpu_torch.ops import kv_quant
 from ray_tpu_torch.ops import paged_attention_kernel as pak
-from ray_tpu_torch.ops.attention import paged_attention
+from ray_tpu_torch.ops.attention import mha_reference, paged_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +125,87 @@ def test_kernel_matches_plain_version(cuda, shape, qdt, pool):
     tol = _TOL[qdt]
     torch.testing.assert_close(out.float()[~dead], ref[~dead],
                                atol=tol, rtol=tol)
+
+
+# (B, H, Hkv, Sq, Sk, causal)
+_FLASH_SHAPES = {"gqa_ragged": (2, 4, 2, 100, 100, True),
+                 "prefix_noncausal": (1, 2, 1, 70, 130, False),
+                 "masked_rows": (1, 3, 3, 150, 90, True)}
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+_FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def _flash_case(shape, D, dt, device, seed):
+    B, H, Hkv, Sq, Sk, causal = _FLASH_SHAPES[shape]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, H, Sq, D, generator=g, device=device).to(dt)
+    k = torch.randn(B, Hkv, Sk, D, generator=g, device=device).to(dt)
+    v = torch.randn(B, Hkv, Sk, D, generator=g, device=device).to(dt)
+    do = torch.randn(B, H, Sq, D, generator=g, device=device).to(dt)
+    return q, k, v, do, causal, Sq - Sk
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(_FLASH_SHAPES))
+def test_flash_fwd_kernel_matches_plain_version(cuda, shape, dt, D):
+    q, k, v, _, causal, dead = _flash_case(shape, D, _DT[dt], cuda, D)
+    scale = D ** -0.5
+    before = fak.fwd_launches
+    o, lse = fa._flash_fwd(q, k, v, scale, causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert fak.fwd_launches == before + 1
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    ro, rlse = fa._flash_fwd_reference(q, k, v, scale, causal)
+    tol = _FLASH_TOL[dt]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    if causal and dead > 0:
+        assert bool((o[:, :, :dead] == 0).all())
+        assert bool((lse[:, :, :dead] <= -5e29).all())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dt,grad", [("f32", "f32"), ("bf16", "bf16"),
+                                     ("bf16", "f32")])
+@pytest.mark.parametrize("shape", list(_FLASH_SHAPES))
+def test_flash_bwd_kernels_match_plain_version(cuda, shape, dt, grad, D):
+    q, k, v, do, causal, dead = _flash_case(shape, D, _DT[dt], cuda, D + 1)
+    scale = D ** -0.5
+    o, lse = fa._flash_fwd_reference(q, k, v, scale, causal)
+    grad_dtype = None if grad == dt else _DT[grad]
+    before = (fak.dq_launches, fak.dkv_launches)
+    got = fa._flash_bwd(q, k, v, o, lse, do, scale, causal,
+                        grad_dtype=grad_dtype)
+    torch.cuda.synchronize()
+    assert (fak.dq_launches, fak.dkv_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = fa._flash_bwd_reference(q, k, v, o, lse, do, scale, causal,
+                                   grad_dtype=grad_dtype)
+    tol = _FLASH_TOL[dt]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == _DT[grad] and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=name)
+    if causal and dead > 0:
+        assert bool((got[0][:, :, :dead] == 0).all())
+
+
+def test_flash_attention_autograd_launches_kernels(cuda):
+    """The autograd wrapper on CUDA: one forward and one of each
+    backward kernel per call, values and grads equal to the plain
+    attention's (f32, 1e-4)."""
+    q, k, v, do, _, _ = _flash_case("gqa_ragged", 64, torch.float32, cuda, 7)
+    before = (fak.fwd_launches, fak.dq_launches, fak.dkv_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fak.fwd_launches, fak.dq_launches, fak.dkv_launches) == tuple(
+        n + 1 for n in before)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = mha_reference(*plain, causal=True)
+    ref.backward(do)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)

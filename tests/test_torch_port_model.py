@@ -54,7 +54,8 @@ def test_config_presets_match():
             getattr(tllama.LlamaConfig, name)()
         for f in ("vocab_size", "dim", "n_layers", "n_heads",
                   "n_kv_heads", "ffn_dim", "max_seq_len", "rope_theta",
-                  "norm_eps"):
+                  "norm_eps", "remat", "remat_policy", "flash_block_q",
+                  "flash_block_k", "loss_chunk"):
             assert getattr(j, f) == getattr(t, f), (name, f)
         assert j.num_params() == t.num_params()
         assert j.head_dim == t.head_dim
