@@ -8,7 +8,10 @@ Phases, each of which must pass:
   1. device  — the card's name and count, nvidia-smi's name and power
                limit; TF32 off for matmuls and cuDNN.
   2. build   — nvcc builds the kernels from ray_tpu_torch/csrc/ (one nvcc
-               per source, all started together).
+               per source, all started together): the paged kernel, the
+               flash kernels of the first port (dq; f32 forward and
+               dk/dv) and the wgmma/TMA flash kernels (bf16 forward and
+               dk/dv).
   3. kernel  — the paged decode-attention kernel against its plain
                PyTorch version at Llama-3-8B decode shapes (bf16, int8
                and fp8 pools; 1 and 5 queries per row), with times at
@@ -25,9 +28,13 @@ Phases, each of which must pass:
   6. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
-               edge cases; times at the first two beside the bound and
-               torch's scaled_dot_product_attention forward and backward
-               (timed here only; the port never calls it).
+               edge cases (bf16 cases run the wgmma forward and dk/dv,
+               c_f32 the exact-f32 ones, c_d64 D=64); times at the first
+               two beside the bound and torch's
+               scaled_dot_product_attention forward and backward (timed
+               here only; the port never calls it), with each kernel's
+               factor over SDPA (the forward's over SDPA's forward, dq's
+               and dk/dv's over SDPA's whole backward).
   7. train   — bench.py:flagship_config()'s widths at full depth (only
                remat_policy changed, to "full") train on batch 8 x 2048
                tokens with f32 master weights and adamw(3e-4,
@@ -116,7 +123,7 @@ def device_phase():
 def build_phase():
     from ray_tpu_torch import _build
 
-    names = ("paged_attention", "flash_attention")
+    names = ("paged_attention", "flash_attention", "flash_attention_sm90")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
@@ -483,7 +490,8 @@ def flash_phase():
                 line += (f"\n[flash]   {kern}: kernel {t[kern]:.4f} ms, "
                          f"bound {bound:.4f} ms ({by}, {bound / t[kern]:.1%}"
                          f" of bound), plain {t[plain]:.4f} ms, SDPA "
-                         f"{t[lib]:.4f} ms")
+                         f"{t[lib]:.4f} ms, kernel / SDPA "
+                         f"{t[kern] / t[lib]:.2f}x")
             line += ("\n[flash]   (the plain backward and SDPA's backward "
                      "each compute dq, dk and dv in one call)")
         log(line)
@@ -632,6 +640,8 @@ def main():
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     flash_src = "ray_tpu_torch/csrc/flash_attention.cu"
+    # the main path is bf16: its forward and dk/dv run the wgmma kernels
+    sm90_src = "ray_tpu_torch/csrc/flash_attention_sm90.cu"
     flash_py = "ray_tpu/ops/flash_attention.py"
     main_flash = fres["a_flagship"]
     log(json.dumps({"kernels": [
@@ -639,11 +649,11 @@ def main():
                       "ray_tpu_torch/csrc/paged_attention.cu",
                       "ray_tpu/ops/paged_attention_kernel.py:104",
                       launches, kres[("bf16", 1)]),
-        _kernel_entry("flash_fwd", flash_src, f"{flash_py}:130",
+        _kernel_entry("flash_fwd", sm90_src, f"{flash_py}:130",
                       tlaunches["fwd"], main_flash["fwd"]),
         _kernel_entry("flash_bwd_dq", flash_src, f"{flash_py}:192",
                       tlaunches["dq"], main_flash["dq"]),
-        _kernel_entry("flash_bwd_dkv", flash_src, f"{flash_py}:239",
+        _kernel_entry("flash_bwd_dkv", sm90_src, f"{flash_py}:239",
                       tlaunches["dkv"], main_flash["dkv"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -52,8 +52,10 @@ def _nvcc() -> str:
 
 def _ptxas_summary(log: str) -> str:
     """One line from ``ptxas -v``: each distinct register/barrier usage
-    with its count of kernels, the largest static shared memory and the
-    total spill bytes (dynamic shared memory is sized per launch)."""
+    with its count of kernels, the largest static shared memory, the
+    total spill bytes (dynamic shared memory is sized per launch) and the
+    count of ptxas's "Potential Performance Loss" notes (a wgmma it
+    serialized, for one)."""
     usage = collections.Counter(
         ", ".join(p for p in ln.split(":", 1)[1].strip().split(", ")
                   if "bytes" not in p)
@@ -61,9 +63,11 @@ def _ptxas_summary(log: str) -> str:
         if ln.startswith("ptxas info") and " Used " in ln)
     smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
     spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+    losses = log.count("Potential Performance Loss")
     kinds = " | ".join(f"{n} x {u}" for u, n in sorted(usage.items()))
     return (f"ptxas ({sum(usage.values())} kernels): {kinds}; static smem "
-            f"{max(smem, default=0)} B; spills {spills} B")
+            f"{max(smem, default=0)} B; spills {spills} B; performance-loss "
+            f"notes {losses}")
 
 
 def build(name: str) -> str:

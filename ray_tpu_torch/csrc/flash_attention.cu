@@ -1,6 +1,10 @@
 // Flash attention for Hopper (sm_90a): forward (with the row logsumexp) and
 // the two backward kernels, plain C interface for ctypes.
 //
+// Instances served here: the f32 forward and dk/dv (exact f32 FMAs: wgmma
+// has no exact f32 form), and the dq backward for f32 and bf16 inputs.
+// The bf16 forward and dk/dv are flash_attention_sm90.cu's wgmma kernels.
+//
 // Replaces, in ray_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel     <- _flash_fwd (Pallas bodies _fwd_kernel and
 //                           _fwd_kernel_lse)                      [B1]
@@ -586,8 +590,9 @@ cudaError_t bwd_dkv(const Shape& s, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// Instances: input type f32 or bf16; output f32, or bf16 for bf16 input;
-// D 64 or 128. Type codes: 0 float32, 1 bfloat16.
+// Instances: f32 forward and dk/dv; dq for f32 input, and for bf16 input
+// with bf16 or f32 output; D 64 or 128. Type codes: 0 float32,
+// 1 bfloat16.
 #define RTT_DISPATCH_D(D_, ...)          \
   switch (D_) {                          \
     case 64: {                           \
@@ -601,16 +606,6 @@ cudaError_t bwd_dkv(const Shape& s, const void* q, const void* k,
     default:                             \
       return cudaErrorInvalidValue;      \
   }
-
-template <typename T>
-size_t smem_of(int kernel, int D) {
-  const bool d64 = D == 64;
-  switch (kernel) {
-    case 0: return d64 ? FwdSmem<T, 64>::bytes : FwdSmem<T, 128>::bytes;
-    case 1: return d64 ? DqSmem<T, 64>::bytes : DqSmem<T, 128>::bytes;
-    default: return d64 ? DkvSmem<T, 64>::bytes : DkvSmem<T, 128>::bytes;
-  }
-}
 
 }  // namespace
 
@@ -630,9 +625,6 @@ int ray_tpu_torch_flash_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     RTT_DISPATCH_D(D, fwd<float, kD>(s, q, k, v, o, l, st));
-  }
-  if (dtype == 1) {
-    RTT_DISPATCH_D(D, fwd<bf16, kD>(s, q, k, v, o, l, st));
   }
   return cudaErrorInvalidValue;
 }
@@ -676,20 +668,7 @@ int ray_tpu_torch_flash_bwd_dkv(const void* q, const void* k, const void* v,
     RTT_DISPATCH_D(D, bwd_dkv<float, float, kD>(s, q, k, v, dout, l, dl, dk,
                                                 dv, st));
   }
-  if (dtype == 1 && out_dtype == 1) {
-    RTT_DISPATCH_D(D, bwd_dkv<bf16, bf16, kD>(s, q, k, v, dout, l, dl, dk,
-                                              dv, st));
-  }
-  if (dtype == 1 && out_dtype == 0) {
-    RTT_DISPATCH_D(D, bwd_dkv<bf16, float, kD>(s, q, k, v, dout, l, dl, dk,
-                                               dv, st));
-  }
   return cudaErrorInvalidValue;
-}
-
-// Dynamic shared memory of one block: kernel 0 forward, 1 dq, 2 dk/dv.
-size_t ray_tpu_torch_flash_smem(int kernel, int dtype, int D) {
-  return dtype == 0 ? smem_of<float>(kernel, D) : smem_of<bf16>(kernel, D);
 }
 
 const char* ray_tpu_torch_flash_error_string(int err) {

@@ -291,14 +291,41 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return _rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
+class _F32OutMatmul(torch.autograd.Function):
+    """h [N, d] @ w [d, V] for bf16 operands on the card, with the f32
+    result of the tensor-core GEMM (cuBLAS through torch.mm's
+    ``out_dtype``) instead of its bf16 rounding. The backward rounds the
+    f32 cotangent to bf16 once and runs two bf16 GEMMs, whose f32 sums
+    are rounded to the operands' dtype as JAX's transposed products are."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        dh = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = h.t() @ g if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
 def _logits(h: torch.Tensor, lm_head: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
-    """[..., d] hidden -> [..., vocab] f32 logits. JAX multiplies the
-    cfg.dtype operands with an f32 result (preferred_element_type); the
-    port's product rounds to cfg.dtype before the f32 upcast, which is
-    exact for f32 configs and keeps bf16 configs on the bf16 tensor-core
-    GEMM (an f32-output GEMM is ROADMAP A11b)."""
-    return torch.matmul(h, lm_head.to(cfg.dtype)).float()
+    """[..., d] hidden -> [..., vocab] f32 logits: the cfg.dtype operands
+    multiplied with an f32 result, as JAX's einsum with
+    ``preferred_element_type=float32``. On the CPU both operands are
+    upcast to f32 (a product of two bf16 values is exact in f32); a bf16
+    config on the card keeps the bf16 tensor-core GEMM, with its f32
+    accumulator as the result (an f32 GEMM of the flagship's vocab
+    projection would cost tens of ms a step)."""
+    w = lm_head.to(cfg.dtype)
+    if h.is_cuda and cfg.dtype != torch.float32:
+        flat = _F32OutMatmul.apply(h.reshape(-1, h.shape[-1]), w)
+        return flat.reshape(*h.shape[:-1], w.shape[-1])
+    return torch.matmul(h.float(), w.float())
 
 
 def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,

@@ -4,7 +4,8 @@ versions and the autograd wrapper.
 Port of `ray_tpu/ops/flash_attention.py`. `_flash_fwd` and `_flash_bwd`
 keep the JAX drivers' signatures (less ``interpret``): on CUDA tensors
 they launch the hand-written Hopper kernels of
-`ops.flash_attention_kernel` (B1 forward, B3a dq, B3b dk/dv), on CPU
+`ops.flash_attention_kernel` (B1 forward, B3a dq, B3b dk/dv; bf16
+forward and dk/dv on wgmma with TMA loads), on CPU
 tensors they run the plain versions `_flash_fwd_reference` and
 `_flash_bwd_reference`. There is no fallback: a CUDA tensor the kernels
 do not take raises.
@@ -172,8 +173,10 @@ def flash_attention(q: torch.Tensor,
 
     block_q/block_k are validated as positive and otherwise ignored: on
     the TPU they sized the Pallas kernel's VMEM tiles, while the CUDA
-    kernels use their own compile-time tiles (64 rows; 32 q rows per
-    step of the dk/dv loop). Results do not depend on them."""
+    kernels use their own compile-time tiles (bf16 forward: 128 q rows
+    by 64 kv rows; bf16 dk/dv: 64 kv rows by 64 q rows; f32 and dq: 64
+    rows, 32 q rows per step of the f32 dk/dv loop). Results do not
+    depend on them."""
     _check_blocks(block_q, block_k)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5

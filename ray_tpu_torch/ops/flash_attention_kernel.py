@@ -3,10 +3,20 @@
 Port of the three `pl.pallas_call` sites of
 `ray_tpu/ops/flash_attention.py`: the forward with the row logsumexp
 (`_flash_fwd`), the dq backward and the dk/dv backward (`_flash_bwd`).
-The kernels are ``csrc/flash_attention.cu`` (design notes at its top),
-built by `ray_tpu_torch._build` at the first launch and called through
-ctypes on PyTorch's current stream. Their plain PyTorch versions are
-`ops.flash_attention._flash_fwd_reference` and `_flash_bwd_reference`.
+The kernel is chosen by the inputs' dtype:
+
+- bf16 forward and dk/dv: ``csrc/flash_attention_sm90.cu`` (wgmma fed by
+  a TMA ring), whatever the gradients' dtype;
+- f32 forward and dk/dv, and the dq backward of both dtypes:
+  ``csrc/flash_attention.cu`` (mma.sync for bf16, exact f32 FMAs for f32:
+  wgmma has no exact f32 form).
+
+That is a dispatch by type, not a fallback: a kernel that does not build
+or launch raises. Each source carries its design notes at its top, is
+built by `ray_tpu_torch._build` at its first launch and is called
+through ctypes on PyTorch's current stream. The plain PyTorch versions
+are `ops.flash_attention._flash_fwd_reference` and
+`_flash_bwd_reference`.
 
 `fwd_launches`, `dq_launches` and `dkv_launches` count kernel launches
 (one per call that reached its kernel); a run sets them to 0 before the
@@ -47,20 +57,32 @@ def _lib() -> ctypes.CDLL:
                    lib.ray_tpu_torch_flash_bwd_dq,
                    lib.ray_tpu_torch_flash_bwd_dkv):
             fn.restype = _I
-        lib.ray_tpu_torch_flash_smem.argtypes = [_I, _I, _I]
-        lib.ray_tpu_torch_flash_smem.restype = ctypes.c_size_t
         lib.ray_tpu_torch_flash_error_string.argtypes = [_I]
         lib.ray_tpu_torch_flash_error_string.restype = ctypes.c_char_p
         lib._ray_tpu_torch_bound = True
     return lib
 
 
-def shared_memory_bytes(kernel: str, dtype: torch.dtype,
-                        head_dim: int) -> int:
-    """Dynamic shared memory of one thread block of ``kernel`` ("fwd",
-    "dq" or "dkv") for inputs of ``dtype``."""
-    return _lib().ray_tpu_torch_flash_smem(
-        ("fwd", "dq", "dkv").index(kernel), _CODES[dtype], head_dim)
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_sm90")
+    if not getattr(lib, "_ray_tpu_torch_bound", False):
+        lib.ray_tpu_torch_flash_sm90_fwd.argtypes = \
+            [_P] * 5 + [_I] * 6 + [_F, _I, _P]
+        lib.ray_tpu_torch_flash_sm90_bwd_dkv.argtypes = \
+            [_P] * 8 + [_I] * 7 + [_F, _I, _P]
+        for fn in (lib.ray_tpu_torch_flash_sm90_fwd,
+                   lib.ray_tpu_torch_flash_sm90_bwd_dkv):
+            fn.restype = _I
+        lib.ray_tpu_torch_flash_sm90_error_string.argtypes = [_I]
+        lib.ray_tpu_torch_flash_sm90_error_string.restype = ctypes.c_char_p
+        lib._ray_tpu_torch_bound = True
+    return lib
+
+
+def _sm90(dtype: torch.dtype) -> bool:
+    """Whether inputs of ``dtype`` take the wgmma kernels (forward and
+    dk/dv)."""
+    return dtype == torch.bfloat16
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -109,15 +131,14 @@ def _out_dtype(q: torch.Tensor, grad_dtype: Optional[torch.dtype]):
     return out
 
 
-def _launch(what: str, fn, device: torch.device, *args) -> None:
-    """Call a C launcher on ``device``'s current stream; raise if the
-    launch was refused."""
+def _launch(what: str, fn, strerror, device: torch.device, *args) -> None:
+    """Call a C launcher on ``device``'s current stream; raise with
+    ``strerror``'s text if the launch was refused."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention {what} kernel launch failed: "
-            + _lib().ray_tpu_torch_flash_error_string(err).decode())
+        raise RuntimeError(f"flash_attention {what} kernel launch failed: "
+                           + strerror(err).decode())
 
 
 def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,10 +153,19 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device) if with_lse else None
     if Sq == 0:
         return o, lse
-    _launch("forward", _lib().ray_tpu_torch_flash_fwd, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None, _CODES[q.dtype], B, H,
-            Hkv, Sq, Sk, D, float(sm_scale), int(bool(causal)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None)
+    shape = (B, H, Hkv, Sq, Sk, D, float(sm_scale), int(bool(causal)))
+    if _sm90(q.dtype):
+        lib = _lib_sm90()
+        _launch("forward", lib.ray_tpu_torch_flash_sm90_fwd,
+                lib.ray_tpu_torch_flash_sm90_error_string, q.device, *ptrs,
+                *shape)
+    else:
+        lib = _lib()
+        _launch("forward", lib.ray_tpu_torch_flash_fwd,
+                lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
+                _CODES[q.dtype], *shape)
     fwd_launches += 1
     return o, lse
 
@@ -151,7 +181,9 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, sm_scale: float,
     dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if Sq == 0:
         return dq
-    _launch("dq", _lib().ray_tpu_torch_flash_bwd_dq, q.device,
+    lib = _lib()
+    _launch("dq", lib.ray_tpu_torch_flash_bwd_dq,
+            lib.ray_tpu_torch_flash_error_string, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _CODES[q.dtype], _CODES[out_dtype], B, H, Hkv, Sq, Sk, D,
@@ -173,10 +205,18 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, sm_scale: float,
     dv = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     if Sk == 0:
         return dk, dv
-    _launch("dk/dv", _lib().ray_tpu_torch_flash_bwd_dkv, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _CODES[q.dtype], _CODES[out_dtype], B, H, Hkv, Sq, Sk, D,
-            float(sm_scale), int(bool(causal)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B, H, Hkv, Sq, Sk, D, float(sm_scale), int(bool(causal)))
+    if _sm90(q.dtype):
+        lib = _lib_sm90()
+        _launch("dk/dv", lib.ray_tpu_torch_flash_sm90_bwd_dkv,
+                lib.ray_tpu_torch_flash_sm90_error_string, q.device, *ptrs,
+                _CODES[out_dtype], *shape)
+    else:
+        lib = _lib()
+        _launch("dk/dv", lib.ray_tpu_torch_flash_bwd_dkv,
+                lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
+                _CODES[q.dtype], _CODES[out_dtype], *shape)
     dkv_launches += 1
     return dk, dv

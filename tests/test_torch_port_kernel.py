@@ -13,11 +13,14 @@ block-table entries and a row with no live slot. Tolerances: f32 q,
 f32 from the same bf16 or quantized inputs).
 
 Flash attention (kernels B1, B3a, B3b against `_flash_fwd_reference`
-and `_flash_bwd_reference`): inputs in f32 and bf16, gradients in the
-input type or f32 (``grad_dtype``), head dims 64 and 128, at three
-shapes: GQA with lengths no tile divides, a kv prefix (Sq < Sk,
-non-causal) and Sq > Sk causal (fully masked rows, which must be exactly
-0 in o and dq). Tolerances: f32, 1e-4 abs/rel (the online softmax and
+and `_flash_bwd_reference`; bf16 inputs take the wgmma kernels of
+``flash_attention_sm90.cu`` for B1 and B3b, f32 inputs and B3a those of
+``flash_attention.cu``): inputs in f32 and bf16, gradients in the input
+type or f32 (``grad_dtype``), head dims 64 and 128, at five shapes: GQA
+with lengths no tile divides, a kv prefix (Sq < Sk, non-causal), Sq > Sk
+causal (fully masked rows, which must be exactly 0 in o and dq), and two
+multi-tile causal shapes (GQA 8/2 at 1000 x 1000; 700 x 330 with dead
+rows). Tolerances: f32, 1e-4 abs/rel (the online softmax and
 the tile order change the summation order); bf16, 2e-2 abs/rel (bf16
 outputs; p rounded to bf16 per tile in the kernel, once in the plain
 version).
@@ -127,10 +130,14 @@ def test_kernel_matches_plain_version(cuda, shape, qdt, pool):
                                atol=tol, rtol=tol)
 
 
-# (B, H, Hkv, Sq, Sk, causal)
+# (B, H, Hkv, Sq, Sk, causal). The last two span many tiles of every
+# kernel, more kv tiles than the wgmma kernels' rings have stages, and
+# ragged tails on both sides (the second with dead rows, Sq > Sk).
 _FLASH_SHAPES = {"gqa_ragged": (2, 4, 2, 100, 100, True),
                  "prefix_noncausal": (1, 2, 1, 70, 130, False),
-                 "masked_rows": (1, 3, 3, 150, 90, True)}
+                 "masked_rows": (1, 3, 3, 150, 90, True),
+                 "multi_tile_gqa": (2, 8, 2, 1000, 1000, True),
+                 "multi_tile_masked": (1, 4, 1, 700, 330, True)}
 _DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 _FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}
 

@@ -13,6 +13,7 @@ optimizers compute the same update in another order).
 
 import dataclasses
 import faulthandler
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -237,3 +238,66 @@ def test_master_weight_dtype():
                                                        dtype=torch.long)},
                              cfg)
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
+
+
+def _bf16_head(seed=11):
+    """Seeded numpy hidden states [2, 8, 256], lm_head [256, 1000] (f32
+    master) and targets of a bf16 config, the hidden states already
+    rounded to bf16 (as llama_hidden hands them over)."""
+    jcfg = jllama.LlamaConfig.nano(dim=256, vocab_size=1000,
+                                   dtype=jnp.bfloat16)
+    tcfg = tllama.LlamaConfig.nano(dim=256, vocab_size=1000,
+                                   dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    h = rng.standard_normal((2, 8, 256)).astype(np.float32)
+    w = (rng.standard_normal((256, 1000)) * 256 ** -0.5).astype(np.float32)
+    targets = rng.randint(0, 1000, size=(2, 8)).astype(np.int32)
+    return jcfg, tcfg, h, w, targets
+
+
+def test_bf16_logits_and_nll_keep_f32_accumulator():
+    """A bf16 config's vocab projection keeps JAX's f32 accumulator
+    (preferred_element_type=float32) in `llama_forward` and `_nll`: the
+    same bf16 hidden states and lm_head give the same logits and token
+    nll at 1e-5 (f32 sums of exact bf16 products in another order).
+    Rounding the product to bf16 first is off by ~1e-2."""
+    jcfg, tcfg, h, w, targets = _bf16_head()
+    jh = jnp.asarray(h).astype(jnp.bfloat16)
+    th = torch.from_numpy(h).bfloat16()
+    assert np.array_equal(np.asarray(jh.astype(jnp.float32)),
+                          th.float().numpy())
+    tokens = np.zeros((2, 8), np.int32)
+    with mock.patch.object(jllama, "llama_hidden", lambda *a, **k: jh), \
+            mock.patch.object(tllama, "llama_hidden", lambda *a, **k: th):
+        want = jllama.llama_forward({"lm_head": jnp.asarray(w)},
+                                    jnp.asarray(tokens), jcfg)
+        got = tllama.llama_forward({"lm_head": torch.from_numpy(w)},
+                                   torch.from_numpy(tokens), tcfg)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want, 1e-5)
+    want = jllama._nll(jh, jnp.asarray(targets), jnp.asarray(w), jcfg)
+    got = tllama._nll(th, torch.from_numpy(targets), torch.from_numpy(w),
+                      tcfg)
+    _close(got, want, 1e-5)
+
+
+def test_bf16_nll_grads_match_jax():
+    """Gradients of a bf16 config's summed token nll in the hidden
+    states (bf16) and the f32 master lm_head, against jax.grad of
+    `_nll`: both sum in f32 and round to bf16 at the same points, so
+    they agree to within one bf16 rounding (2**-7 relative, 1e-2 here)
+    where the f32 sums fall either side of a rounding boundary."""
+    jcfg, tcfg, h, w, targets = _bf16_head(seed=12)
+    jh = jnp.asarray(h).astype(jnp.bfloat16)
+    jdh, jdw = jax.grad(
+        lambda a, b: jllama._nll(a, jnp.asarray(targets), b, jcfg).sum(),
+        argnums=(0, 1))(jh, jnp.asarray(w))
+    th = torch.from_numpy(h).bfloat16().requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tllama._nll(th, torch.from_numpy(targets), tw, tcfg).sum().backward()
+    assert th.grad.dtype == torch.bfloat16 and tw.grad.dtype == torch.float32
+    np.testing.assert_allclose(th.grad.float().numpy(),
+                               np.asarray(jdh.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-6)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw),
+                               rtol=1e-2, atol=1e-6)
