@@ -8,14 +8,16 @@ Phases, each of which must pass:
   1. device  — the card's name and count, nvidia-smi's name and power
                limit; TF32 off for matmuls and cuDNN.
   2. build   — nvcc builds the kernels from ray_tpu_torch/csrc/ (one nvcc
-               per source, all started together): the paged kernel, the
-               flash kernels of the first port (dq; f32 forward and
-               dk/dv) and the wgmma/TMA flash kernels (bf16 forward and
+               per source, all started together): the split-KV paged
+               kernel, the exact-f32 flash kernels (forward, dq, dk/dv)
+               and the wgmma/TMA flash kernels (bf16 forward, dq and
                dk/dv).
-  3. kernel  — the paged decode-attention kernel against its plain
-               PyTorch version at Llama-3-8B decode shapes (bf16, int8
-               and fp8 pools; 1 and 5 queries per row), with times at
-               S=1 beside the memory bound.
+  3. kernel  — the paged decode-attention kernel (split pass + combine
+               pass) against its plain PyTorch version at Llama-3-8B
+               decode shapes (bf16, int8 and fp8 pools; 1 and 5 queries
+               per row), with its split plan and grid, and times at S=1
+               (the kernel's as a replayed CUDA graph, and per eager call)
+               beside the memory bound and their share of it.
   4. small   — a 2-layer f32 model served by the paged DecodeEngine
                (kernel) must emit the greedy tokens of solo `generate`
                (plain attention).
@@ -28,8 +30,8 @@ Phases, each of which must pass:
   6. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
-               edge cases (bf16 cases run the wgmma forward and dk/dv,
-               c_f32 the exact-f32 ones, c_d64 D=64); times at the first
+               edge cases (bf16 cases run the wgmma kernels, c_f32 the
+               exact-f32 ones, c_d64 D=64); times at the first
                two beside the bound and torch's
                scaled_dot_product_attention forward and backward (timed
                here only; the port never calls it), with each kernel's
@@ -148,6 +150,33 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls=20, reps=20):
+    """Mean ms per call of `calls` calls captured in one CUDA graph and
+    replayed `reps` times (CUDA events): the card's time for the call
+    without the host's Python work per call, which at a few tens of
+    microseconds of kernel time would be measured instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def _kernel_inputs(S, pool, copies):
     """`copies` independent input sets at the decode shapes (timing
     rotates through them so each launch finds its pages outside the
@@ -209,10 +238,17 @@ def _bound_ms(q_slots, S, pool):
 
 
 def kernel_phase():
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
     from ray_tpu_torch.ops.attention import paged_attention
-    from ray_tpu_torch.ops.paged_attention_kernel import shared_memory_bytes
 
     span = MB * T
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per, splits = pak.split_plan(MB, T, B, KV, sms)
+    blocks = splits * KV * B
+    log(f"[kernel] split plan at B={B}, KV={KV}, MB={MB}, T={T} on {sms} "
+        f"SMs: {per} pages ({per * T} slots) per split, {splits} splits, "
+        f"{blocks} split blocks")
+    assert blocks > sms, f"{blocks} split blocks do not fill {sms} SMs"
     results = {}
     for pool in ("bf16", "int8", "fp8_e4m3"):
         for S in (1, 5):
@@ -235,9 +271,11 @@ def kernel_phase():
             assert bool((out32[dead] == 0).all()), f"{pool} S={S}: dead row"
             err = (out32 - ref).abs()
             ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-            smem = shared_memory_bytes((H // KV) * S, D, T)
+            smem, mma = pak.kernel_config(q.dtype, kp.dtype, (H // KV) * S,
+                                          D, T)
             line = (f"[kernel] pool={pool} S={S}: max_abs_err="
                     f"{err.max().item():.3e} (atol {ATOL}, rtol {RTOL}); "
+                    f"{'tensor-core' if mma else 'FMA'} split kernel, "
                     f"{smem} B dynamic shared memory per block")
             assert ok, line + " FAILED"
             res = {"max_abs_err": err.max().item()}
@@ -252,11 +290,13 @@ def kernel_phase():
                     paged_attention(q, kp, vp, bt, qs, kv_valid_len=span,
                                     k_scale=ks, v_scale=vs, impl=impl)
 
-                res["ms"] = _time_ms(lambda: run("kernel"), 100)
+                res["ms"] = _graph_ms(lambda: run("kernel"))
+                eager = _time_ms(lambda: run("kernel"), 100)
                 res["plain_ms"] = _time_ms(lambda: run("reference"), 10)
                 res["bound_ms"], res["bound_by"] = _bound_ms(qs_np, S, pool)
-                line += (f"; kernel {res['ms']:.4f} ms, plain "
-                         f"{res['plain_ms']:.4f} ms, bound "
+                line += (f"; kernel {res['ms']:.4f} ms on the card (CUDA "
+                         f"graph), {eager:.4f} ms per eager call; plain "
+                         f"{res['plain_ms']:.4f} ms (eager); bound "
                          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
                          f"{res['bound_ms'] / res['ms']:.1%} of bound")
             log(line)
@@ -639,8 +679,7 @@ def main():
     phase("parity", parity_phase)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
-    flash_src = "ray_tpu_torch/csrc/flash_attention.cu"
-    # the main path is bf16: its forward and dk/dv run the wgmma kernels
+    # the main path is bf16: its flash kernels are the wgmma ones
     sm90_src = "ray_tpu_torch/csrc/flash_attention_sm90.cu"
     flash_py = "ray_tpu/ops/flash_attention.py"
     main_flash = fres["a_flagship"]
@@ -651,7 +690,7 @@ def main():
                       launches, kres[("bf16", 1)]),
         _kernel_entry("flash_fwd", sm90_src, f"{flash_py}:130",
                       tlaunches["fwd"], main_flash["fwd"]),
-        _kernel_entry("flash_bwd_dq", flash_src, f"{flash_py}:192",
+        _kernel_entry("flash_bwd_dq", sm90_src, f"{flash_py}:192",
                       tlaunches["dq"], main_flash["dq"]),
         _kernel_entry("flash_bwd_dkv", sm90_src, f"{flash_py}:239",
                       tlaunches["dkv"], main_flash["dkv"]),

@@ -1,9 +1,9 @@
 // Flash attention for Hopper (sm_90a): forward (with the row logsumexp) and
 // the two backward kernels, plain C interface for ctypes.
 //
-// Instances served here: the f32 forward and dk/dv (exact f32 FMAs: wgmma
-// has no exact f32 form), and the dq backward for f32 and bf16 inputs.
-// The bf16 forward and dk/dv are flash_attention_sm90.cu's wgmma kernels.
+// Instances served here: f32 inputs only, for all three kernels (exact
+// f32 FMAs: wgmma has no exact f32 form). Every bf16 kernel (forward, dq
+// and dk/dv) is a wgmma kernel in flash_attention_sm90.cu.
 //
 // Replaces, in ray_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel     <- _flash_fwd (Pallas bodies _fwd_kernel and
@@ -28,34 +28,27 @@
 // Design (simple and right first):
 // - One thread block of 4 warps per (q tile of 64 rows, q head, batch) in
 //   the forward and dq kernels, and per (kv tile of 64 rows, kv head,
-//   batch) in the dk/dv kernel. Each warp owns 16 rows: one m16 tile of
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate). A loop inside the block
-//   replaces the TPU kernel's sequential grid axis: over kv tiles up to
-//   the causal limit (forward, dq), over the q tiles from the causal start
-//   and over the GQA group's q heads (dk/dv, so the [B,H,Sk,D] per-head
-//   intermediate and its group sum disappear).
+//   batch) in the dk/dv kernel. Each warp owns 16 rows, in the fragment
+//   layout of mma.sync m16n8k16, computed with exact f32 FMAs (no TF32).
+//   A loop inside the block replaces the TPU kernel's sequential grid
+//   axis: over kv tiles up to the causal limit (forward, dq), over the q
+//   tiles from the causal start and over the GQA group's q heads (dk/dv,
+//   so the [B,H,Sk,D] per-head intermediate and its group sum disappear).
 // - Tiles are staged in shared memory, each in the layout its product
 //   reads: row-major [rows][D] and transposed [D][rows] copies, with rows
 //   padded by 16 bytes so the fragment loads do not collide in banks.
 //   Every product is C[16 x N] += A[16 x K] . Bt[N x K]^T with A and Bt
 //   row-major in shared memory (warp_mma); probabilities and ds go
-//   through a per-warp shared tile in the input type, which is exactly
-//   the Pallas kernels' rounding point.
+//   through a per-warp shared tile.
 // - Rows and columns past Sq / Sk are staged as zeros and masked by
 //   global index; nothing is padded in device memory.
-// - f32 inputs take the same data flow with exact f32 FMAs (no TF32) in
-//   the same fragment ownership, so one kernel source serves both types.
-// Left for later: wgmma, TMA and a cp.async pipeline of the next tile,
-// warp specialisation, register-resident p (no shared round trip),
-// ldmatrix, and split-kv for short q.
+// The kernels keep the input type T as a template parameter; only the f32
+// instances are built.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask fill
 constexpr int kThreads = 128;      // 4 warps of 16 rows each
@@ -67,56 +60,17 @@ constexpr int kTileQ_dkv = 32;     // q rows per step of the dk/dv loop
 template <typename T>
 constexpr int pad() { return 16 / (int)sizeof(T); }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
-                                          uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Fragment ownership (the mma.sync m16n8k16 accumulator layout, used by
-// both types): lane = 4*g + t holds, for n-tile n, entries e = 0..3 at
+// Fragment ownership (the mma.sync m16n8k16 accumulator layout): lane =
+// 4*g + t holds, for n-tile n, entries e = 0..3 at
 // row g + 8*(e >> 1), column 8*n + 2*t + (e & 1).
 //
 // acc[n][e] += sum_k A[row][k] * Bt[col][k] over k < K, with A [16][lda]
 // and Bt [8*NT][ldb] row-major in shared memory.
-template <int NT, int K>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A,
-                                         int lda, const bf16* Bt, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    const bf16* a = A + g * lda + kk + 2 * t;
-    const uint32_t a0 = ld32(a), a1 = ld32(a + 8 * lda);
-    const uint32_t a2 = ld32(a + 8), a3 = ld32(a + 8 * lda + 8);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* b = Bt + (8 * n + g) * ldb + kk + 2 * t;
-      mma_16816(acc[n], a0, a1, a2, a3, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
 template <int NT, int K>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* A,
                                          int lda, const float* Bt, int ldb) {
@@ -590,9 +544,8 @@ cudaError_t bwd_dkv(const Shape& s, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// Instances: f32 forward and dk/dv; dq for f32 input, and for bf16 input
-// with bf16 or f32 output; D 64 or 128. Type codes: 0 float32,
-// 1 bfloat16.
+// Instances: f32 inputs and outputs, D 64 or 128, for each kernel. Type
+// codes: 0 float32 (1 bfloat16 is flash_attention_sm90.cu's).
 #define RTT_DISPATCH_D(D_, ...)          \
   switch (D_) {                          \
     case 64: {                           \
@@ -642,14 +595,6 @@ int ray_tpu_torch_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && out_dtype == 0) {
     RTT_DISPATCH_D(D, bwd_dq<float, float, kD>(s, q, k, v, dout, l, dl, dq,
                                                st));
-  }
-  if (dtype == 1 && out_dtype == 1) {
-    RTT_DISPATCH_D(D, bwd_dq<bf16, bf16, kD>(s, q, k, v, dout, l, dl, dq,
-                                             st));
-  }
-  if (dtype == 1 && out_dtype == 0) {
-    RTT_DISPATCH_D(D, bwd_dq<bf16, float, kD>(s, q, k, v, dout, l, dl, dq,
-                                              st));
   }
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,14 @@
 // Flash attention for Hopper (sm_90a), bf16 inputs: the forward (with the
-// row logsumexp) and the dk/dv backward, built on wgmma fed by a ring of
-// TMA loads. Plain C interface for ctypes.
+// row logsumexp) and both backward kernels, built on wgmma fed by a ring
+// of TMA loads. Plain C interface for ctypes.
 //
 // Replaces, in ray_tpu/ops/flash_attention.py, for bf16 q/k/v:
 //   flash_fwd_sm90_kernel     <- _flash_fwd (Pallas bodies _fwd_kernel and
 //                                _fwd_kernel_lse)                     [B1]
+//   flash_bwd_dq_sm90_kernel  <- _flash_bwd's dq call (_bwd_dq_kernel) [B3a]
 //   flash_bwd_dkv_sm90_kernel <- _flash_bwd's dk/dv call (_bwd_dkv_kernel)
 //                                plus the GQA group sum after it      [B3b]
-// f32 inputs and the dq backward (B3a) stay in flash_attention.cu.
+// f32 inputs stay in flash_attention.cu (exact f32 FMAs).
 //
 // Contract (the Pallas kernels' and ops/flash_attention.py's plain
 // versions'): q [B,H,Sq,D], k/v [B,Hkv,Sk,D] (q head h reads kv head
@@ -16,14 +17,16 @@
 // f32; p rounded to bf16 before p.v and before p^T.dO, ds rounded to bf16
 // before ds^T.q (a register conversion, the Pallas rounding points); a
 // fully masked row gives o exactly 0 and lse <= -5e29, and the backward
-// takes p = 0 where lse <= -5e29; dk/dv come out summed over the GQA
-// group, in bf16 or f32. D is 64 or 128; Sq and Sk are any length.
+// takes p = 0 where lse <= -5e29; ds rounded to bf16 before ds.k; dq in
+// bf16 or f32, dk/dv summed over the GQA group, in bf16 or f32. D is 64 or
+// 128; Sq and Sk are any length.
 //
 // What bounds them on this card: operations. At the flagship training
 // shape (B=8, H=12, S=2048, D=128, causal) the forward does 2 products of
 // ~51.5 GFLOP over ~200 MB (~500 flop per byte, above the ~295 flop/byte
 // where the bf16 tensor cores, not the memory, are the limit): 0.104 ms at
-// 989 TFLOP/s. The dk/dv kernel does 4 products: 0.209 ms.
+// 989 TFLOP/s. The dq kernel does 3 products (0.156 ms), dk/dv 4 (0.209
+// ms).
 //
 // Design, and what it does about each fault of the first port
 // (flash_attention.cu, mma.sync on synchronously staged tiles):
@@ -60,6 +63,14 @@
 //   accumulator per thread: the block gets 168 registers a thread, and
 //   ptxas spilled dk and dv kept together (it does not size the registers
 //   after setmaxnreg).
+// - dq: B1's structure. A 128-row q tile (64 rows per warpgroup) with q
+//   and dO resident, loaded once by TMA; 64-row k and v tiles in 4 stages
+//   up to the causal limit. Per step s = q.k^T and dp = dO.v^T go out as
+//   one commit group (m64n64k16, K-major), p = exp2(s * scale * log2 e -
+//   lse * log2 e) and ds = p (dp - delta) scale in registers, ds converted
+//   to bf16 A fragments in place, and dq += ds.k on m64nDk16 with k read
+//   MN-major. Each thread reads its two rows' lse and delta once with
+//   plain loads. Live per thread: s, dp (32 f32 each) and dq (D/2 f32).
 //   Every product is wgmma, the only path to the card's full tensor-core
 //   rate (fault 5: mma.sync on 64-row tiles and 32-row dk/dv steps).
 // - TMA fills rows past Sq / Sk with zeros; the mask, by global index, is
@@ -97,6 +108,7 @@ constexpr int kRowBytes = 128;  // bytes of one such row
 // Tiles (rows). The s products are m64n64: kFwdKV and kBwdQ stay 64.
 constexpr int kFwdQ = 128, kFwdKV = 64, kFwdStages = 4;
 constexpr int kBwdKV = 64, kBwdQ = 64, kBwdStages = 4;
+constexpr int kDqQ = 128, kDqKV = 64, kDqStages = 4;
 
 // ------------------------------------------------------------ primitives
 
@@ -784,6 +796,167 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// --------------------------------------------------------------------- dq
+
+template <int D>
+struct DqSmem {
+  static constexpr int kQBytes = kDqQ * D * 2;    // q or dO (resident)
+  static constexpr int kKVBytes = kDqKV * D * 2;  // one k or v tile
+  static constexpr int kStages = 2 * kQBytes;     // k/v stages start here
+  static constexpr int kBars = kStages + kDqStages * 2 * kKVBytes;
+  static constexpr size_t bytes = kBars + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+template <int D, typename OT>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             OT* __restrict__ dq, int H, int Hkv, int Sq,
+                             int Sk, float scale, int causal) {
+  using Sm = DqSmem<D>;
+  // Heaviest causal tiles (the last q rows) start first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qh = b * H + h, kh = b * Hkv + h / (H / Hkv);
+  const int q_offset = Sk - Sq;
+  const bool is_causal = causal != 0;
+  const int n_kv =
+      kv_tiles(min(q0 + kDqQ, Sq) - 1, q_offset, Sk, kDqKV, is_causal);
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + Sm::kQBytes;
+  const uint32_t bar_q = base + Sm::kBars;
+  auto k_s = [&](int s) { return base + Sm::kStages + s * 2 * Sm::kKVBytes; };
+  auto v_s = [&](int s) { return k_s(s) + Sm::kKVBytes; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + kDqStages + s); };
+
+  const int warp = warp_index(), lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer
+    if (lane == 0 && n_kv > 0) {
+      mbar_expect_tx(bar_q, 2 * Sm::kQBytes);
+      for (int hf = 0; hf < D / kBox; ++hf) {
+        tma_load_3d(q_s + hf * kDqQ * kRowBytes, &tm_q, bar_q, hf * kBox, q0,
+                    qh);
+        tma_load_3d(do_s + hf * kDqQ * kRowBytes, &tm_do, bar_q, hf * kBox,
+                    q0, qh);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(empty(s), (j / kDqStages - 1) & 1);
+        mbar_expect_tx(full(s), 2 * Sm::kKVBytes);
+        for (int hf = 0; hf < D / kBox; ++hf) {
+          tma_load_3d(k_s(s) + hf * kDqKV * kRowBytes, &tm_k, full(s),
+                      hf * kBox, j * kDqKV, kh);
+          tma_load_3d(v_s(s) + hf * kDqKV * kRowBytes, &tm_v, full(s),
+                      hf * kBox, j * kDqKV, kh);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [r0, r0 + 64); this thread's two
+  // rows are r0 + 16 w + g and 8 below it. Their lse and delta are read
+  // once, by plain loads (a TMA box of the flat vectors may not start at
+  // an arbitrary float); rows past Sq or fully masked take p = 0.
+  const int wg = warp / 4, w = warp % 4, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int n_mine = r0 >= Sq ? 0
+                              : kv_tiles(min(r0 + 64, Sq) - 1, q_offset, Sk,
+                                         kDqKV, is_causal);
+  const float scale2 = scale * kLog2e;
+  float lse2[2], row_delta[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * w + g + 8 * r;
+    const float row_lse = row < Sq ? lse[(size_t)qh * Sq + row] : kNegInf;
+    live[r] = row_lse > kNegInf * 0.5f;
+    lse2[r] = row_lse * kLog2e;
+    row_delta[r] = row < Sq ? delta[(size_t)qh * Sq + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (n_kv > 0) mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kDqStages;
+    mbar_wait(full(s), (j / kDqStages) & 1);
+    if (j < n_mine) {
+      // s = q . k^T and dp = dO . v^T, both K-major from shared memory,
+      // in one commit group
+      float sc[kDqKV / 2], dp[kDqKV / 2];
+#pragma unroll
+      for (int i = 0; i < kDqKV / 2; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<D>(sc, q_s, kDqQ, 64 * wg, k_s(s), kDqKV);
+      product_ss<D>(dp, do_s, kDqQ, 64 * wg, v_s(s), kDqKV);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const int c0 = j * kDqKV;
+      const bool edge = c0 + kDqKV > Sk ||
+                        (is_causal && c0 + kDqKV - 1 > q_offset + r0);
+#pragma unroll
+      for (int i = 0; i < kDqKV / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        bool ok = live[r];
+        if (edge) {
+          const int row = r0 + 16 * w + g + 8 * r;
+          const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          ok = ok && col < Sk && (!is_causal || q_offset + row >= col);
+        }
+        const float p = ok ? fast_exp2(sc[i] * scale2 - lse2[r]) : 0.f;
+        sc[i] = p * (dp[i] - row_delta[r]) * scale;  // ds
+      }
+
+      // ds rounded to k's type (bf16) before ds . k; k read MN-major
+      uint32_t da[kDqKV / 16][4];
+      to_a(da, sc);
+      fence_regs(acc);
+      fence_regs(da);
+      wgmma_fence();
+      product_rs<D, kDqKV / 16>(acc, da, k_s(s), kDqKV);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * w + g + 8 * r;
+    if (row >= Sq) continue;
+    OT* drow = dq + ((size_t)qh * Sq + row) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(drow + 8 * n + 2 * t, acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // Error codes above the CUDA runtime's.
@@ -885,6 +1058,29 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+template <int D, typename OT>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, int B, int H,
+           int Hkv, int Sq, int Sk, float scale, int causal,
+           cudaStream_t st) {
+  if (Sk == 0)  // no kv column: the gradient is zero
+    return cudaMemsetAsync(dq, 0, (size_t)B * H * Sq * D * sizeof(OT), st);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = map_rows(&tq, q, B * H, Sq, D, kDqQ);
+  if (err == 0) err = map_rows(&tk, k, B * Hkv, Sk, D, kDqKV);
+  if (err == 0) err = map_rows(&tv, v, B * Hkv, Sk, D, kDqKV);
+  if (err == 0) err = map_rows(&tdo, dout, B * H, Sq, D, kDqQ);
+  if (err != 0) return err;
+  auto kernel = flash_bwd_dq_sm90_kernel<D, OT>;
+  const size_t smem = DqSmem<D>::bytes;
+  cudaError_t cerr = allow_smem(kernel, smem);
+  if (cerr != cudaSuccess) return cerr;
+  kernel<<<dim3((Sq + kDqQ - 1) / kDqQ, H, B), kThreads, smem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<OT*>(dq), H, Hkv, Sq, Sk,
+      scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -925,6 +1121,26 @@ int ray_tpu_torch_flash_sm90_bwd_dkv(const void* q, const void* k,
   if (D == 128 && out_dtype == 1) RTT_DKV(128, bf16);
   if (D == 128 && out_dtype == 0) RTT_DKV(128, float);
 #undef RTT_DKV
+  return cudaErrorInvalidValue;
+}
+
+int ray_tpu_torch_flash_sm90_bwd_dq(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, int out_dtype, int B, int H,
+                                    int Hkv, int Sq, int Sk, int D,
+                                    float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+#define RTT_DQ(D_, OT_)                                                    \
+  return bwd_dq<D_, OT_>(q, k, v, dout, l, dl, dq, B, H, Hkv, Sq, Sk,     \
+                         scale, causal, st)
+  if (D == 64 && out_dtype == 1) RTT_DQ(64, bf16);
+  if (D == 64 && out_dtype == 0) RTT_DQ(64, float);
+  if (D == 128 && out_dtype == 1) RTT_DQ(128, bf16);
+  if (D == 128 && out_dtype == 0) RTT_DQ(128, float);
+#undef RTT_DQ
   return cudaErrorInvalidValue;
 }
 

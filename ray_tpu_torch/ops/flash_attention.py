@@ -173,10 +173,10 @@ def flash_attention(q: torch.Tensor,
 
     block_q/block_k are validated as positive and otherwise ignored: on
     the TPU they sized the Pallas kernel's VMEM tiles, while the CUDA
-    kernels use their own compile-time tiles (bf16 forward: 128 q rows
-    by 64 kv rows; bf16 dk/dv: 64 kv rows by 64 q rows; f32 and dq: 64
-    rows, 32 q rows per step of the f32 dk/dv loop). Results do not
-    depend on them."""
+    kernels use their own compile-time tiles (bf16 forward and dq: 128 q
+    rows by 64 kv rows; bf16 dk/dv: 64 kv rows by 64 q rows; f32: 64
+    rows, 32 q rows per step of the dk/dv loop). Results do not depend
+    on them."""
     _check_blocks(block_q, block_k)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5

@@ -5,11 +5,10 @@ Port of the three `pl.pallas_call` sites of
 (`_flash_fwd`), the dq backward and the dk/dv backward (`_flash_bwd`).
 The kernel is chosen by the inputs' dtype:
 
-- bf16 forward and dk/dv: ``csrc/flash_attention_sm90.cu`` (wgmma fed by
-  a TMA ring), whatever the gradients' dtype;
-- f32 forward and dk/dv, and the dq backward of both dtypes:
-  ``csrc/flash_attention.cu`` (mma.sync for bf16, exact f32 FMAs for f32:
-  wgmma has no exact f32 form).
+- bf16: ``csrc/flash_attention_sm90.cu`` (wgmma fed by a TMA ring) for
+  all three, whatever the gradients' dtype;
+- f32: ``csrc/flash_attention.cu`` (exact f32 FMAs: wgmma has no exact
+  f32 form).
 
 That is a dispatch by type, not a fallback: a kernel that does not build
 or launch raises. Each source carries its design notes at its top, is
@@ -68,9 +67,12 @@ def _lib_sm90() -> ctypes.CDLL:
     if not getattr(lib, "_ray_tpu_torch_bound", False):
         lib.ray_tpu_torch_flash_sm90_fwd.argtypes = \
             [_P] * 5 + [_I] * 6 + [_F, _I, _P]
+        lib.ray_tpu_torch_flash_sm90_bwd_dq.argtypes = \
+            [_P] * 7 + [_I] * 7 + [_F, _I, _P]
         lib.ray_tpu_torch_flash_sm90_bwd_dkv.argtypes = \
             [_P] * 8 + [_I] * 7 + [_F, _I, _P]
         for fn in (lib.ray_tpu_torch_flash_sm90_fwd,
+                   lib.ray_tpu_torch_flash_sm90_bwd_dq,
                    lib.ray_tpu_torch_flash_sm90_bwd_dkv):
             fn.restype = _I
         lib.ray_tpu_torch_flash_sm90_error_string.argtypes = [_I]
@@ -80,8 +82,7 @@ def _lib_sm90() -> ctypes.CDLL:
 
 
 def _sm90(dtype: torch.dtype) -> bool:
-    """Whether inputs of ``dtype`` take the wgmma kernels (forward and
-    dk/dv)."""
+    """Whether inputs of ``dtype`` take the wgmma kernels."""
     return dtype == torch.bfloat16
 
 
@@ -181,13 +182,19 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, sm_scale: float,
     dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if Sq == 0:
         return dq
-    lib = _lib()
-    _launch("dq", lib.ray_tpu_torch_flash_bwd_dq,
-            lib.ray_tpu_torch_flash_error_string, q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _CODES[q.dtype], _CODES[out_dtype], B, H, Hkv, Sq, Sk, D,
-            float(sm_scale), int(bool(causal)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    shape = (B, H, Hkv, Sq, Sk, D, float(sm_scale), int(bool(causal)))
+    if _sm90(q.dtype):
+        lib = _lib_sm90()
+        _launch("dq", lib.ray_tpu_torch_flash_sm90_bwd_dq,
+                lib.ray_tpu_torch_flash_sm90_error_string, q.device, *ptrs,
+                _CODES[out_dtype], *shape)
+    else:
+        lib = _lib()
+        _launch("dq", lib.ray_tpu_torch_flash_bwd_dq,
+                lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
+                _CODES[q.dtype], _CODES[out_dtype], *shape)
     dq_launches += 1
     return dq
 

@@ -6,7 +6,8 @@ Serves the same 8 requests as chip_smoke.py (Llama-3-8B at its
 published widths, seeded random bf16 weights, prompts of 64-512 tokens,
 32 new tokens each, greedy) once to warm up, then once more under
 `torch.profiler` with CUDA activity. Prints the device time summed by
-kernel family (the paged-attention kernel, matrix products, the rest),
+kernel family (the paged-attention kernels, matrix products, the rest),
+the paged-attention kernels' device time per decode iteration,
 the top kernels by device time, the device-busy share of the run's
 wall time, and the card's name and power limit. Needs one CUDA card.
 """
@@ -21,10 +22,17 @@ import numpy as np
 import torch
 
 
+# B2's kernels: the split-KV pass (tensor-core or exact-f32) and the
+# combine pass.
+PAGED_KERNELS = ("paged_decode_mma_kernel", "paged_decode_fma_kernel",
+                 "paged_decode_combine_kernel")
+
+
 def _family(name: str) -> str:
     n = name.lower()
-    if "paged_decode_kernel" in n:
-        return "paged_attention (hand-written)"
+    for kernel in PAGED_KERNELS:
+        if kernel in n:
+            return f"{kernel} (hand-written)"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "sm90_xmma" in n \
             or "matmul" in n:
         return "matrix products (cuBLAS)"
@@ -88,6 +96,12 @@ def main() -> None:
     for f, (us, n) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile]   {f}: {us / 1e3:.2f} ms in {n} launches "
               f"({us / total_us:.1%} of device time)")
+    b2_us = sum(us for f, (us, _) in fams.items()
+                if f.split(" ")[0] in PAGED_KERNELS)
+    print(f"[profile] B2 (split + combine) device time per decode "
+          f"iteration: {b2_us / 1e3 / max(1, eng.decode_iterations):.4f} ms "
+          f"over {eng.decode_iterations} iterations of {cfg.n_layers} "
+          f"layers")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   top: {e.self_device_time_total / 1e3:9.2f} ms "
               f"x{e.count:6d}  {e.key[:90]}")

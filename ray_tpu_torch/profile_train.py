@@ -72,7 +72,7 @@ def _family(name: str) -> str:
     n = name.lower()
     for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                    "flash_bwd_dkv_kernel", "flash_fwd_sm90_kernel",
-                   "flash_bwd_dkv_sm90_kernel"):
+                   "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"):
         if kernel in n:
             return f"{kernel} (hand-written)"
     if "gemm" in n or "cutlass" in n or "sm90_xmma" in n or "matmul" in n \

@@ -7,20 +7,25 @@ Paged decode attention (`paged_attention(impl="kernel")` against
 `impl="reference"`): q in f32 and bf16; pages in f32, bf16, int8 and
 fp8-e4m3; head dims 64 and 128; GQA groups of 1, 4 and 8 query heads;
 one query per row and a 5-query window; ragged rows, garbage
-block-table entries and a row with no live slot. Tolerances: f32 q,
-1e-5 abs/rel (f32 arithmetic in both, summed in another order); bf16 q,
-2e-2 abs/rel (the kernel writes bf16, the plain version is evaluated in
-f32 from the same bf16 or quantized inputs).
+block-table entries and a row with no live slot; rows that span many
+splits of the split-KV plan, with query windows ending on the span's
+last slot, just before a split boundary, on it and one past it; and 40
+query rows per block (several passes over the pages). Tolerances: f32
+q, 1e-5 abs/rel (exact f32 FMAs, summed in another order); bf16 q, 2e-2
+abs/rel (the kernel writes bf16 and, on its tensor-core path, rounds p
+to bf16 for p.v; the plain version is evaluated in f32 from the same
+bf16 or quantized inputs).
 
 Flash attention (kernels B1, B3a, B3b against `_flash_fwd_reference`
 and `_flash_bwd_reference`; bf16 inputs take the wgmma kernels of
-``flash_attention_sm90.cu`` for B1 and B3b, f32 inputs and B3a those of
-``flash_attention.cu``): inputs in f32 and bf16, gradients in the input
-type or f32 (``grad_dtype``), head dims 64 and 128, at five shapes: GQA
-with lengths no tile divides, a kv prefix (Sq < Sk, non-causal), Sq > Sk
-causal (fully masked rows, which must be exactly 0 in o and dq), and two
+``flash_attention_sm90.cu``, f32 inputs those of ``flash_attention.cu``):
+inputs in f32 and bf16, gradients in the input type or f32
+(``grad_dtype``), head dims 64 and 128, at six shapes: GQA with lengths
+no tile divides, a kv prefix (Sq < Sk, non-causal), Sq > Sk causal
+(fully masked rows, which must be exactly 0 in o and dq), two
 multi-tile causal shapes (GQA 8/2 at 1000 x 1000; 700 x 330 with dead
-rows). Tolerances: f32, 1e-4 abs/rel (the online softmax and
+rows) and a causal kv prefix with a q length no 128-row tile divides
+(GQA 4/2, 300 x 1000). Tolerances: f32, 1e-4 abs/rel (the online softmax and
 the tile order change the summation order); bf16, 2e-2 abs/rel (bf16
 outputs; p rounded to bf16 per tile in the kernel, once in the plain
 version).
@@ -46,10 +51,15 @@ from ray_tpu_torch.ops.attention import mha_reference, paged_attention
 
 pytestmark = pytest.mark.gpu
 
-# (B, S, H, KV, D, T, MB)
+# (B, S, H, KV, D, T, MB). The long-row shapes take their frontiers from
+# the split plan (`_long_case`); "two_pass" serves g*S = 40 query rows.
 _SHAPES = {"gqa4_d64": (3, 1, 8, 2, 64, 4, 5),
            "s5_d128": (2, 5, 4, 4, 128, 8, 3),
-           "llama3_8b": (4, 1, 32, 8, 128, 32, 4)}
+           "llama3_8b": (4, 1, 32, 8, 128, 32, 4),
+           "long_rows": (5, 1, 32, 8, 128, 32, 64),
+           "long_rows_s5": (5, 5, 32, 8, 128, 32, 64),
+           "two_pass": (2, 5, 32, 4, 64, 16, 6)}
+_LONG = ("long_rows", "long_rows_s5")
 _TOL = {"f32": 1e-5, "bf16": 2e-2}
 
 
@@ -91,12 +101,32 @@ def _case(B, S, H, KV, D, T, MB, seed):
     return q, k, v, bt, q_slots, span - 2
 
 
+def _long_case(B, S, H, KV, D, T, MB, seed, sms):
+    """`_case` with rows that span many splits: row 0 has no live slot,
+    and rows 1-4 have query windows whose last slot is the span's last
+    slot (live: the valid length is the span), the slot before the
+    first split boundary, the boundary slot and the one past it."""
+    q, k, v, bt, q_slots, _ = _case(B, S, H, KV, D, T, MB, seed)
+    span = MB * T
+    edge = pak.split_plan(MB, T, B, KV, sms)[0] * T
+    for b, last in zip(range(1, B), (span - 1, edge - 1, edge, edge + 1)):
+        q_slots[b] = last - S + 1 + np.arange(S)
+        live = min(MB, (last + T) // T)
+        bt[b, :live] = 1 + b * MB + np.arange(live)
+    return q, k, v, bt, q_slots, span
+
+
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8", "fp8_e4m3"])
 @pytest.mark.parametrize("qdt", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", list(_SHAPES), ids=list(_SHAPES))
 def test_kernel_matches_plain_version(cuda, shape, qdt, pool):
-    q, k, v, bt, q_slots, valid = _case(*_SHAPES[shape],
-                                        seed=sum(_SHAPES[shape]))
+    if shape in _LONG:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        q, k, v, bt, q_slots, valid = _long_case(
+            *_SHAPES[shape], seed=sum(_SHAPES[shape]), sms=sms)
+    else:
+        q, k, v, bt, q_slots, valid = _case(*_SHAPES[shape],
+                                            seed=sum(_SHAPES[shape]))
     dev = lambda x: torch.from_numpy(x).to(cuda)            # noqa: E731
     q, k, v = dev(q), dev(k), dev(v)
     ks = vs = None
@@ -137,7 +167,8 @@ _FLASH_SHAPES = {"gqa_ragged": (2, 4, 2, 100, 100, True),
                  "prefix_noncausal": (1, 2, 1, 70, 130, False),
                  "masked_rows": (1, 3, 3, 150, 90, True),
                  "multi_tile_gqa": (2, 8, 2, 1000, 1000, True),
-                 "multi_tile_masked": (1, 4, 1, 700, 330, True)}
+                 "multi_tile_masked": (1, 4, 1, 700, 330, True),
+                 "prefix_causal_ragged": (1, 4, 2, 300, 1000, True)}
 _DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 _FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}
 
