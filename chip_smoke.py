@@ -18,15 +18,24 @@ Phases, each of which must pass:
                per row), with its split plan and grid, and times at S=1
                (the kernel's as a replayed CUDA graph, and per eager call)
                beside the memory bound and their share of it.
-  4. small   — a 2-layer f32 model served by the paged DecodeEngine
-               (kernel) must emit the greedy tokens of solo `generate`
-               (plain attention).
+  4. small   — a 2-layer f32 model served by the DecodeEngine, dense
+               and paged (kernel, CUDA-graph decode loop), must emit the
+               greedy tokens of solo `generate` (plain attention).
   5. serve   — Llama-3-8B at its published widths (seeded random bf16
-               weights) serves 8 requests through the paged DecodeEngine;
-               the kernel's launch count must equal n_layers x decode
-               iterations, every block must return to the pool, and a
-               second run through the plain attention must agree on
-               every request's first token.
+               weights) serves 8 requests (32 new tokens each, greedy)
+               through four engines: dense at pipeline depths 2 (the
+               JAX defaults, the main path) and 1, paged at depths 2 and
+               1, each timed twice in turns and profiled once. In every
+               run B2's launch count must equal n_layers x decode
+               iterations, there must be one `_device_get` per decode
+               dispatch, the decode loop must have been replayed from
+               CUDA graphs and every block must return to the pool;
+               tokens must be identical across depths 1 and 2 on each
+               path, and a dense run through the plain attention must
+               agree on every request's first token. Prints steady decode
+               tokens/s, TTFT p50, the device-busy share and peak memory
+               per engine, and one H=8 paged dispatch timed eager and as
+               a replayed graph.
   6. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
@@ -318,40 +327,95 @@ def small_phase():
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in rng.randint(5, 41, size=6)]
-    eng = DecodeEngine(params, cfg, batch_slots=4, max_len=128,
-                       kv_block_tokens=16)
-    ids = [eng.submit(p, 16) for p in prompts]
-    out = eng.run()
-    for rid, p in zip(ids, prompts):
-        solo = generate(params, torch.tensor([p], device="cuda"), cfg,
-                        max_new_tokens=16)[0, len(p):].tolist()
-        assert out[rid] == solo, f"small: request {rid} {out[rid]} != {solo}"
-    assert eng.kv_pool.blocks_in_use == 0
-    log(f"[small] f32 2-layer engine (kernel) == solo generate (plain) on "
-        f"{len(prompts)} requests x 16 tokens")
+    solo = [generate(params, torch.tensor([p], device="cuda"), cfg,
+                     max_new_tokens=16)[0, len(p):].tolist()
+            for p in prompts]
+    for paged in (False, True):
+        eng = DecodeEngine(params, cfg, batch_slots=4, max_len=128,
+                           kv_block_tokens=16, paged=paged)
+        ids = [eng.submit(p, 16) for p in prompts]
+        out = eng.run()
+        for rid, want in zip(ids, solo):
+            assert out[rid] == want, \
+                f"small: request {rid} {out[rid]} != {want}"
+        assert eng.stats()["decode_graph_replays"] > 0
+        assert not paged or eng.kv_pool.blocks_in_use == 0
+    log(f"[small] f32 2-layer engine, dense and paged (kernel, CUDA graphs)"
+        f" == solo generate (plain) on {len(prompts)} requests x 16 tokens")
 
 
-def _serve(params, cfg, prompts):
+# The serve phase's engines: (label, paged, pipeline_depth). The first is
+# the JAX engine's default construction, the main path.
+SERVE_RUNS = (("dense, depth 2", False, 2), ("dense, depth 1", False, 1),
+              ("paged, depth 2", True, 2), ("paged, depth 1", True, 1))
+
+
+def _serve(params, cfg, prompts, *, paged, depth, profile=False):
+    """One engine serves the prompts from empty: every request submitted,
+    then `step()` until nothing is pending. Returns the engine, the
+    tokens per request and the run's counts and times."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
     from ray_tpu_torch import DecodeEngine
+    from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.ops import paged_attention_kernel as pak
 
     eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
-                       kv_block_tokens=32, greedy=True, trace=True)
+                       kv_block_tokens=32, greedy=True, trace=True,
+                       paged=paged, pipeline_depth=depth)
     ids = [eng.submit(p, NEW_TOKENS) for p in prompts]
-    torch.cuda.synchronize()
-    pak.launches = 0
-    t0 = time.perf_counter()
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = pak.launches
-    return eng, [out[i] for i in ids], launches, wall
+    gets, done = [0], []
+    real_get, real_async = engine_mod._device_get, engine_mod._host_async
+
+    def counted_get(x):
+        gets[0] += 1
+        return real_get(x)
+
+    def timed_async(x):
+        # an event after each block's copy to the host: its completion
+        # on the card's clock
+        block = real_async(x)
+        done.append(torch.cuda.Event(enable_timing=True))
+        done[-1].record()
+        return block
+
+    prof = (profiler(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+    step_tokens = []
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(engine_mod, "_device_get", counted_get), \
+            mock.patch.object(engine_mod, "_host_async", timed_async), prof:
+        torch.cuda.synchronize()
+        pak.launches = 0
+        t0 = time.perf_counter()
+        while eng.pending():
+            ev = eng.step()
+            step_tokens.append(sum(len(t) for t in ev.values()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pak.launches
+    run = {"launches": launches, "gets": gets[0], "wall": wall,
+           "peak": torch.cuda.max_memory_allocated(),
+           # the tokens of every block after the first over the card's
+           # time from the first block's completion to the last one's
+           "steady": (sum(step_tokens) - step_tokens[0])
+           / (done[0].elapsed_time(done[-1]) / 1e3),
+           "span_rate": _decode_rate(eng)}
+    if profile:
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        run["busy"] = busy_us / 1e6 / wall
+    return eng, [eng.pop_result(i) for i in ids], run
 
 
 def _decode_rate(eng):
-    """Tokens per second over decode dispatches after the first (the
-    first block's host drain also waits for the admission prefill):
-    each dispatch's enqueue plus its host drain, from the engine trace."""
+    """The trace's span-sum decode rate, kept because earlier versions of
+    this script reported it: tokens over the summed dispatch and
+    host-drain spans of the engine trace, after the first dispatch and
+    the first drain. With run-ahead dispatches it leaves out host time
+    between spans and counts dispatched, not emitted, tokens."""
     spans = [e for e in eng.trace.events() if e[1] is None
              and e[0] in ("dispatch", "host_drain")]
     secs = sum(e[4] for e in spans[2:])
@@ -360,12 +424,47 @@ def _decode_rate(eng):
     return tokens / secs if secs else 0.0
 
 
+def _check_run(label, cfg, eng, toks, run, plain=False):
+    assert all(len(t) == NEW_TOKENS for t in toks), [len(t) for t in toks]
+    assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
+    assert torch.isfinite(eng._last_logits).all()
+    want = 0 if plain else cfg.n_layers * eng.decode_iterations
+    assert run["launches"] == want, \
+        f"{label}: kernel launches {run['launches']} != {want}"
+    assert run["gets"] == eng.decode_dispatches, \
+        f"{label}: {run['gets']} _device_get for {eng.decode_dispatches} " \
+        "dispatches"
+    s = eng.stats()
+    assert s["decode_graph_replays"] > 0, f"{label}: no graph replayed"
+    assert not eng.paged or eng.kv_pool.blocks_in_use == 0, "blocks leaked"
+    return s
+
+
+def _time_dispatch(eng):
+    """One H=8 decode dispatch of a served (now idle) paged engine: host
+    clock to completion of its loop run eagerly and of its captured
+    graph replayed (means of 5), and the card's time per replay of 5
+    back to back (CUDA events). Idle rows do a live row's work."""
+    graph = eng._graphs.graphs[(8, True)][0]
+    out = {}
+    for name, fn in (("eager", lambda: eng._decode_body(8, True)),
+                     ("graph", graph.replay)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 5 * 1e3
+    out["card"] = _time_ms(graph.replay, 5)
+    return out
+
+
 def serve_phase(smi):
     from ray_tpu_torch import LlamaConfig
     from ray_tpu_torch.models.llama import llama_init
 
     cfg = LlamaConfig.llama3_8b()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = llama_init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -375,42 +474,86 @@ def serve_phase(smi):
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in rng.randint(64, 513, size=N_REQUESTS)]
     log(f"[serve] prompt lengths {[len(p) for p in prompts]}, "
-        f"max_new_tokens {NEW_TOKENS}")
+        f"max_new_tokens {NEW_TOKENS}, 8 slots, max_len 2048, greedy")
 
-    eng, toks, launches, wall = _serve(params, cfg, prompts)
-    assert all(len(t) == NEW_TOKENS for t in toks), [len(t) for t in toks]
-    assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
-    assert torch.isfinite(eng._last_logits).all()
-    want = cfg.n_layers * eng.decode_iterations
-    assert launches == want, f"kernel launches {launches} != {want}"
-    assert eng.kv_pool.blocks_in_use == 0, "blocks leaked"
-    s = eng.stats()
-    rate = _decode_rate(eng)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] kernel run: {launches} kernel launches = {cfg.n_layers} "
-        f"layers x {eng.decode_iterations} decode iterations; "
-        f"{eng.decode_dispatches} decode dispatches, "
-        f"{eng.prefill_dispatches} prefill dispatches; wall {wall:.3f} s")
-    log(f"[serve] TTFT p50 {s['ttft_s_p50']:.4f} s, TPOT p50 "
-        f"{s['tpot_s_p50']:.4f} s (mean {s['tpot_s_mean']:.4f} s; a block's"
-        f" tokens land together), steady decode {rate:.1f} tokens/s, peak "
-        f"memory {peak / 2**30:.2f} GiB on {smi}")
-    del eng
-    torch.cuda.empty_cache()
+    # Timed runs in turns (A B C D D C B A), then one profiled run each.
+    tokens, runs = {}, {}
+    order = list(SERVE_RUNS) + list(reversed(SERVE_RUNS))
+    main_launches = None
+    for i, (label, paged, depth) in enumerate(order):
+        eng, toks, run = _serve(params, cfg, prompts, paged=paged,
+                                depth=depth)
+        s = _check_run(label, cfg, eng, toks, run)
+        if i == 0:
+            main_launches = run["launches"]
+            log(f"[serve] main path ({label}, the JAX defaults): "
+                f"{run['launches']} B2 launches = {cfg.n_layers} layers x "
+                f"{eng.decode_iterations} decode iterations; "
+                f"{eng.decode_dispatches} decode dispatches "
+                f"({run['gets']} _device_get), "
+                f"{int(s['decode_graph_replays'])} of them replayed from "
+                f"{int(s['decode_graphs'])} CUDA graphs; "
+                f"{eng.prefill_dispatches} prefill dispatches; pipeline "
+                f"depth effective {s['pipeline_depth_effective']:.2f}, "
+                f"overrun tokens {int(s['pipeline_overrun_tokens'])}")
+        if label in tokens:
+            assert toks == tokens[label], f"{label}: tokens changed"
+        tokens[label] = toks
+        runs.setdefault(label, []).append((run, s))
+        if label == "paged, depth 2" and i >= len(SERVE_RUNS):
+            t = _time_dispatch(eng)
+            log(f"[serve] one H=8 paged decode dispatch (8 rows, 32 "
+                f"layers; host clock to completion): eager {t['eager']:.2f}"
+                f" ms, replayed CUDA graph {t['graph']:.2f} ms; the card's"
+                f" time per replay back to back {t['card']:.2f} ms = "
+                f"{t['card'] / 8:.3f} ms per decode iteration, "
+                f"{64e3 / t['card']:.1f} tokens/s at 8 rows")
+        del eng
+        torch.cuda.empty_cache()
+    for label, paged, depth in SERVE_RUNS:
+        _, _, prof = _serve(params, cfg, prompts, paged=paged, depth=depth,
+                            profile=True)
+        torch.cuda.empty_cache()
+        timed = runs[label]
+        steady = [r["steady"] for r, _ in timed]
+        spans = [r["span_rate"] for r, _ in timed]
+        s = timed[0][1]
+        log(f"[serve] {label}: steady decode "
+            + " / ".join(f"{x:.1f}" for x in steady)
+            + " tokens/s (blocks after the first, card clock; trace span "
+            "sum: "
+            + " / ".join(f"{x:.1f}" for x in spans)
+            + f"), TTFT p50 {s['ttft_s_p50']:.4f} s, wall "
+            + " / ".join(f"{r['wall']:.3f}" for r, _ in timed)
+            + f" s, device busy {prof['busy']:.1%} of a profiled run's "
+            f"wall, peak memory {timed[0][0]['peak'] / 2**30:.2f} GiB; "
+            f"on {smi}")
+    for path in ("dense", "paged"):
+        assert tokens[f"{path}, depth 1"] == tokens[f"{path}, depth 2"], \
+            f"{path}: tokens differ between pipeline depths 1 and 2"
+    same = sum(a == b for a, b in zip(tokens["dense, depth 2"],
+                                      tokens["paged, depth 2"]))
+    log(f"[serve] tokens identical across pipeline depths 1 and 2 on both "
+        f"paths; dense and paged agree on {same}/{N_REQUESTS} requests")
 
     ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
-    eng_r, toks_r, launches_r, wall_r = _serve(params, ref_cfg, prompts)
-    assert launches_r == 0, "the reference run launched the kernel"
+    eng_r, toks_r, run_r = _serve(params, ref_cfg, prompts, paged=False,
+                                  depth=2)
+    _check_run("reference", ref_cfg, eng_r, toks_r, run_r, plain=True)
+    toks = tokens["dense, depth 2"]
     firsts = [a[0] == b[0] for a, b in zip(toks, toks_r)]
     assert all(firsts), f"first tokens differ: {firsts}"
     agree = sum(x == y for a, b in zip(toks, toks_r) for x, y in zip(a, b))
-    log(f"[serve] reference run: wall {wall_r:.3f} s, steady decode "
-        f"{_decode_rate(eng_r):.1f} tokens/s; first tokens equal "
+    log(f"[serve] reference run (dense, plain attention): steady decode "
+        f"{run_r['steady']:.1f} tokens/s; first tokens equal "
         f"{sum(firsts)}/{len(firsts)}; greedy tokens agreeing "
         f"{agree}/{N_REQUESTS * NEW_TOKENS} = "
         f"{agree / (N_REQUESTS * NEW_TOKENS):.3f} (bf16 near-ties may flip "
         f"later tokens)")
-    return launches
+    del eng_r
+    torch.cuda.empty_cache()
+    return main_launches
+
 
 def _flash_pairs(Sq, Sk, causal):
     """Unmasked (q, k) pairs of one head: q row i sees kv columns

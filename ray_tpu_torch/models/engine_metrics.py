@@ -3,9 +3,10 @@
 Port of `ray_tpu/models/engine_metrics.py`, cut to the planes the
 port's engine has today: the request lifecycle (queue wait, TTFT, TPOT,
 tokens, steps, occupancy), decode dispatches and device->host syncs,
-prefill padding, and the paged KV pool (occupancy, preemptions). The
-prefix-cache, pipeline, tensor-parallel, handoff, speculative and
-multi-LoRA planes come with those engine features (ROADMAP.md Queue A).
+prefill padding, the async decode pipeline (flushes, overrun, effective
+depth, host lag) and the paged KV pool (occupancy, preemptions). The
+prefix-cache, tensor-parallel, handoff, speculative and multi-LoRA
+planes come with those engine features (ROADMAP.md Queue A).
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -128,6 +129,10 @@ class EngineMetrics:
         self.kv_pool_blocks_in_use = 0
         self.kv_pool_blocks_free = 0
         self.kv_bytes_per_token = 0.0
+        self.pipeline_flushes = 0
+        self.pipeline_overrun_tokens = 0
+        self.host_lag_steps = 0
+        self.pipeline_depth = _Agg()
 
         tag = {"engine": self.engine_id}
         keys = ("engine",)
@@ -211,6 +216,18 @@ class EngineMetrics:
         self._m_kv_bytes_per_token = gauge(
             "llm_engine_kv_bytes_per_token",
             "Device bytes one cached token costs")
+        self._m_pipe_flushes = counter(
+            "llm_engine_pipeline_flushes_total",
+            "Forced full drains of the in-flight decode ring "
+            "(pending admission or end of stream)")
+        self._m_pipe_overrun = counter(
+            "llm_engine_pipeline_overrun_tokens_total",
+            "Masked run-ahead decode iterations dispatched for rows "
+            "that had already finished")
+        self._m_host_lag = gauge(
+            "llm_engine_host_lag_steps",
+            "Fused decode steps dispatched but not yet replayed on "
+            "the host (ring length after the last drain)")
 
     # -- lifecycle hooks (called by DecodeEngine) --------------------------
 
@@ -283,20 +300,45 @@ class EngineMetrics:
         self._m_occupancy.set(live_slots / self.batch_slots)
         self._m_batch_eff.set(self.batch_efficiency)
 
-    def on_dispatch(self, horizon: int) -> None:
-        """One decode dispatch of `horizon` iterations."""
+    def on_dispatch(self, horizon: int, host_syncs: int = 1) -> None:
+        """One decode dispatch of `horizon` iterations, costing
+        `host_syncs` blocking device->host transfers (the engine passes
+        0 and reports its one pull per block at drain through
+        `on_host_sync`)."""
         self.decode_dispatches += 1
+        self.host_syncs += host_syncs
         self.decode_horizon.add(horizon)
         self._m_dispatches.inc()
+        if host_syncs > 0:
+            self._m_host_syncs.inc(host_syncs)
         self._m_horizon.observe(horizon)
 
-    def on_host_sync(self, nbytes: int = 0) -> None:
-        """A blocking device->host pull of `nbytes` bytes completed."""
-        self.host_syncs += 1
-        self._m_host_syncs.inc()
+    def on_host_sync(self, n: int = 1, nbytes: int = 0) -> None:
+        """A blocking device->host pull completed (a drained token
+        block of `nbytes` bytes). Under the async pipeline it comes up
+        to `pipeline_depth` dispatches after its block's dispatch."""
+        self.host_syncs += n
+        self._m_host_syncs.inc(n)
         if nbytes > 0:
             self.host_transfer_bytes += nbytes
             self._m_transfer_bytes.inc(nbytes)
+
+    def on_pipeline_drain(self, depth: int, lag: int) -> None:
+        """One in-flight block replayed: `depth` fused steps were in
+        flight when the drain started (1 = synchronous), `lag` remain
+        after it (the host_lag_steps gauge)."""
+        self.pipeline_depth.add(depth)
+        self.host_lag_steps = lag
+        self._m_host_lag.set(lag)
+
+    def on_pipeline_flush(self, n: int = 1) -> None:
+        self.pipeline_flushes += n
+        self._m_pipe_flushes.inc(n)
+
+    def on_pipeline_overrun(self, n: int) -> None:
+        if n > 0:
+            self.pipeline_overrun_tokens += n
+            self._m_pipe_overrun.inc(n)
 
     def on_preempt(self, n: int = 1) -> None:
         if n > 0:
@@ -373,6 +415,11 @@ class EngineMetrics:
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "kv_pool_occupancy": _ratio(self.kv_pool_blocks_in_use,
                                         self.kv_pool_blocks_total),
+            "pipeline_flushes": self.pipeline_flushes,
+            "pipeline_overrun_tokens": self.pipeline_overrun_tokens,
+            "host_lag_steps": self.host_lag_steps,
+            "pipeline_depth_effective": _ratio(self.pipeline_depth.sum,
+                                               self.pipeline_depth.count),
         }
         self.queue_wait_s.fields("queue_wait_s", out)
         self.ttft_s.fields("ttft_s", out)
@@ -401,9 +448,15 @@ class NullEngineMetrics:
 
     def on_step(self, live_slots, queue_depth, tokens_emitted): pass
 
-    def on_dispatch(self, horizon): pass
+    def on_dispatch(self, horizon, host_syncs=1): pass
 
-    def on_host_sync(self, nbytes=0): pass
+    def on_host_sync(self, n=1, nbytes=0): pass
+
+    def on_pipeline_drain(self, depth, lag): pass
+
+    def on_pipeline_flush(self, n=1): pass
+
+    def on_pipeline_overrun(self, n): pass
 
     def on_preempt(self, n=1): pass
 

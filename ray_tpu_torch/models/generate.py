@@ -2,10 +2,12 @@
 
 Port of `ray_tpu/models/generate.py`: the cache, the decoder-layer math
 every cached path shares (`_layer_body`, with its `write_kv`/`attend`
-injection seam), the cached forwards, the sampling filters and solo
-`generate`. PyTorch runs eagerly, so the caches are updated IN PLACE
-(the JAX functions return new arrays; the port returns the same dict it
-was given, mutated).
+injection seam), the cached forwards (with ragged-batch positions and
+dead-slot masks), the sampling filters, solo `generate`, the streaming
+`generate_stream` and `pad_prompts`. PyTorch runs eagerly, so the caches
+are updated IN PLACE (the JAX functions return new arrays; the port
+returns the same dict it was given, mutated), and JAX's jitted
+streaming helpers are plain functions.
 
 Sampling key schedule. Every sampled token is the argmax of the
 temperature-scaled, filtered logits plus Gumbel noise, and the noise of
@@ -22,10 +24,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.llama import LlamaConfig, _rmsnorm, _rope
+from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm, _rope
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]  # {"k","v": [L, B, max_len, KV, D]}
@@ -45,10 +48,12 @@ def init_cache(cfg: LlamaConfig, batch_size: int,
 
 
 def _cached_attention(q, k_cache, v_cache, q_slots, kv_valid_len,
-                      cfg: LlamaConfig):
+                      cfg: LlamaConfig, slot_live=None):
     """q: [B, S, H, D]; caches [B, max_len, KV, D]. Attends q (written
     at cache slots q_slots [B, S]) over cache slots < kv_valid_len,
-    causally (slot index <= query slot)."""
+    causally (slot index <= query slot). ``slot_live`` [B, max_len]
+    (optional) additionally masks dead slots — left-pad positions in a
+    ragged batch."""
     B, S, H, D = q.shape
     max_len = k_cache.shape[1]
     rep = H // k_cache.shape[2]
@@ -61,20 +66,17 @@ def _cached_attention(q, k_cache, v_cache, q_slots, kv_valid_len,
     slots = torch.arange(max_len, device=q.device)
     mask = (slots[None, None, None, :] <= q_slots[:, None, :, None]) \
         & (slots[None, None, None, :] < kv_valid_len)
+    if slot_live is not None:
+        mask = mask & slot_live[:, None, None, :]
     logits = torch.where(mask, logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
     return out.to(q.dtype)
 
 
-def _logits(h: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
-    """[..., d] hidden -> [..., vocab] f32 logits (the JAX einsum with
-    preferred_element_type=float32)."""
-    return torch.matmul(h.float(), lm_head.float())
-
-
 def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
-                q_slots, kv_valid_len, cfg: LlamaConfig, attend=None):
+                q_slots, kv_valid_len, cfg: LlamaConfig, slot_live=None,
+                attend=None):
     """The decoder-layer math shared by ALL cached decode paths:
     rmsnorm → q/k/v projections → RoPE → cache write → causal cached
     attention → attn residual → gated MLP residual.
@@ -84,7 +86,8 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
     those are injected: ``write_kv(k_cache, v_cache, k, v) -> (k_cache,
     v_cache)`` always, and optionally ``attend(q, k_cache, v_cache) ->
     o`` when the storage is not a dense [B, max_len] cache row (the
-    paged engine passes `ops.attention.paged_attention`)."""
+    paged engine passes `ops.attention.paged_attention`, and the dense
+    engine the same kernel over a block-table view of its cache)."""
     x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", x, layer["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, layer["wk"])
@@ -96,7 +99,7 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
         o = attend(q, k_cache, v_cache)
     else:
         o = _cached_attention(q, k_cache, v_cache, q_slots, kv_valid_len,
-                              cfg)
+                              cfg, slot_live=slot_live)
     h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"])
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
     gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"])
@@ -112,16 +115,23 @@ def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
-                   start: int, cfg: LlamaConfig
+                   start: int, cfg: LlamaConfig, *,
+                   positions: Optional[torch.Tensor] = None,
+                   slot_live: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """Run a token chunk [B, S] at cache offset `start`, writing its
     K/V into the cache in place. Returns (logits [B, S, vocab] f32,
     cache). Prefill is one call with the whole prompt; decode is S=1
-    calls."""
+    calls. ``positions`` overrides the RoPE position ids (ragged
+    batches: left-pad rows start their real tokens at position 0);
+    ``slot_live`` [B, max_len] masks dead (pad) cache slots out of every
+    attention."""
     B, S = tokens.shape
     h = params["tok_embed"][tokens]
     slot_ids = start + torch.arange(S, device=tokens.device)[None, :]
     slot_ids = slot_ids.expand(B, S)
+    if positions is None:
+        positions = slot_ids
     kv_valid_len = start + S
 
     def write_kv(k_cache, v_cache, k, v):
@@ -131,10 +141,10 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
 
     for i in range(cfg.n_layers):
         h, _, _ = _layer_body(h, _layer(params, i), cache["k"][i],
-                              cache["v"][i], slot_ids, write_kv, slot_ids,
-                              kv_valid_len, cfg)
+                              cache["v"][i], positions, write_kv, slot_ids,
+                              kv_valid_len, cfg, slot_live=slot_live)
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"]), cache
+    return _logits(h, params["lm_head"], cfg), cache
 
 
 def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
@@ -169,7 +179,7 @@ def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
         cache["k"][i] = k_c
         cache["v"][i] = v_c
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"]), cache
+    return _logits(h, params["lm_head"], cfg), cache
 
 
 def filter_logits(logits: torch.Tensor, top_k: Optional[int] = None,
@@ -258,11 +268,29 @@ def _check_sampling_knobs(greedy: bool, top_k, top_p) -> None:
             "sampling filters)")
 
 
+def _ragged(prompt_live: Optional[torch.Tensor], B: int, P: int,
+            max_new_tokens: int, device):
+    """(RoPE positions [B, P] or None, slot_live [B, P + max_new_tokens]
+    or None, real prompt tokens per row [B]) for a left-padded batch:
+    each row's real tokens take positions 0, 1, ... and pad slots are
+    dead to every attention."""
+    if prompt_live is None:
+        return None, None, torch.full((B,), P, dtype=torch.int64,
+                                      device=device)
+    live = prompt_live.to(device=device, dtype=torch.bool)
+    positions = torch.clamp(torch.cumsum(live.long(), dim=1) - 1, min=0)
+    slot_live = torch.cat(
+        [live, torch.ones((B, max_new_tokens), dtype=torch.bool,
+                          device=device)], dim=1)
+    return positions, slot_live, live.sum(dim=1)
+
+
 @torch.no_grad()
 def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
              max_new_tokens: int = 32, temperature: float = 1.0,
              greedy: bool = True, eos_id: Optional[int] = None,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
+             prompt_live: Optional[torch.Tensor] = None,
              rng: Optional[int] = None) -> torch.Tensor:
     """prompt [B, P] int (on the params' device) -> [B, P +
     max_new_tokens].
@@ -273,7 +301,13 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
     distribution restricted by `filter_logits`; token i of every row
     uses the noise of (``rng``, i) — see the module docstring — so a
     row's stream equals the serving engine's for a request submitted
-    with the same ``rng``."""
+    with the same ``rng``.
+
+    Ragged batches: LEFT-pad prompts to a common length and pass
+    ``prompt_live`` [B, P] (True = real token). Pad slots are masked out
+    of every attention and RoPE positions start at 0 on each row's
+    first real token, so rows of different prompt lengths decode in one
+    loop (see `pad_prompts`)."""
     B, P = prompt.shape
     max_len = P + max_new_tokens
     if max_len > cfg.max_seq_len:
@@ -281,8 +315,11 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
                          f"{cfg.max_seq_len}")
     _check_sampling_knobs(greedy, top_k, top_p)
     device = prompt.device
+    positions, slot_live, pos = _ragged(prompt_live, B, P, max_new_tokens,
+                                        device)
     cache = init_cache(cfg, B, max_len, device=device)
-    logits, cache = forward_cached(params, prompt, cache, 0, cfg)
+    logits, cache = forward_cached(params, prompt, cache, 0, cfg,
+                                   positions=positions, slot_live=slot_live)
     last = logits[:, -1]
     keys = torch.tensor([key_words(0 if rng is None else rng)] * B,
                         dtype=torch.int64, device=device)
@@ -298,8 +335,108 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
             done = done | (tok == eos_id)
         toks.append(tok)
         if i + 1 < max_new_tokens:
-            logits, cache = forward_cached(params, tok[:, None], cache,
-                                           P + i, cfg)
+            logits, cache = forward_cached(
+                params, tok[:, None], cache, P + i, cfg,
+                positions=(pos + i)[:, None], slot_live=slot_live)
             last = logits[:, 0]
     return torch.cat([prompt, torch.stack(toks, dim=1).to(prompt.dtype)],
                      dim=1)
+
+
+def generate_stream(params: Params, prompt: torch.Tensor,
+                    cfg: LlamaConfig, *, max_new_tokens: int = 32,
+                    eos_id: Optional[int] = None, temperature: float = 1.0,
+                    greedy: bool = True, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    prompt_live: Optional[torch.Tensor] = None,
+                    rng: Optional[int] = None):
+    """Decode as a Python generator yielding one [B] numpy token array
+    per step — the token-streaming path (`generate` is the batch path).
+    Stops early once every row has emitted eos. Ragged batches and
+    sampling take `generate`'s arguments and key schedule, so a
+    streamed run yields `generate`'s tokens. Validation runs eagerly:
+    bad knobs fail at the call site, not at the first ``next()``."""
+    B, P = prompt.shape
+    if P + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(f"{P + max_new_tokens} exceeds max_seq_len "
+                         f"{cfg.max_seq_len}")
+    _check_sampling_knobs(greedy, top_k, top_p)
+    return _stream_inner(params, prompt, cfg, max_new_tokens, eos_id,
+                         temperature, greedy, top_k, top_p, prompt_live,
+                         rng)
+
+
+@torch.no_grad()
+def _prefill_step(params, prompt, cache, cfg, positions=None,
+                  slot_live=None):
+    return forward_cached(params, prompt, cache, 0, cfg,
+                          positions=positions, slot_live=slot_live)
+
+
+@torch.no_grad()
+def _decode_step(params, tok, cache, slot, pos_ids, cfg, slot_live=None):
+    return forward_cached(params, tok[:, None], cache, slot, cfg,
+                          positions=pos_ids[:, None], slot_live=slot_live)
+
+
+def _stream_inner(params, prompt, cfg, max_new_tokens, eos_id,
+                  temperature, greedy, top_k, top_p, prompt_live, rng):
+    B, P = prompt.shape
+    device = prompt.device
+    positions, slot_live, pos = _ragged(prompt_live, B, P, max_new_tokens,
+                                        device)
+    cache = init_cache(cfg, B, P + max_new_tokens, device=device)
+    logits, cache = _prefill_step(params, prompt, cache, cfg,
+                                  positions=positions, slot_live=slot_live)
+    last = logits[:, -1]
+    keys = torch.tensor([key_words(0 if rng is None else rng)] * B,
+                        dtype=torch.int64, device=device)
+    done = np.zeros((B,), bool)
+    for step in range(max_new_tokens):
+        tok = sample_rows(last, keys, torch.full((B,), step, device=device),
+                          greedy=greedy, temperature=temperature,
+                          top_k=top_k, top_p=top_p)
+        if eos_id is not None:
+            tok = torch.where(torch.from_numpy(done).to(device), eos_id, tok)
+        # one host token per step is this path's contract
+        tok_np = tok.cpu().numpy()
+        yield tok_np
+        if eos_id is not None:
+            done = done | (tok_np == eos_id)
+            if done.all():
+                return
+        if step + 1 < max_new_tokens:
+            logits, cache = _decode_step(params, tok, cache, P + step,
+                                         pos + step, cfg,
+                                         slot_live=slot_live)
+            last = logits[:, 0]
+
+
+def pad_prompts(prompts, pad_id: int = 0, *, bucket_len: bool = False,
+                pad_batch_to: Optional[int] = None):
+    """Left-pad a ragged list of token lists to a dense [B, P] int32
+    numpy array + the matching ``prompt_live`` mask for `generate`.
+
+    Empty prompts are rejected: a fully-dead row has no last real token
+    to sample from — prepend a BOS token instead. ``bucket_len=True``
+    rounds P up to the next power of two, and ``pad_batch_to=N`` appends
+    single-token filler rows up to batch N (the caller slices its
+    outputs back to the real row count)."""
+    if not prompts:
+        raise ValueError("pad_prompts needs at least one prompt")
+    if any(len(p) == 0 for p in prompts):
+        raise ValueError(
+            "empty prompt: generation needs at least one real token "
+            "per row (prepend a BOS token)")
+    rows = list(prompts)
+    if pad_batch_to is not None and len(rows) < pad_batch_to:
+        rows += [[pad_id]] * (pad_batch_to - len(rows))
+    P = max(len(p) for p in rows)
+    if bucket_len:
+        P = 1 << (P - 1).bit_length()
+    out = np.full((len(rows), P), pad_id, np.int32)
+    live = np.zeros((len(rows), P), bool)
+    for i, p in enumerate(rows):
+        out[i, P - len(p):] = np.asarray(p, np.int32)
+        live[i, P - len(p):] = True
+    return out, live

@@ -83,6 +83,15 @@ class SchedulerPolicy:
             return 1
         return max_horizon
 
+    def admissions_pending(self) -> bool:
+        """Could an admission decision change the batch soon? The
+        engine's async decode pipeline asks before running ahead: a
+        pending admission means every freed slot must be re-examined
+        with fully replayed host state, so the engine FLUSHES its
+        in-flight ring and steps synchronously. Default: queue
+        non-empty."""
+        return len(self) > 0
+
 
 class FIFOPolicy(SchedulerPolicy):
     """Admit in submission order."""

@@ -1,4 +1,4 @@
-"""PyTorch port, serving: the paged DecodeEngine on the CPU.
+"""PyTorch port, serving: the paged DecodeEngine (``paged=True``) on the CPU.
 
 Token identity is the engine's contract: with the same weights (seeded
 numpy through `ray_tpu_torch.convert`), the port's paged engine emits
@@ -96,7 +96,7 @@ def port_greedy(weights):
     """The port engine's greedy run over the churn mix, and the engine."""
     _, tp = weights
     eng = DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
-                       kv_block_tokens=T)
+                       paged=True, kv_block_tokens=T)
     return _drive(eng, _prompts(), BUDGETS), eng
 
 
@@ -128,7 +128,7 @@ def test_sampled_tokens_identical_to_port_generate(weights):
     mode = dict(greedy=False, temperature=0.9, top_k=5)
     seeds = [1000 + i for i in range(len(prompts))]
     eng = DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
-                       kv_block_tokens=T, **mode)
+                       paged=True, kv_block_tokens=T, **mode)
     got = _drive(eng, prompts, BUDGETS, seeds)
     want = [_port_solo(tp, p, n, rng=s, **mode)
             for p, n, s in zip(prompts, BUDGETS, seeds)]
@@ -147,7 +147,7 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
     pool = 10 * block_bytes(TCFG.n_layers, T, TCFG.n_kv_heads,
                             TCFG.head_dim, 4)
     eng = DecodeEngine(tp, TCFG, batch_slots=4, max_len=MAX_LEN,
-                       kv_block_tokens=T, kv_pool_bytes=pool)
+                       paged=True, kv_block_tokens=T, kv_pool_bytes=pool)
     assert eng.kv_pool.blocks_total == 10
     got = _drive(eng, prompts, budgets)
     assert got == [_jax_solo(jp, p, n) for p, n in zip(prompts, budgets)]
@@ -158,7 +158,7 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"paged": False}, {"pipeline_depth": 2}, {"preempt": "swap"},
+    {"preempt": "swap"},
     {"kv_quant": "int8"}, {"prefix_cache": True}, {"prefill_chunk": 4},
     {"draft_params": "draft"}, {"lora": "lora"}, {"tp": 2},
     {"mesh": "mesh"}, {"sanitize": True}],
@@ -167,18 +167,19 @@ def test_out_of_slice_knobs_raise(weights, knob):
     _, tp = weights
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
-                     kv_block_tokens=T, **knob)
+                     paged=True, kv_block_tokens=T, **knob)
 
 
 def test_engine_argument_checks(weights):
     _, tp = weights
     with pytest.raises(ValueError, match="divisible"):
-        DecodeEngine(tp, TCFG, batch_slots=2, max_len=30, kv_block_tokens=T)
+        DecodeEngine(tp, TCFG, batch_slots=2, max_len=30, paged=True,
+                     kv_block_tokens=T)
     with pytest.raises(ValueError, match="preempt"):
-        DecodeEngine(tp, TCFG, max_len=MAX_LEN, kv_block_tokens=T,
-                     preempt="drop")
+        DecodeEngine(tp, TCFG, max_len=MAX_LEN, paged=True,
+                     kv_block_tokens=T, preempt="drop")
     eng = DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
-                       kv_block_tokens=T)
+                       paged=True, kv_block_tokens=T)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit([1] * 30, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

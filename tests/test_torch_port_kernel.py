@@ -14,7 +14,9 @@ query rows per block (several passes over the pages). Tolerances: f32
 q, 1e-5 abs/rel (exact f32 FMAs, summed in another order); bf16 q, 2e-2
 abs/rel (the kernel writes bf16 and, on its tensor-core path, rounds p
 to bf16 for p.v; the plain version is evaluated in f32 from the same
-bf16 or quantized inputs).
+bf16 or quantized inputs). A second check holds the tensor-core path on
+bf16, int8 and fp8 pools to an f64 evaluation, next to the error of
+`split_kv_reference` (all f32) on the same inputs.
 
 Flash attention (kernels B1, B3a, B3b against `_flash_fwd_reference`
 and `_flash_bwd_reference`; bf16 inputs take the wgmma kernels of
@@ -158,6 +160,69 @@ def test_kernel_matches_plain_version(cuda, shape, qdt, pool):
     tol = _TOL[qdt]
     torch.testing.assert_close(out.float()[~dead], ref[~dead],
                                atol=tol, rtol=tol)
+
+
+def _f64_attention(q, k, v, bt, q_slots, valid):
+    """The plain version's math evaluated in float64, with no rounding
+    anywhere: q [B, S, H, D], dequantized pages k, v [NB, T, KV, D]."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    span = bt.shape[1] * T
+    kr = k[bt.long()].reshape(B, span, KV, D).repeat_interleave(H // KV, 2)
+    vr = v[bt.long()].reshape(B, span, KV, D).repeat_interleave(H // KV, 2)
+    s = torch.einsum("bshd,bthd->bhst", q, kr) * D ** -0.5
+    slots = torch.arange(span, device=q.device)
+    mask = (slots[None, None, None, :] <= q_slots[:, None, :, None].long()) \
+        & (slots[None, None, None, :] < valid)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vr)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8_e4m3"])
+def test_kernel_error_against_f64_reference(cuda, pool):
+    """ROADMAP C3: the tensor-core path rounds p * v_scale to bf16 before
+    p.v, where the Pallas kernel keeps p in f32. At Llama-3-8B decode
+    shapes (long rows across many splits), B2's error against an f64
+    evaluation of the plain version must stay within twice the error of
+    `split_kv_reference` (the same split-KV algorithm with every step in
+    f32) on the same inputs: both write bf16, so the output's own bf16
+    rounding is common to both, and a p rounding that mattered would
+    show as a multiple of it."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    q, k, v, bt, q_slots, valid = _long_case(
+        *_SHAPES["long_rows"], seed=31, sms=sms)
+    dev = lambda x: torch.from_numpy(x).to(cuda)            # noqa: E731
+    q, k, v = dev(q).bfloat16(), dev(k), dev(v)
+    ks = vs = None
+    if pool == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+        kd, vd = k.double(), v.double()
+    else:
+        spec = kv_quant.resolve_kv_quant(pool)
+        ks = kv_quant.block_scale(k.abs().amax(dim=(1, 3)), spec)
+        vs = kv_quant.block_scale(v.abs().amax(dim=(1, 3)), spec)
+        k = kv_quant.quantize(k, ks[:, None, :, None], spec)
+        v = kv_quant.quantize(v, vs[:, None, :, None], spec)
+        kd = k.double() * ks.double()[:, None, :, None]
+        vd = v.double() * vs.double()[:, None, :, None]
+    bt, qs = dev(bt), dev(q_slots)
+    live = torch.from_numpy((q_slots >= 0).any(axis=1)).to(cuda)
+    want = _f64_attention(q.double(), kd, vd, bt, qs, valid)[live]
+    out = paged_attention(q, k, v, bt, qs, impl="kernel", kv_valid_len=valid,
+                          k_scale=ks, v_scale=vs)
+    per = pak.split_plan(bt.shape[1], k.shape[1], bt.shape[0], k.shape[2],
+                         sms)[0]
+    split = pak.split_kv_reference(q, k, v, bt, qs, kv_valid_len=valid,
+                                   pages_per_split=per, k_scale=ks,
+                                   v_scale=vs)
+    err_kernel = (out[live].double() - want).abs()
+    err_split = (split[live].double() - want).abs()
+    print(f"[C3] pool={pool}: max abs err vs f64: kernel "
+          f"{err_kernel.max().item():.3e}, split_kv_reference "
+          f"{err_split.max().item():.3e}; mean {err_kernel.mean().item():.3e}"
+          f" vs {err_split.mean().item():.3e}")
+    assert err_kernel.max() <= 2 * err_split.max()
+    assert err_kernel.mean() <= 2 * err_split.mean()
 
 
 # (B, H, Hkv, Sq, Sk, causal). The last two span many tiles of every
