@@ -25,18 +25,42 @@ Phases, each of which must pass:
                weights) serves 8 requests (32 new tokens each, greedy)
                through four engines: dense at pipeline depths 2 (the
                JAX defaults, the main path) and 1, paged at depths 2 and
-               1, each timed twice in turns and profiled once. In every
-               run B2's launch count must equal n_layers x decode
-               iterations, there must be one `_device_get` per decode
-               dispatch, the decode loop must have been replayed from
-               CUDA graphs and every block must return to the pool;
-               tokens must be identical across depths 1 and 2 on each
-               path, and a dense run through the plain attention must
-               agree on every request's first token. Prints steady decode
-               tokens/s, TTFT p50, the device-busy share and peak memory
-               per engine, and one H=8 paged dispatch timed eager and as
-               a replayed graph.
-  6. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+               1, each timed once and profiled once. In every run B2's
+               launch count must equal n_layers x decode iterations,
+               there must be one `_device_get` per decode dispatch, the
+               decode loop must have been replayed from CUDA graphs and
+               every block must return to the pool; the profiled run
+               must repeat the timed run's tokens, tokens must be
+               identical across depths 1 and 2 on each path, and a dense
+               run through the plain attention must agree on every
+               request's first token. Prints steady decode tokens/s,
+               TTFT p50, the device-busy share and peak memory per
+               engine, and one H=8 paged dispatch timed eager and as a
+               replayed graph.
+  6. kvmem   — the paged engine's memory plane on the same model: 16
+               requests in 2 groups of 8 sharing a 512-token system
+               prompt (seeded 32-256-token suffixes, 32 new tokens
+               each) through 8 slots with the prefix cache, the prefix
+               policy, 256-token prefill chunks and swap preemption, on
+               an 80-block pool that forces preemption: after a warm-up
+               run on other tokens, int8, fp8 and (same block count)
+               bf16 pools, int8 under recompute, int8 without the prefix
+               cache, and the dense engine with the prefix cache
+               (copy-in and copy-out). In every run B2 launches n_layers
+               x decode iterations and the plain attention never runs;
+               the first swap round trip is byte for byte (pages and
+               scale rows); warm admissions share blocks in both groups
+               and prefill fewer tokens than cold; every block the trie
+               does not hold comes back; given the bf16 run's history,
+               int8 and fp8 pick its token at >= 0.5 of positions
+               (teacher-forced; the free-running agreement is printed
+               beside); kv_bytes_per_token is 65,600 (int8, fp8) and
+               131,072 (bf16). Prints steady decode tokens/s, the card's
+               ms per decode iteration with B2's and the quantized
+               writes' shares, the swap bytes and times, TTFT p50 with
+               and without the prefix cache and what one pool budget
+               holds in bf16 and int8.
+  7. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
                edge cases (bf16 cases run the wgmma kernels, c_f32 the
@@ -46,7 +70,7 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
-  7. train   — bench.py:flagship_config()'s widths at full depth (only
+  8. train   — bench.py:flagship_config()'s widths at full depth (only
                remat_policy changed, to "full") train on batch 8 x 2048
                tokens with f32 master weights and adamw(3e-4,
                weight_decay=0.0): one warm-up step and 5 timed steps. The
@@ -55,7 +79,7 @@ Phases, each of which must pass:
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
-  8. parity  — one training step's loss, grad norm and gradients at the
+  9. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -66,6 +90,7 @@ non-zero and prints no result line; so does a machine without CUDA.
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import time
@@ -354,17 +379,27 @@ def _serve(params, cfg, prompts, *, paged, depth, profile=False):
     """One engine serves the prompts from empty: every request submitted,
     then `step()` until nothing is pending. Returns the engine, the
     tokens per request and the run's counts and times."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
-
     from ray_tpu_torch import DecodeEngine
-    from ray_tpu_torch.models import engine as engine_mod
-    from ray_tpu_torch.ops import paged_attention_kernel as pak
 
     eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
                        kv_block_tokens=32, greedy=True, trace=True,
                        paged=paged, pipeline_depth=depth)
-    ids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    return _drive(eng, prompts, NEW_TOKENS, profile=profile)
+
+
+def _drive(eng, prompts, new_tokens, profile=False):
+    """Submit every prompt to `eng`, then `step()` until nothing is
+    pending, counting B2's launches, the engine's `_device_get` pulls
+    and the most live rows, and timing each token block's arrival on the
+    card's clock. Returns the engine, the tokens per request and the
+    run's counts and times."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from ray_tpu_torch.models import engine as engine_mod
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
+
+    ids = [eng.submit(p, new_tokens) for p in prompts]
     gets, done = [0], []
     real_get, real_async = engine_mod._device_get, engine_mod._host_async
 
@@ -373,17 +408,19 @@ def _serve(params, cfg, prompts, *, paged, depth, profile=False):
         return real_get(x)
 
     def timed_async(x):
-        # an event after each block's copy to the host: its completion
-        # on the card's clock
+        # an event after each token block's copy to the host (an [H, B]
+        # int32 block; swap-outs copy pages, scales and logits): its
+        # completion on the card's clock
         block = real_async(x)
-        done.append(torch.cuda.Event(enable_timing=True))
-        done[-1].record()
+        if x.dtype == torch.int32 and x.dim() == 2:
+            done.append(torch.cuda.Event(enable_timing=True))
+            done[-1].record()
         return block
 
     prof = (profiler(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA])
             if profile else contextlib.nullcontext())
-    step_tokens = []
+    step_tokens, most_live, first_token = [], 0, {}
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(engine_mod, "_device_get", counted_get), \
             mock.patch.object(engine_mod, "_host_async", timed_async), prof:
@@ -392,15 +429,24 @@ def _serve(params, cfg, prompts, *, paged, depth, profile=False):
         t0 = time.perf_counter()
         while eng.pending():
             ev = eng.step()
+            now = time.perf_counter()
+            for rid in ev:
+                first_token.setdefault(rid, now - t0)
             step_tokens.append(sum(len(t) for t in ev.values()))
+            most_live = max(most_live,
+                            sum(r is not None for r in eng.row_req))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = pak.launches
+    first = next(i for i, n in enumerate(step_tokens) if n)
     run = {"launches": launches, "gets": gets[0], "wall": wall,
            "peak": torch.cuda.max_memory_allocated(),
+           "most_live": most_live,
+           # host clock from submission to each request's first token
+           "ttft_p50": float(np.median([first_token[i] for i in ids])),
            # the tokens of every block after the first over the card's
            # time from the first block's completion to the last one's
-           "steady": (sum(step_tokens) - step_tokens[0])
+           "steady": (sum(step_tokens) - step_tokens[first])
            / (done[0].elapsed_time(done[-1]) / 1e3),
            "span_rate": _decode_rate(eng)}
     if profile:
@@ -436,7 +482,11 @@ def _check_run(label, cfg, eng, toks, run, plain=False):
         "dispatches"
     s = eng.stats()
     assert s["decode_graph_replays"] > 0, f"{label}: no graph replayed"
-    assert not eng.paged or eng.kv_pool.blocks_in_use == 0, "blocks leaked"
+    # every retired row returned its blocks: only the prefix trie holds any
+    held = eng._prefix.blocks_in_use if eng._prefix is not None else 0
+    assert not eng.paged or eng.kv_pool.blocks_in_use == held, \
+        f"{label}: {eng.kv_pool.blocks_in_use} blocks in use, the trie " \
+        f"holds {held}"
     return s
 
 
@@ -460,7 +510,9 @@ def _time_dispatch(eng):
     return out
 
 
-def serve_phase(smi):
+def llama3_8b():
+    """Llama-3-8B at Meta's published widths, seeded random bf16 weights
+    on the card: (cfg, params), shared by the serve and kvmem phases."""
     from ray_tpu_torch import LlamaConfig
     from ray_tpu_torch.models.llama import llama_init
 
@@ -470,17 +522,20 @@ def serve_phase(smi):
     torch.cuda.synchronize()
     log(f"[serve] Llama-3-8B ({cfg.num_params() / 1e9:.2f} B params, bf16)"
         f" initialised on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def serve_phase(smi, cfg, params):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in rng.randint(64, 513, size=N_REQUESTS)]
     log(f"[serve] prompt lengths {[len(p) for p in prompts]}, "
         f"max_new_tokens {NEW_TOKENS}, 8 slots, max_len 2048, greedy")
 
-    # Timed runs in turns (A B C D D C B A), then one profiled run each.
+    # One timed run each (A B C D), then one profiled run each.
     tokens, runs = {}, {}
-    order = list(SERVE_RUNS) + list(reversed(SERVE_RUNS))
     main_launches = None
-    for i, (label, paged, depth) in enumerate(order):
+    for i, (label, paged, depth) in enumerate(SERVE_RUNS):
         eng, toks, run = _serve(params, cfg, prompts, paged=paged,
                                 depth=depth)
         s = _check_run(label, cfg, eng, toks, run)
@@ -496,11 +551,9 @@ def serve_phase(smi):
                 f"{eng.prefill_dispatches} prefill dispatches; pipeline "
                 f"depth effective {s['pipeline_depth_effective']:.2f}, "
                 f"overrun tokens {int(s['pipeline_overrun_tokens'])}")
-        if label in tokens:
-            assert toks == tokens[label], f"{label}: tokens changed"
         tokens[label] = toks
         runs.setdefault(label, []).append((run, s))
-        if label == "paged, depth 2" and i >= len(SERVE_RUNS):
+        if label == "paged, depth 2":
             t = _time_dispatch(eng)
             log(f"[serve] one H=8 paged decode dispatch (8 rows, 32 "
                 f"layers; host clock to completion): eager {t['eager']:.2f}"
@@ -511,8 +564,9 @@ def serve_phase(smi):
         del eng
         torch.cuda.empty_cache()
     for label, paged, depth in SERVE_RUNS:
-        _, _, prof = _serve(params, cfg, prompts, paged=paged, depth=depth,
-                            profile=True)
+        _, toks, prof = _serve(params, cfg, prompts, paged=paged,
+                               depth=depth, profile=True)
+        assert toks == tokens[label], f"{label}: tokens changed"
         torch.cuda.empty_cache()
         timed = runs[label]
         steady = [r["steady"] for r, _ in timed]
@@ -553,6 +607,355 @@ def serve_phase(smi):
     del eng_r
     torch.cuda.empty_cache()
     return main_launches
+
+
+# The kvmem phase: 16 requests in 2 groups of 8, each group sharing a
+# 512-token system prompt (16 blocks) before a seeded 32-256-token
+# suffix, 32 new tokens each, through 8 slots of 2048 tokens with
+# 32-token blocks, 256-token prefill chunks and the prefix policy, on a
+# pool of KVMEM_POOL_BLOCKS blocks: too few for the live rows' decode
+# growth, so every paged run preempts (the schedule does not depend on
+# the model: 2 preemptions with the prefix cache, 1 without).
+KVMEM_GROUPS, KVMEM_PER_GROUP, KVMEM_SYSTEM = 2, 8, 512
+KVMEM_SUFFIX = (32, 256)
+KVMEM_CHUNK = 256
+KVMEM_POOL_BLOCKS = 80
+KVMEM_MIN_AGREE = 0.5          # the JAX test_quant_on_token_tolerance_gate
+
+
+def kvmem_traffic(vocab_size, token_seed=8):
+    """The kvmem prompts, the two groups interleaved in submission
+    order, and each prompt's group. The suffix lengths come from their
+    own seed, so the schedule (which depends on lengths and sharing,
+    not on token values) is the same at every vocab size and token
+    seed."""
+    n = KVMEM_GROUPS * KVMEM_PER_GROUP
+    lens = np.random.RandomState(7).randint(KVMEM_SUFFIX[0],
+                                            KVMEM_SUFFIX[1] + 1, size=n)
+    rng = np.random.RandomState(token_seed)
+    systems = [rng.randint(0, vocab_size, size=KVMEM_SYSTEM).tolist()
+               for _ in range(KVMEM_GROUPS)]
+    groups = [i % KVMEM_GROUPS for i in range(n)]
+    prompts = [systems[g] + rng.randint(0, vocab_size, size=k).tolist()
+               for g, k in zip(groups, lens)]
+    return prompts, groups
+
+
+def kvmem_engine(params, cfg, *, kv_quant=None, preempt="swap",
+                 paged=True, prefix_cache=True, pool_blocks=KVMEM_POOL_BLOCKS):
+    """A kvmem engine: paged pools hold `pool_blocks` blocks of their own
+    dtype; the dense engine keeps its cache and a default prefix pool."""
+    from ray_tpu_torch import DecodeEngine
+    from ray_tpu_torch.models.prefix_cache import block_bytes
+
+    kw = dict(batch_slots=8, max_len=2048, greedy=True, trace=True,
+              prefix_cache=prefix_cache, prefill_chunk=KVMEM_CHUNK,
+              scheduler="prefix" if prefix_cache else "fifo")
+    if paged:
+        L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        bb = (block_bytes(L, 32, KV, D, 1) + 2 * L * KV * 4 if kv_quant
+              else block_bytes(L, 32, KV, D, cfg.dtype.itemsize))
+        kw.update(paged=True, kv_block_tokens=32, kv_quant=kv_quant,
+                  preempt=preempt, kv_pool_bytes=pool_blocks * bb)
+    return DecodeEngine(params, cfg, **kw)
+
+
+def _watch_first_swap(eng):
+    """Hold the engine's first swap preemption byte for byte: at
+    swap-out its blocks (pages, and a quantized pool's scale rows) are
+    read from the pool and must equal the pinned host copies; at the
+    request's swap-in the blocks of its new chain must equal them again.
+    Records the bytes, the blocks and the card's time of each leg."""
+    from ray_tpu_torch.ops.kv_quant import raw
+
+    rec = {}
+    swap_out, swap_in = eng._preempt_row, eng._swap_in_row
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), \
+            (time.perf_counter() - t0) * 1e3
+
+    def blocks(ids):
+        idx = torch.tensor(ids, dtype=torch.long, device=eng.device)
+        return [raw(t).index_select(1, idx).cpu()
+                for t in eng._pool_tensors()]
+
+    def preempt(row):
+        if "req" in rec or eng.preempt_mode != "swap":
+            return swap_out(row)
+        req, ids = eng.row_req[row], list(eng._row_blocks[row])
+        _, rec["out_ms"], rec["out_host_ms"] = timed(swap_out, row)
+        # nothing has written the freed blocks yet: they still hold the
+        # victim's bytes
+        sent = blocks(ids)
+        state = eng._swapped[req.req_id]
+        host = [b.data[:, :len(ids)] for b in state.host]
+        assert all(torch.equal(a, h) for a, h in zip(sent, host)), \
+            "swap-out: host copy differs from the pool's blocks"
+        rec.update(req=req.req_id, sent=sent, bytes=state.nbytes,
+                   blocks=len(ids))
+
+    def admit(row, req, state):
+        if rec.get("req") != req.req_id or "in_ms" in rec:
+            return swap_in(row, req, state)
+        ok, ms, host_ms = timed(swap_in, row, req, state)
+        if ok:
+            back = blocks(eng._row_blocks[row])
+            assert all(torch.equal(a, b) for a, b in zip(rec["sent"], back)), \
+                "swap-in: the new chain's bytes differ from the swap-out's"
+            rec.update(in_ms=ms, in_host_ms=host_ms)
+        return ok
+
+    eng._preempt_row, eng._swap_in_row = preempt, admit
+    return rec
+
+
+def _iteration_profile(eng, cfg):
+    """The card's ms per decode iteration of the engine's largest-horizon
+    graph (replayed 3 times under torch.profiler, the idle rows doing a
+    live row's work), B2's ms of it, and, for a quantized pool, the ms
+    of one iteration's quantized writes (2 x n_layers `paged_quant_write`
+    of 8 rows, captured and replayed as a CUDA graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops.kv_quant import paged_quant_write
+
+    H = max(k[0] for k in eng._graphs.graphs)
+    graph = eng._graphs.graphs[(H, True)][0]
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / (3 * H)
+    b2 = sum(e.self_device_time_total for e in rows
+             if "paged_decode" in e.key) / 1e3 / (3 * H)
+    out = {"H": H, "iter_ms": total, "b2_ms": b2, "write_ms": None}
+    if eng.kv_quant_spec is not None:
+        B, dev = eng.B, torch.device("cuda")
+        bt = (torch.arange(1, B + 1, dtype=torch.int32, device=dev)[:, None]
+              .expand(B, eng._mb).contiguous())
+        slots = torch.full((B,), 5, dtype=torch.long, device=dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        vals = torch.randn(B, 1, cfg.n_kv_heads, cfg.head_dim, generator=g,
+                           device=dev).to(cfg.dtype)
+
+        def writes():
+            for i in range(cfg.n_layers):
+                for pages, scales in ((eng._pool_k, eng._scale_k),
+                                      (eng._pool_v, eng._scale_v)):
+                    paged_quant_write(pages[i], scales[i], bt, slots, vals,
+                                      eng.kv_quant_spec)
+
+        out["write_ms"] = _graph_ms(writes, calls=1, reps=10)
+    return out
+
+
+def _teacher_forced(params, cfg, prompts, ref, kv_quant):
+    """The share of positions at which a pool's greedy choice equals
+    `ref`'s token GIVEN `ref`'s own history: 8 rows at a time are
+    prefilled in 256-token chunks, then fed `ref`'s tokens one decode
+    iteration at a time through the engine's decode step (the pool's
+    write and B2, eagerly), the argmax of the logits read before each
+    feed. Unlike the elementwise agreement of two free-running streams,
+    one early difference does not reroute the rest of a stream."""
+    from ray_tpu_torch import DecodeEngine
+    from ray_tpu_torch.models import engine as engine_mod
+
+    hits = total = 0
+    for lo in range(0, len(prompts), 8):
+        idx = list(range(lo, min(lo + 8, len(prompts))))
+        eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
+                           paged=True, kv_block_tokens=32,
+                           kv_quant=kv_quant, prefill_chunk=KVMEM_CHUNK)
+        for i in idx:
+            eng.submit(prompts[i], NEW_TOKENS)
+        rows = list(range(len(idx)))
+        eng._admit_rows([(r, eng.scheduler.pop()) for r in rows])
+        while eng._row_prefill:
+            eng._advance_prefills()
+        assert eng._ensure_decode_blocks(rows, NEW_TOKENS, 0)
+        dev = eng.device
+        bt = torch.from_numpy(eng._bt).to(dev)
+        row_len = torch.from_numpy(eng.row_len.astype(np.int64)).to(dev)
+        forced = torch.tensor([ref[i] for i in idx], device=dev)
+        toks = torch.zeros(eng.B, dtype=torch.long, device=dev)
+        live = torch.zeros(eng.B, dtype=torch.long, device=dev)
+        live[:len(idx)] = 1
+        logits = eng._last_logits
+        for j in range(NEW_TOKENS):
+            hits += int((logits[:len(idx)].argmax(-1) == forced[:, j]).sum())
+            total += len(idx)
+            toks[:len(idx)] = forced[:, j]
+            with torch.no_grad():
+                logits = engine_mod._decode_core_paged(
+                    params, toks, eng._pool_k, eng._pool_v, bt, row_len, cfg,
+                    eng._scale_k, eng._scale_v, eng.kv_quant_spec)
+            row_len = row_len + live
+        del eng
+        torch.cuda.empty_cache()
+    return hits / total
+
+
+def kvmem_phase(smi, cfg, params):
+    """The paged engine's memory plane on Llama-3-8B (see the module
+    docstring); returns nothing, raises on any failed check."""
+    from ray_tpu_torch.models import engine as engine_mod
+
+    prompts, groups = kvmem_traffic(cfg.vocab_size)
+    cold = sum(len(p) for p in prompts)
+    log(f"[kvmem] {len(prompts)} requests in {KVMEM_GROUPS} groups: "
+        f"{KVMEM_SYSTEM}-token system prompt + suffixes of "
+        f"{[len(p) - KVMEM_SYSTEM for p in prompts]} tokens ({cold} prompt "
+        f"tokens cold), {NEW_TOKENS} new tokens each, greedy; 8 slots, "
+        f"max_len 2048, 32-token blocks, prefill_chunk {KVMEM_CHUNK}, "
+        f"scheduler 'prefix'; paged pools of {KVMEM_POOL_BLOCKS} blocks")
+    # A process warm-up on other tokens (same schedule): the prefill
+    # GEMM shapes and the quantized write's kernels are new to the
+    # process here, and the first measured engine must not pay for them.
+    t0 = time.perf_counter()
+    with _plain_attention_forbidden():
+        _drive(kvmem_engine(params, cfg, kv_quant="int8"),
+               kvmem_traffic(cfg.vocab_size, token_seed=9)[0], NEW_TOKENS)
+    log(f"[kvmem] warm-up run (int8 pool, other tokens) "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    order = (("int8", dict(kv_quant="int8")),
+             ("fp8_e4m3", dict(kv_quant="fp8_e4m3")),
+             ("bf16", dict()),
+             ("int8 recompute", dict(kv_quant="int8", preempt="recompute")),
+             ("int8 prefix off", dict(kv_quant="int8",
+                                      prefix_cache=False)),
+             ("dense", dict(paged=False)))
+    for label, kw in order:
+        eng = kvmem_engine(params, cfg, **kw)
+        swap = _watch_first_swap(eng) if eng.paged else {}
+        with _plain_attention_forbidden():
+            eng, toks, run = _drive(eng, prompts, NEW_TOKENS)
+        s = _check_run(f"kvmem {label}", cfg, eng, toks, run)
+        if eng.paged:
+            assert s["preemptions"] >= 1, f"kvmem {label}: no preemption"
+        if eng.preempt_mode == "swap" and eng.paged:
+            assert s["swap_outs"] >= 1 and "in_ms" in swap, \
+                f"kvmem {label}: no swap round trip"
+        if eng._prefix is not None:
+            hit = {groups[e[1]] for e in eng.trace.events()
+                   if e[0] == "prefix_match" and e[5]["hit"]}
+            assert hit == set(range(KVMEM_GROUPS)), \
+                f"kvmem {label}: prefix hits in groups {hit}"
+            assert s["prefill_real_tokens"] < cold
+            shared = s["kv_blocks_shared"] if eng.paged \
+                else s["prefix_copy_dispatches"]
+            assert shared > 0, f"kvmem {label}: nothing shared or copied"
+        prof = _iteration_profile(eng, cfg)
+        runs[label] = (eng, toks, run, s, swap, prof)
+        log(f"[kvmem] {label}: steady decode {run['steady']:.1f} tokens/s "
+            f"(card clock), TTFT p50 {run['ttft_p50']:.4f} s, wall "
+            f"{run['wall']:.3f} s; B2 launches {run['launches']} = "
+            f"{cfg.n_layers} layers x {eng.decode_iterations} decode "
+            f"iterations; prefill {int(s['prefill_real_tokens'])} real + "
+            f"{int(s['prefill_padded_tokens'])} padded tokens in "
+            f"{eng.prefill_dispatches} dispatches; prefix hits "
+            f"{int(s['prefix_hits'])}/{int(s['prefix_lookups'])}, blocks "
+            f"shared {int(s['kv_blocks_shared'])}, copy-on-write "
+            f"{int(s['kv_block_cows'])}, copies {int(s['prefix_copy_dispatches'])}"
+            f"; preemptions {int(s['preemptions'])} (swap outs "
+            f"{int(s['swap_outs'])}), chunk stalls "
+            f"{int(s['chunked_prefill_stalls'])}; most live rows "
+            f"{run['most_live']}; kv_bytes_per_token "
+            f"{s['kv_bytes_per_token']:.0f}; on {smi}")
+        log(f"[kvmem] {label}: decode iteration on the card "
+            f"{prof['iter_ms']:.4f} ms (H={prof['H']} graph, profiled), B2 "
+            f"{prof['b2_ms']:.4f} ms ({prof['b2_ms'] / prof['iter_ms']:.1%})"
+            + ("" if prof["write_ms"] is None else
+               f", quantized writes {prof['write_ms']:.4f} ms "
+               f"({prof['write_ms'] / prof['iter_ms']:.1%}; 2 x "
+               f"{cfg.n_layers} paged_quant_write as a CUDA graph)"))
+        if "in_ms" in swap:
+            log(f"[kvmem] {label}: first swap, {swap['blocks']} blocks, "
+                f"{swap['bytes']} bytes each way (pages"
+                + (", scales" if eng.kv_quant else "")
+                + f", logits): out {swap['out_ms']:.3f} ms on the card "
+                f"({swap['out_host_ms']:.3f} ms host), in {swap['in_ms']:.3f}"
+                f" ms ({swap['in_host_ms']:.3f} ms host); byte-exact both "
+                "ways")
+        torch.cuda.empty_cache()
+    # K and V of every layer per token, plus a quantized block's two f32
+    # scales per layer and kv head spread over its 32 tokens: 65,600 and
+    # 131,072 bytes at Llama-3-8B's widths.
+    per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+    scales = 2 * cfg.n_layers * cfg.n_kv_heads * 4 / 32
+    for label, want in (("int8", per_token + scales),
+                        ("fp8_e4m3", per_token + scales),
+                        ("bf16", per_token * cfg.dtype.itemsize)):
+        got = runs[label][3]["kv_bytes_per_token"]
+        assert got == want, f"kvmem {label}: {got} bytes/token != {want}"
+    log(f"[kvmem] kv_bytes_per_token: int8 and fp8 "
+        f"{runs['int8'][3]['kv_bytes_per_token']:.0f}, bf16 "
+        f"{runs['bf16'][3]['kv_bytes_per_token']:.0f}")
+    total = len(prompts) * NEW_TOKENS
+    short = []
+    # The free-running streams of random-weight Llama-3-8B fork at near
+    # ties: two int8 runs that differ only in prefill grouping (prefix
+    # cache on and off) agree on about half of the tokens. The gate is
+    # therefore held per position, given the bf16 run's own history;
+    # the free-running agreement is printed beside it.
+    forced = {mode: _teacher_forced(params, cfg, prompts, runs["bf16"][1],
+                                    mode)
+              for mode in (None, "int8", "fp8_e4m3")}
+    log(f"[kvmem] teacher-forced agreement with the bf16 run's tokens "
+        f"(same history, decode step eager): bf16 pool "
+        f"{forced[None]:.3f}, int8 {forced['int8']:.3f}, fp8 "
+        f"{forced['fp8_e4m3']:.3f} (>= {KVMEM_MIN_AGREE})")
+    for mode in ("int8", "fp8_e4m3"):
+        if forced[mode] < KVMEM_MIN_AGREE:
+            short.append(f"{mode} teacher-forced {forced[mode]:.3f}")
+    for label, base in (("int8", "bf16"), ("fp8_e4m3", "bf16"),
+                        ("int8 recompute", "int8"),
+                        ("int8 prefix off", "int8"), ("dense", "bf16")):
+        a, b = runs[label][1], runs[base][1]
+        agree = sum(x == y for p, q in zip(a, b)
+                    for x, y in zip(p, q)) / total
+        firsts = sum(p[0] == q[0] for p, q in zip(a, b))
+        common = [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y),
+                       len(p)) for p, q in zip(a, b)]
+        log(f"[kvmem] {label} tokens agree with the {base} run's on "
+            f"{agree:.3f} of {total} (free-running); first tokens "
+            f"{firsts}/{len(a)}; tokens before the first difference: mean "
+            f"{np.mean(common):.2f}, per request {common}")
+    assert not short, f"kvmem: agreement with bf16 below " \
+        f"{KVMEM_MIN_AGREE}: {short}"
+    bb8 = runs["int8"][0].kv_bytes_per_block
+    bb16 = runs["bf16"][0].kv_bytes_per_block
+    budget = KVMEM_POOL_BLOCKS * bb8
+    need = np.mean([-(-(len(p) + NEW_TOKENS) // 32) for p in prompts])
+    log(f"[kvmem] one budget of {budget:.0f} bytes: bf16 "
+        f"{int(budget // bb16)} blocks, int8 {int(budget // bb8)} blocks "
+        f"({(budget // bb8) / (budget // bb16):.3f}x); live requests of "
+        f"this traffic without sharing ({need:.2f} blocks each): bf16 "
+        f"{int(budget // bb16 // need)}, int8 {int(budget // bb8 // need)};"
+        f" 2048-token rows: bf16 {int(budget // bb16 // 64)}, int8 "
+        f"{int(budget // bb8 // 64)}")
+    log(f"[kvmem] TTFT p50 with the prefix cache "
+        f"{runs['int8'][2]['ttft_p50']:.4f} s, without "
+        f"{runs['int8 prefix off'][2]['ttft_p50']:.4f} s (int8 pools, "
+        f"same traffic); prefill real tokens "
+        f"{int(runs['int8'][3]['prefill_real_tokens'])} vs "
+        f"{int(runs['int8 prefix off'][3]['prefill_real_tokens'])} (cold "
+        f"{cold})")
+    del runs
+    torch.cuda.empty_cache()
 
 
 def _flash_pairs(Sq, Sk, causal):
@@ -686,16 +1089,29 @@ def flash_phase():
 
 @contextlib.contextmanager
 def _plain_attention_forbidden():
-    """Every plain attention version raises while the block runs."""
+    """Every plain attention version raises while the block runs: the
+    plain training attention, the plain flash passes and the engine's
+    plain paged attention (prefill's cached attention is plain by
+    design, ROADMAP A15)."""
+    from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops import flash_attention as fa
 
     def refuse(*args, **kwargs):
         raise AssertionError("the plain attention ran on the main path")
 
+    real_paged = engine_mod.paged_attention
+
+    def paged_kernel_only(q, *args, impl="auto", **kwargs):
+        if impl == "reference" or (impl == "auto" and not q.is_cuda):
+            refuse()
+        return real_paged(q, *args, impl=impl, **kwargs)
+
     with mock.patch.object(attn, "mha_reference", refuse), \
             mock.patch.object(fa, "_flash_fwd_reference", refuse), \
-            mock.patch.object(fa, "_flash_bwd_reference", refuse):
+            mock.patch.object(fa, "_flash_bwd_reference", refuse), \
+            mock.patch.object(engine_mod, "paged_attention",
+                              paged_kernel_only):
         yield
 
 
@@ -817,7 +1233,15 @@ def main():
     kres = phase("kernel", kernel_phase)
     fres = phase("flash", flash_phase)
     phase("small", small_phase)
-    launches = phase("serve", serve_phase, smi)
+    cfg, params = phase("init", llama3_8b)
+    launches = phase("serve", serve_phase, smi, cfg, params)
+    phase("kvmem", kvmem_phase, smi, cfg, params)
+    # kvmem's swap watchers tie engines (and through them the weights)
+    # in reference cycles: collect them before the train phase measures
+    # its peak memory
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     tlaunches = phase("train", train_phase, smi)
     phase("parity", parity_phase)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())

@@ -1,5 +1,6 @@
 """Continuous-batching decode engine: a dense per-slot KV cache or a
-paged KV block pool, fused multi-step decode, an async run-ahead ring.
+paged KV block pool, fused multi-step decode, an async run-ahead ring,
+and the paged engine's memory plane.
 
 Port of `ray_tpu/models/engine.py`. B fixed decode slots advance
 together, every row at its OWN cache offset, in one of two KV layouts:
@@ -8,17 +9,35 @@ together, every row at its OWN cache offset, in one of two KV layouts:
   D]`` (`generate.init_cache`), row b's K/V in slot row b;
 - paged (``paged=True``): every row's K/V in refcounted blocks of ONE
   pool ``[L, NB, T, KV, D]`` addressed through per-row block tables
-  (`models/block_pool.py`); when decode growth runs the pool dry, the
-  newest row is PREEMPTED (its blocks freed, re-queued at the front,
-  prompt + emitted tokens re-prefilled on re-admission:
-  ``preempt="recompute"``).
+  (`models/block_pool.py`). When decode growth runs the pool dry, the
+  newest row is PREEMPTED and re-queued at the front: ``preempt="swap"``
+  (the default) copies its blocks to pinned host memory and scatters
+  them back into a fresh chain on re-admission; ``preempt="recompute"``
+  drops them and re-prefills prompt + emitted tokens.
+
+The paged pool may hold int8 or fp8-e4m3 values (``kv_quant=``) with two
+f32 scale slabs ``[L, NB, KV]`` indexed by the same block ids
+(`ops/kv_quant.py`): prefill dequantizes the rows' view to f32 and
+requantizes it on write-back, decode writes through `paged_quant_write`
+and B2 dequantizes inside its page loads. Copy-on-write and swap move
+the quantized bytes and their scales verbatim.
+
+The prefix cache (``prefix_cache=True``, `models/prefix_cache.py`)
+indexes full prompt blocks in a trie. The dense engine copies matched
+blocks from its own pool into the row (`_prefix_copy_in`) and copies
+newly prefilled ones out (`_prefix_copy_out`); the paged engine SHARES
+them by reference count with zero copies, and a full-prompt hit copies
+only its tail block (copy-on-write). ``scheduler="prefix"`` defers a
+burst's followers one round so they admit warm. ``prefill_chunk=``
+splits each prompt into chunks, one per step, interleaved with decode.
 
 Admission binds a request to its slot row and prefills its prompt:
 same-length-bucket admissions share one batched prefill (`_prefill_rows`
-/ `_prefill_rows_paged`), which runs the shared `forward_cached_rows`
-math one layer at a time over row views of the cache. The last-prompt
-logits stay on the device in `_last_logits`; the decode loop samples the
-first token from them.
+/ `_prefill_rows_paged`), padded to a power of two rows by repeating the
+last, which runs the shared `forward_cached_rows` math one layer at a
+time over row views of the cache. The last-prompt logits stay on the
+device in `_last_logits`; the decode loop samples the first token from
+them.
 
 Decode runs H iterations per dispatch (`_decode_multi` /
 `_decode_multi_paged`, one horizon loop) with every per-row decision on
@@ -35,22 +54,26 @@ admission and at end of stream. Tokens are identical at every depth.
 
 On the card the decode loop is a CUDA graph per (H, all-greedy) key —
 the port's form of JAX's one compiled program per horizon; on the CPU
-the same function runs eagerly. Decode attention runs on the
+the same function runs eagerly. Every device write outside the loop
+(prefill, copy-in/out, copy-on-write, swap-in) is in place, so the
+graphs keep reading the same tensors. Decode attention runs on the
 hand-written paged-attention kernel (`ops.attention.paged_attention`,
-B2): through the block tables on the paged path, and over a fixed
-block-table VIEW of the dense cache on the dense path (no copy: row b's
-slots are blocks b*MB .. b*MB + MB - 1). The CPU and
-``attn_impl="reference"`` take the plain attention.
+B2): through the block tables on the paged path (bf16, int8 or fp8
+pages), and over a fixed block-table VIEW of the dense cache on the
+dense path (no copy: row b's slots are blocks b*MB .. b*MB + MB - 1).
+The CPU and ``attn_impl="reference"`` take the plain attention.
 
 Consistency contract (tested on the CPU): greedy output equals the JAX
-package's engine (dense and paged, every pipeline depth and horizon) and
-solo `generate`; sampled output equals the port's own solo `generate`
-under the same per-request seed.
+package's engine (dense and paged, every pipeline depth and horizon,
+swap and recompute preemption, the prefix cache and chunked prefill)
+and solo `generate`; a quantized pool's bytes and scales equal the JAX
+engine's after prefill and decode; sampled output equals the port's own
+solo `generate` under the same per-request seed.
 
 Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: swap preemption, the prefix cache, chunked prefill,
-quantized KV, speculative decoding, multi-LoRA, tensor parallelism and
-the runtime sanitizer.
+ROADMAP.md item: speculative decoding (A7b), multi-LoRA (A8), tensor
+parallelism (A9), fleet failover resume (A10) and the runtime sanitizer
+(A14).
 """
 
 from __future__ import annotations
@@ -72,19 +95,27 @@ from ray_tpu_torch.models.generate import (_check_sampling_knobs, _layer,
                                            init_cache, key_words,
                                            sample_rows)
 from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm
-from ray_tpu_torch.models.prefix_cache import block_bytes
+from ray_tpu_torch.models.prefix_cache import PrefixCacheIndex, block_bytes
 from ray_tpu_torch.models.scheduler import (EngineDraining,
                                             EngineOverloaded,
                                             SchedulerPolicy, SubmitTimeout,
                                             make_policy)
 from ray_tpu_torch.ops import paged_attention_kernel as pak
 from ray_tpu_torch.ops.attention import paged_attention
+from ray_tpu_torch.ops.kv_quant import (KVQuantSpec, block_scale,
+                                        dequantize, paged_quant_write,
+                                        quantize, raw, resolve_kv_quant)
 
 Params = Dict[str, Any]
 
 # Slots per block of the dense cache's block-table view on the card
 # (B2's paged path serves 32-slot blocks at the same widths).
 DENSE_VIEW_TOKENS = 32
+
+
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -165,8 +196,10 @@ class _PagedRows:
     block tables ``bt`` [N, MB]; ``view[i] = x`` scatters them back.
     Because MB*T == max_len, the view has the dense cache row's shape.
     The whole-view write-back is safe: each row only modifies its own
-    suffix slots, and duplicate table entries are the null block
-    (garbage nobody reads)."""
+    suffix slots (shared prefix blocks sit below its start and are
+    rewritten with the bytes just gathered), and duplicate table
+    entries are shared blocks (same bytes), padded rows (same values)
+    or the null block (garbage nobody reads)."""
 
     def __init__(self, pool: torch.Tensor, bt: torch.Tensor):
         self.pool = pool
@@ -182,15 +215,53 @@ class _PagedRows:
             view.shape[0], -1, T, *view.shape[2:])
 
 
+class _QuantPagedRows(_PagedRows):
+    """`_PagedRows` over a quantized pool and its scale slab ``scales``
+    [L, NB, KV]: ``view[i]`` dequantizes the gathered blocks to an f32
+    view (kept f32 end to end: requantization is byte-stable only
+    then); ``view[i] = x`` zeroes every slot at or past the row's valid
+    length ``valid`` [N] (bucket filler and a previous tenant's garbage
+    must not coarsen a block's absmax), recomputes each block's scale
+    and requantizes the whole view. Shared prefix blocks come back
+    byte-identical."""
+
+    def __init__(self, pool: torch.Tensor, scales: torch.Tensor,
+                 bt: torch.Tensor, valid: torch.Tensor, qspec: KVQuantSpec):
+        super().__init__(pool, bt)
+        self.scales = scales
+        self.qspec = qspec
+        N, MB = bt.shape
+        T = pool.shape[2]
+        slots = torch.arange(MB * T, device=bt.device)
+        self.live = (slots[None, :] < valid[:, None]).view(N, MB, T, 1, 1)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        blk = raw(self.pool[i])[self.bt].view(self.pool.dtype)
+        x = dequantize(blk, self.scales[i][self.bt][:, :, None, :, None])
+        return x.reshape(x.shape[0], -1, *x.shape[3:])
+
+    def __setitem__(self, i: int, view: torch.Tensor) -> None:
+        T = self.pool.shape[2]
+        x = view.float().reshape(view.shape[0], -1, T, *view.shape[2:])
+        x = torch.where(self.live, x, 0.0)
+        s = block_scale(x.abs().amax(dim=(2, 4)), self.qspec)  # [N,MB,KV]
+        raw(self.pool[i])[self.bt] = raw(
+            quantize(x, s[:, :, None, :, None], self.qspec))
+        self.scales[i][self.bt] = s
+
+
 def _prefill_views(params: Params, prompts: torch.Tensor, cache,
                    last_logits: torch.Tensor, rows: torch.Tensor,
                    starts: torch.Tensor, last_idx: torch.Tensor,
                    cfg: LlamaConfig) -> None:
-    """N same-bucket prompts [N, Cb] run `forward_cached_rows` over the
+    """N same-bucket chunks [N, Cb] run `forward_cached_rows` over the
     row views ``cache``, and each row's last-real-token logits land in
-    ``last_logits[rows]``. Filler tokens past a prompt's true length
+    ``last_logits[rows]``. Filler tokens past a chunk's true length
     write K/V beyond its frontier, which every later mask excludes until
-    decode overwrites them; only the logits at ``last_idx`` are read."""
+    the next chunk or decode overwrites them; only the logits at
+    ``last_idx`` are read. ``rows`` may repeat (power-of-two padding
+    repeats the last row verbatim): duplicate scatters write identical
+    values."""
     logits, _ = forward_cached_rows(params, prompts, cache, starts, cfg)
     n = prompts.shape[0]
     last_logits[rows.long()] = logits[torch.arange(n, device=logits.device),
@@ -203,7 +274,8 @@ def _prefill_rows(params: Params, prompts: torch.Tensor, cache,
                   starts: torch.Tensor, last_idx: torch.Tensor,
                   cfg: LlamaConfig) -> None:
     """Batched admission prefill into the dense cache, in place: row
-    ``rows[n]`` of the cache takes prompt n at offset ``starts[n]``."""
+    ``rows[n]`` of the cache takes chunk n at offset ``starts[n]`` (0
+    cold, the copied prefix warm, the chunk frontier chunked)."""
     views = {"k": _DenseRows(cache["k"], rows),
              "v": _DenseRows(cache["v"], rows)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
@@ -215,12 +287,64 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
                         pool_k: torch.Tensor, pool_v: torch.Tensor,
                         last_logits: torch.Tensor, bt: torch.Tensor,
                         rows: torch.Tensor, starts: torch.Tensor,
-                        last_idx: torch.Tensor, cfg: LlamaConfig) -> None:
+                        last_idx: torch.Tensor, cfg: LlamaConfig,
+                        scale_k: Optional[torch.Tensor] = None,
+                        scale_v: Optional[torch.Tensor] = None,
+                        qspec: Optional[KVQuantSpec] = None) -> None:
     """Batched admission prefill into the pool, in place, through the
-    rows' block tables ``bt`` [N, MB]."""
-    views = {"k": _PagedRows(pool_k, bt), "v": _PagedRows(pool_v, bt)}
+    rows' block tables ``bt`` [N, MB]. A quantized pool (``qspec`` and
+    the f32 scale slabs) runs the same math on the dequantized f32 view
+    and requantizes it on write-back over each row's valid slots
+    ``[0, starts + last_idx + 1)``."""
+    if qspec is None:
+        views = {"k": _PagedRows(pool_k, bt), "v": _PagedRows(pool_v, bt)}
+    else:
+        valid = starts + last_idx + 1
+        views = {"k": _QuantPagedRows(pool_k, scale_k, bt, valid, qspec),
+                 "v": _QuantPagedRows(pool_v, scale_v, bt, valid, qspec)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
                    last_idx, cfg)
+
+
+@torch.no_grad()
+def _prefix_copy_in(cache, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                    block_ids: torch.Tensor, rows: torch.Tensor,
+                    block_tokens: int) -> None:
+    """Copy cached prefix blocks into dense slot rows, in place: row
+    ``rows[n]`` takes blocks ``block_ids[n]`` [N, nb] at slots [0,
+    nb*T). N and nb are power-of-two padded by the caller (repeat the
+    last row / the last block): duplicate rows write identical values,
+    and padded trailing blocks write garbage beyond the matched prefix,
+    which the suffix prefill and decode overwrite before any mask
+    admits it."""
+    bids = block_ids.long()
+    span = bids.shape[1] * block_tokens
+    for name, pool in (("k", pool_k), ("v", pool_v)):
+        blk = pool[:, bids]                       # [L, N, nb, T, KV, D]
+        cache[name][:, rows.long(), :span] = blk.reshape(
+            blk.shape[0], blk.shape[1], span, *blk.shape[4:])
+
+
+@torch.no_grad()
+def _prefix_copy_out(cache, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                     row: int, start_slot: int, block_ids: torch.Tensor,
+                     block_tokens: int) -> None:
+    """Insert a freshly prefilled prefix segment into the pool, in
+    place: slots [start_slot, start_slot + nb*T) of slot row ``row`` go
+    to blocks ``block_ids`` [nb]. nb is power-of-two padded with the
+    scratch block 0, which takes the padding's clamped slots and is
+    never indexed. Enqueued right after the prefill that produced the
+    segment, so a copy-in enqueued earlier still reads the blocks' old
+    content."""
+    nb = block_ids.shape[0]
+    span = nb * block_tokens
+    slots = torch.arange(start_slot, start_slot + span,
+                         device=block_ids.device).clamp_(
+                             max=cache["k"].shape[2] - 1)
+    for name, pool in (("k", pool_k), ("v", pool_v)):
+        seg = cache[name][:, row][:, slots]           # [L, span, KV, D]
+        pool[:, block_ids.long()] = seg.reshape(
+            seg.shape[0], nb, block_tokens, *seg.shape[2:])
 
 
 def _decode_layer_rows(h, layer, k_cache, v_cache, write_slots,
@@ -278,29 +402,44 @@ def _decode_core(params: Params, toks: torch.Tensor, cache,
 
 
 def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, write_slots,
-                             cfg: LlamaConfig):
+                             cfg: LlamaConfig, k_scale=None, v_scale=None,
+                             qspec: Optional[KVQuantSpec] = None):
     """One decoder layer, one new token per row, against the pool: row
     b's new K/V land in physical block ``bt[b, slot // T]`` at offset
     ``slot % T`` and attention reads back through the block table.
-    Frontier blocks are private to their row, so live rows' writes never
-    collide; retired/empty rows write garbage into the null block."""
+    Frontier blocks are private to their row (a full-prompt prefix hit
+    copies its tail block at admission), so live rows' writes never
+    collide; retired/empty rows write garbage into the null block.
+
+    A quantized pool (``qspec`` with this layer's ``k_scale`` /
+    ``v_scale`` [NB, KV]) writes through `paged_quant_write`'s
+    frontier-block read-modify-write and hands B2 the scales, which it
+    applies inside its page loads."""
     B = h.shape[0]
     T = k_pages.shape[1]
     span = bt.shape[1] * T                 # == engine max_len
     bidx = torch.arange(B, device=h.device)
     wl = write_slots.long()
-    blk = bt[bidx, wl // T].long()         # [B] physical frontier block
-    off = wl % T
     q_slots = write_slots.to(torch.int32)[:, None]
 
-    def write_kv(k_pages, v_pages, k, v):
-        k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
-        v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
-        return k_pages, v_pages
+    if qspec is None:
+        blk = bt[bidx, wl // T].long()     # [B] physical frontier block
+        off = wl % T
+
+        def write_kv(k_pages, v_pages, k, v):
+            k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
+            v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
+            return k_pages, v_pages
+    else:
+        def write_kv(k_pages, v_pages, k, v):
+            paged_quant_write(k_pages, k_scale, bt, wl, k[:, :1], qspec)
+            paged_quant_write(v_pages, v_scale, bt, wl, v[:, :1], qspec)
+            return k_pages, v_pages
 
     def attend(q, k_pages, v_pages):
         return paged_attention(q, k_pages, v_pages, bt, q_slots,
-                               kv_valid_len=span, impl=cfg.attn_impl)
+                               kv_valid_len=span, k_scale=k_scale,
+                               v_scale=v_scale, impl=cfg.attn_impl)
 
     h, _, _ = _layer_body(h, layer, k_pages, v_pages, wl[:, None],
                           write_kv, wl[:, None], span, cfg, attend=attend)
@@ -310,12 +449,17 @@ def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, write_slots,
 def _decode_core_paged(params: Params, toks: torch.Tensor,
                        pool_k: torch.Tensor, pool_v: torch.Tensor,
                        bt: torch.Tensor, row_len: torch.Tensor,
-                       cfg: LlamaConfig) -> torch.Tensor:
-    """`_decode_core` against the pool (block tables ``bt``)."""
+                       cfg: LlamaConfig, scale_k=None, scale_v=None,
+                       qspec: Optional[KVQuantSpec] = None) -> torch.Tensor:
+    """`_decode_core` against the pool (block tables ``bt``); a
+    quantized pool passes its scale slabs [L, NB, KV] too."""
     h = params["tok_embed"][toks[:, None]]
     for i in range(cfg.n_layers):
+        scales = ((None, None) if qspec is None
+                  else (scale_k[i], scale_v[i]))
         h = _decode_layer_rows_paged(h, _layer(params, i), pool_k[i],
-                                     pool_v[i], bt, row_len, cfg)
+                                     pool_v[i], bt, row_len, cfg, *scales,
+                                     qspec=qspec)
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(h, params["lm_head"], cfg)[:, 0]
 
@@ -382,15 +526,57 @@ def _decode_multi_paged(params: Params, pool_k, pool_v, bt, last_logits,
                         row_len, active, budget, tok_idx, row_keys,
                         row_greedy, temperature: float, cfg: LlamaConfig,
                         horizon: int, greedy: bool, top_k: Optional[int],
-                        top_p: Optional[float], eos_id: Optional[int]):
+                        top_p: Optional[float], eos_id: Optional[int], *,
+                        scale_k=None, scale_v=None,
+                        qspec: Optional[KVQuantSpec] = None):
     """The paged decode loop (`_decode_loop` over `_decode_core_paged`);
     the block table spans exactly max_len slots."""
     return _decode_loop(
         lambda tok, rl: _decode_core_paged(params, tok, pool_k, pool_v, bt,
-                                           rl, cfg),
+                                           rl, cfg, scale_k, scale_v,
+                                           qspec),
         last_logits, row_len, active, budget, tok_idx, row_keys, row_greedy,
         temperature, horizon, greedy, top_k, top_p, eos_id,
         bt.shape[1] * pool_k.shape[2])
+
+
+@torch.no_grad()
+def _cow_blocks(tensors: List[torch.Tensor], src: torch.Tensor,
+                dst: torch.Tensor) -> None:
+    """Copy-on-write, in place: block ``src[i]`` of each pool tensor
+    (pages, then a quantized pool's scale slabs) is duplicated into
+    ``dst[i]`` for every pair of one admission round, one copy per
+    tensor: byte-exact, never a requantization. Pairs are power-of-two
+    padded with (0, 0): null block onto itself."""
+    src, dst = src.long(), dst.long()
+    for t in tensors:
+        raw(t).index_copy_(1, dst, raw(t).index_select(1, src))
+
+
+@torch.no_grad()
+def _swap_out_gather(tensors: List[torch.Tensor],
+                     block_ids: torch.Tensor) -> List[torch.Tensor]:
+    """Gather a preemption victim's blocks out of each pool tensor
+    (pages [L, n, T, KV, D], a quantized pool's as raw bytes, then its
+    scale rows [L, n, KV]) into fresh tensors, which the caller copies
+    to the host. ``block_ids`` is power-of-two padded with the null
+    block; its garbage rides along and is scattered straight back into
+    block 0 at swap-in. No dequantization on either leg: the round trip
+    is byte-exact."""
+    idx = block_ids.long()
+    return [raw(t).index_select(1, idx) for t in tensors]
+
+
+@torch.no_grad()
+def _swap_in_scatter(tensors: List[torch.Tensor], host,
+                     block_ids: torch.Tensor) -> None:
+    """Scatter a swapped-out request's host copies ``host`` (pinned on
+    the card) into a freshly allocated chain ``block_ids`` of the pool
+    ``tensors``, in place. The new physical ids need not match the old
+    ones: the block table maps them to the same logical slots."""
+    idx = block_ids.long()
+    for t, h in zip(tensors, host):
+        raw(t).index_copy_(1, idx, h.to(t.device, non_blocking=True))
 
 
 class _DecodeGraphs:
@@ -478,17 +664,55 @@ class _Request:
 
 class _PrefillState:
     """A slot row whose prompt is still to be written: ``pos`` is the
-    prefill frontier, ``prompt`` the token sequence being prefilled
-    (the request's prompt, or prompt + emitted tokens when a preempted
-    request recomputes)."""
+    prefill frontier (slots [0, pos) hold valid K/V: a copied or shared
+    prefix plus completed chunks), ``nodes`` the PENDING trie nodes this
+    row's prefill fills (each committed once the frontier covers its
+    block), ``prompt`` the token sequence being prefilled (the request's
+    prompt, or prompt + emitted tokens when a preempted request
+    recomputes)."""
 
-    __slots__ = ("req", "pos", "prompt")
+    __slots__ = ("req", "pos", "nodes", "prompt")
 
-    def __init__(self, req: _Request, pos: int,
+    def __init__(self, req: _Request, pos: int, nodes: list,
                  prompt: Optional[List[int]] = None):
         self.req = req
         self.pos = pos
+        self.nodes = nodes
         self.prompt = req.prompt if prompt is None else prompt
+
+
+class _SwapState:
+    """A preempted request's spilled decode state (paged engine).
+
+    ``host`` holds the host copies (`_HostBlock`: pinned memory and the
+    event of its copy on the card) of the victim's gathered pages [L,
+    nbp, T, KV, D], K then V, and of a quantized pool's scale rows [L,
+    nbp, KV]; ``logits`` its next-token logits. Both are None under
+    preempt="recompute", where re-admission re-prefills prompt + emitted
+    tokens instead. ``row_len`` / ``tok_idx`` / ``budget`` restore the
+    row where it froze; the token stream then continues unchanged,
+    because the sampling noise depends only on the request's key and
+    token index."""
+
+    __slots__ = ("host", "n_blocks", "row_len", "tok_idx", "budget",
+                 "logits")
+
+    def __init__(self, host: Optional[List[_HostBlock]], n_blocks: int,
+                 row_len: int, tok_idx: int, budget: int,
+                 logits: Optional[_HostBlock]):
+        self.host = host
+        self.n_blocks = n_blocks
+        self.row_len = row_len
+        self.tok_idx = tok_idx
+        self.budget = budget
+        self.logits = logits
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the swap moves each way: pages, scales and logits."""
+        if self.host is None:
+            return 0
+        return sum(b.data.nbytes for b in self.host + [self.logits])
 
 
 class _InflightStep:
@@ -541,10 +765,13 @@ class DecodeEngine:
     ``submit(..., rng=seed)`` pins it, else one is mixed from the engine
     ``rng`` seed and the request id.
 
-    A port default differs from the JAX engine: ``preempt="recompute"``
-    (JAX: "swap"), because swap preemption is not ported yet. The JAX
-    engine's tokens are identical under swap and recompute alike, so
-    this changes no token.
+    The memory plane (see the module docstring): ``paged=True`` with
+    ``kv_block_tokens``, ``kv_pool_bytes``, ``kv_quant`` ("int8" |
+    "fp8_e4m3"; paged only) and ``preempt`` ("swap", the default, or
+    "recompute"); ``prefix_cache=True`` (dense: its own pool of
+    ``prefix_block``-token blocks sized by ``prefix_cache_bytes``;
+    paged: the block pool itself) with ``scheduler="prefix"``;
+    ``prefill_chunk`` tokens of prefill per row per step.
     """
 
     def __init__(self, params: Params, cfg: LlamaConfig, *,
@@ -570,7 +797,7 @@ class DecodeEngine:
                  kv_block_tokens: Optional[int] = None,
                  kv_pool_bytes: Optional[int] = None,
                  kv_quant: Optional[str] = None,
-                 preempt: str = "recompute",
+                 preempt: str = "swap",
                  draft_params: Optional[Params] = None,
                  draft_cfg: Optional[LlamaConfig] = None,
                  spec_window: int = 4,
@@ -600,21 +827,21 @@ class DecodeEngine:
             raise ValueError("pipeline_depth must be >= 1")
         if prefix_block < 1:
             raise ValueError("prefix_block must be >= 1")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
         if preempt not in ("swap", "recompute"):
             raise ValueError(f"preempt must be 'swap' or 'recompute', "
                              f"got {preempt!r}")
         if kv_block_tokens is not None and kv_block_tokens < 1:
             raise ValueError("kv_block_tokens must be >= 1")
-        if preempt == "swap":
-            raise _unported("swap preemption (preempt='swap')", "A5b")
-        if kv_quant is not None:
-            raise _unported("quantized paged KV (kv_quant=)", "A6")
-        if prefix_cache:
-            raise _unported("the prefix cache (prefix_cache=True)", "A7")
-        if prefill_chunk is not None:
-            raise _unported("chunked prefill (prefill_chunk=)", "A7")
+        self.kv_quant_spec = resolve_kv_quant(kv_quant)
+        self.kv_quant = kv_quant
+        if self.kv_quant_spec is not None and not paged:
+            raise ValueError(
+                "kv_quant requires paged=True: quantization scales are "
+                "per-block slabs of the paged KV pool")
         if draft_params is not None:
-            raise _unported("speculative decoding (draft_params=)", "A7")
+            raise _unported("speculative decoding (draft_params=)", "A7b")
         if lora is not None:
             raise _unported("multi-LoRA serving (lora=)", "A8")
         if mesh is not None or tp is not None:
@@ -660,10 +887,17 @@ class DecodeEngine:
         self._last_logits = torch.zeros((self.B, cfg.vocab_size),
                                         dtype=torch.float32,
                                         device=self.device)
+        # Shared-prefix cache: a host trie over committed prompt blocks.
+        # Paged, it indexes the block pool itself (shares by refcount);
+        # dense, it has its own pool of prefix_block-token blocks that
+        # admissions copy from and prefills copy into.
+        self._prefix: Optional[PrefixCacheIndex] = None
+        self._scale_k = self._scale_v = None
         if paged:
             self._init_pool(kv_block_tokens, prefix_block, kv_pool_bytes,
-                            prefix_cache_bytes)
+                            prefix_cache_bytes, prefix_cache)
         else:
+            self.prefix_block = prefix_block
             # Dense per-slot cache: 2 (K+V) x L x KV x D per token. On
             # the card decode attention reads it through B2 as pages of
             # DENSE_VIEW_TOKENS slots, so its rows are rounded up to
@@ -682,6 +916,25 @@ class DecodeEngine:
                     self.B * (span // T), dtype=torch.int32,
                     device=self.device).view(self.B, span // T)
             self.cache = init_cache(cfg, self.B, span, device=self.device)
+            self._pool_k = self._pool_v = None
+            if prefix_cache:
+                bb = block_bytes(L, prefix_block, KV, D, cfg.dtype.itemsize)
+                self.kv_bytes_per_block = float(bb)
+                n_blocks = (1 + (2 * self.B * self.max_len) // prefix_block
+                            if prefix_cache_bytes is None
+                            else 1 + prefix_cache_bytes // bb)
+                self._prefix = PrefixCacheIndex(
+                    block_tokens=prefix_block, n_blocks=n_blocks,
+                    on_evict=self._on_prefix_evict)
+                self._pool_k = torch.zeros(
+                    (L, n_blocks, prefix_block, KV, D), dtype=cfg.dtype,
+                    device=self.device)
+                self._pool_v = torch.zeros_like(self._pool_k)
+        if self._prefix is not None:
+            attach = getattr(self.scheduler, "attach_prefix_probe", None)
+            if attach is not None:
+                attach(self._prefix_probe)
+        self.prefill_chunk = prefill_chunk
         # The decode loop's inputs on the device, one int64 buffer: row
         # state [4, B] (row_len, active, budget, tok_idx; the loop
         # writes it back, so a run-ahead dispatch chains off it), row
@@ -719,9 +972,20 @@ class DecodeEngine:
         self.host_transfer_bytes = 0
         self.tokens_out = 0
         self.prefill_real_tokens = 0
-        self.prefill_padded_tokens = 0
+        self.prefill_padded_tokens = 0  # bucket + pow2-group filler
+        self.prefix_lookups = 0        # admissions probed in the trie
+        self.prefix_hits = 0           # ... that matched >= 1 block
+        self.prefix_reused_tokens = 0  # prompt tokens copied or shared
+        self.prefix_evictions = 0      # LRU blocks recycled
+        self.prefix_copy_dispatches = 0  # dense pool copy-in/out
+        self.chunked_prefill_stalls = 0  # steps with a row mid-prefill
+        self.kv_blocks_shared = 0      # warm-admission zero-copy shares
+        self.kv_block_cows = 0         # tail blocks duplicated on write
         self.preemptions = 0
         self.swap_ins = 0              # preempted rows re-admitted
+        self.swap_outs = 0             # swap-mode spills to the host
+        self.swap_in_bytes = 0         # host->device swap traffic
+        self.swap_out_bytes = 0        # device->host swap traffic
         # Async pipeline: dispatched-but-undrained decode steps, oldest
         # first.
         self._ring: collections.deque = collections.deque()
@@ -734,20 +998,30 @@ class DecodeEngine:
 
     def _init_pool(self, kv_block_tokens: Optional[int], prefix_block: int,
                    kv_pool_bytes: Optional[int],
-                   prefix_cache_bytes: Optional[int]) -> None:
-        """The paged engine's block pool, its host ledger and tables."""
+                   prefix_cache_bytes: Optional[int],
+                   prefix_cache: bool) -> None:
+        """The paged engine's block pool (pages, and the scale slabs of
+        a quantized pool), its host ledger, tables and prefix trie."""
         cfg = self.cfg
         self.kv_block_tokens = (kv_block_tokens
                                 if kv_block_tokens is not None
                                 else prefix_block)
-        T = self.kv_block_tokens
+        T = self.prefix_block = self.kv_block_tokens
         if self.max_len % T:
             raise ValueError(
                 f"paged engine needs max_len ({self.max_len}) "
                 f"divisible by kv_block_tokens ({T}): the block view "
                 "must span exactly the dense cache row")
         L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        bb = block_bytes(L, T, KV, D, cfg.dtype.itemsize)
+        qspec = self.kv_quant_spec
+        if qspec is not None:
+            # 1-byte values plus the two slabs' f32 scale per layer and
+            # kv head.
+            pool_dtype = qspec.dtype
+            bb = block_bytes(L, T, KV, D, qspec.itemsize) + 2 * L * KV * 4
+        else:
+            pool_dtype = cfg.dtype
+            bb = block_bytes(L, T, KV, D, cfg.dtype.itemsize)
         self.kv_bytes_per_block = float(bb)
         self.kv_bytes_per_token = bb / T
         budget_bytes = (kv_pool_bytes if kv_pool_bytes is not None
@@ -761,12 +1035,29 @@ class DecodeEngine:
         self.kv_pool = BlockPool(n_blocks)
         self._bt = np.zeros((self.B, self._mb), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(self.B)]
-        self._preempted: set = set()   # req ids owed a recompute replay
+        self._swapped: Dict[int, _SwapState] = {}   # preempted req ids
         self._admit_seq = 0            # preemption recency order
         self._row_admit_seq = np.zeros((self.B,), np.int64)
         self._pool_k = torch.zeros((L, n_blocks, T, KV, D),
-                                   dtype=cfg.dtype, device=self.device)
+                                   dtype=pool_dtype, device=self.device)
         self._pool_v = torch.zeros_like(self._pool_k)
+        if qspec is not None:
+            # Zero scales: the zero pool (the null block included)
+            # dequantizes to exactly 0.
+            self._scale_k = torch.zeros((L, n_blocks, KV),
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self._scale_v = torch.zeros_like(self._scale_k)
+        if prefix_cache:
+            self._prefix = PrefixCacheIndex(
+                block_tokens=T, n_blocks=n_blocks,
+                on_evict=self._on_prefix_evict, pool=self.kv_pool)
+
+    def _pool_tensors(self) -> List[torch.Tensor]:
+        """The paged pool's device tensors that blocks index: pages K
+        and V, then a quantized pool's scale slabs."""
+        return [t for t in (self._pool_k, self._pool_v, self._scale_k,
+                            self._scale_v) if t is not None]
 
     # -- public API --------------------------------------------------------
 
@@ -893,6 +1184,9 @@ class DecodeEngine:
             self._flush_pipeline(emitted)
         budget = self.max_prefills_per_step or self.B
         admissions: List[Tuple[int, _Request]] = []
+        begin = getattr(self.scheduler, "begin_admission_round", None)
+        if begin is not None:
+            begin()
         deferred = False
         for row in range(self.B):
             if budget <= 0 or deferred:
@@ -902,6 +1196,9 @@ class DecodeEngine:
             req = None
             while len(self.scheduler):
                 cand = self.scheduler.pop()
+                if cand is None:
+                    deferred = True    # the prefix policy deferred all
+                    break
                 if cand.deadline is not None and \
                         self._clock() >= cand.deadline and \
                         not cand.resume:
@@ -933,7 +1230,16 @@ class DecodeEngine:
             if self._ring:             # defensive: never strand blocks
                 self._flush_pipeline(emitted)
             return emitted
-        decodable = live
+        # Rows mid-chunked-prefill are not decodable: their last_logits
+        # hold an intermediate chunk's. They ride along frozen and take
+        # their next chunk next step.
+        decodable = [b for b in live if b not in self._row_prefill]
+        if len(decodable) < len(live):
+            self.chunked_prefill_stalls += 1
+            self.metrics.on_prefill_stall()
+        if not decodable:
+            self.metrics.on_step(len(live), len(self.scheduler), 0)
+            return emitted
         if not self._ring:
             decodable = self._dispatch_primary(decodable, live, horizon)
         self._top_up_pipeline(decodable, horizon)
@@ -966,6 +1272,10 @@ class DecodeEngine:
             H = self.scheduler.horizon_hint(
                 free_slots=self.B - len(live),
                 max_horizon=self.decode_horizon)
+            if len(decodable) < len(live):
+                H = 1      # keep the chunk cadence: a mid-prefill row
+                #            must not wait a long horizon for its next
+                #            chunk (bounded TTFT)
             H = min(H, int(self.row_budget[decodable].max()))
             H = 1 << max(0, H.bit_length() - 1)
         if self.paged:
@@ -991,7 +1301,8 @@ class DecodeEngine:
         a = buf.numpy()
         if not run_ahead:
             a[0:B] = self.row_len
-            a[B:2 * B] = [r is not None for r in self.row_req]
+            a[B:2 * B] = [r is not None and b not in self._row_prefill
+                          for b, r in enumerate(self.row_req)]
             a[2 * B:3 * B] = self.row_budget
             a[3 * B:4 * B] = self._tok_idx
             a[4 * B:6 * B] = self._row_keys.reshape(-1)
@@ -1013,7 +1324,10 @@ class DecodeEngine:
         if self.paged:
             out = _decode_multi_paged(self.params, self._pool_k,
                                       self._pool_v,
-                                      self._d_bt.to(torch.int32), *args)
+                                      self._d_bt.to(torch.int32), *args,
+                                      scale_k=self._scale_k,
+                                      scale_v=self._scale_v,
+                                      qspec=self.kv_quant_spec)
         else:
             out = _decode_multi(self.params, self.cache, *args,
                                 max_len=self.max_len,
@@ -1153,18 +1467,52 @@ class DecodeEngine:
         return self.trace.dump(path, pid=self.engine_id)
 
     def kv_free_blocks(self) -> int:
-        """KV blocks an admission could claim right now; 0 for the
-        dense engine (no pool)."""
-        return self.kv_pool.free_blocks if self.paged else 0
+        """KV blocks an admission could claim right now: free plus
+        evictable cold prefix blocks. 0 for the dense engine (no pool).
+        Pure host arithmetic."""
+        if not self.paged:
+            return 0
+        n = self.kv_pool.free_blocks
+        if self._prefix is not None:
+            n += self._prefix.evictable_blocks()
+        return n
 
     def kv_used_fraction(self) -> float:
-        """KV pressure in [0, 1]. Paged: fraction of pool blocks in use.
-        Dense: live slots / batch slots (each live slot pins a full
-        max_len cache row)."""
+        """Unreclaimable KV pressure in [0, 1]. Paged: fraction of pool
+        blocks neither free nor evictable-cold. Dense: live slots /
+        batch slots (each live slot pins a full max_len cache row)."""
         if self.paged:
             total = self.kv_pool.blocks_total
             return max(0.0, 1.0 - self.kv_free_blocks() / total)
         return sum(r is not None for r in self.row_req) / self.B
+
+    def pending_prefill_tokens(self) -> int:
+        """Prompt tokens accepted but not yet prefilled: every queued
+        request's prompt (a recompute re-admission: prompt + emitted
+        tokens; a swap-in owes none) plus the uncovered suffix of every
+        row mid-chunked-prefill. A pure host count."""
+        n = sum(len(st.prompt) - st.pos
+                for st in self._row_prefill.values())
+        try:
+            queued = self.scheduler.queued_requests()
+        except NotImplementedError:
+            return n       # custom policy without the probe: rows only
+        for r in queued:
+            swap = self._swapped.get(r.req_id) if self.paged else None
+            if swap is None:
+                n += len(r.prompt)
+            elif swap.host is None:
+                n += len(r.prompt) + len(r.tokens)
+        return n
+
+    def prefix_match_tokens(self, prompt: List[int]) -> int:
+        """Prompt tokens this engine could take from its prefix cache
+        instead of prefilling, right now (0 without one). A host trie
+        walk with peek=True: probing leaves LRU recency untouched."""
+        if self._prefix is None:
+            return 0
+        ids, _ = self._prefix.match(prompt, peek=True)
+        return len(ids) * self.prefix_block
 
     def stats(self) -> Dict[str, float]:
         """Flat numeric telemetry snapshot (EngineMetrics.stats) plus
@@ -1172,7 +1520,12 @@ class DecodeEngine:
         state. The pipeline plane: ``pipeline_depth_effective`` is the
         mean number of steps in flight at each drain (1.0 =
         synchronous), ``host_lag_steps`` the ring length now, overrun
-        tokens the masked run-ahead iterations of finished rows."""
+        tokens the masked run-ahead iterations of finished rows. The
+        memory plane: ``prefix_*`` (lookups, hits, reused tokens,
+        evictions, dense copies), ``kv_blocks_shared`` /
+        ``kv_block_cows``, ``swap_*`` (swap-outs, bytes each way),
+        ``chunked_prefill_stalls``, ``pending_prefill_tokens`` and
+        ``kv_quant_enabled``; zero where a feature is off."""
         def _ratio(num: float, den: float) -> float:
             return num / den if den else 0.0
 
@@ -1202,6 +1555,18 @@ class DecodeEngine:
             "prefill_padding_waste_frac": _ratio(
                 self.prefill_padded_tokens,
                 self.prefill_real_tokens + self.prefill_padded_tokens),
+            "pending_prefill_tokens": float(self.pending_prefill_tokens()),
+            "prefix_lookups": float(self.prefix_lookups),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_hit_rate": _ratio(self.prefix_hits,
+                                      self.prefix_lookups),
+            "prefix_reused_tokens": float(self.prefix_reused_tokens),
+            "prefix_reused_frac": _ratio(
+                self.prefix_reused_tokens,
+                self.prefix_reused_tokens + self.prefill_real_tokens),
+            "prefix_evictions": float(self.prefix_evictions),
+            "prefix_copy_dispatches": float(self.prefix_copy_dispatches),
+            "chunked_prefill_stalls": float(self.chunked_prefill_stalls),
             "pipeline_depth": float(self.pipeline_depth),
             "pipeline_depth_effective": _ratio(self._pl_depth_sum,
                                                self._pl_depth_n),
@@ -1213,9 +1578,15 @@ class DecodeEngine:
             "decode_graph_replays": float(self._graphs.replays
                                           if self._graphs else 0),
             "paged": 1.0 if self.paged else 0.0,
+            "kv_blocks_shared": float(self.kv_blocks_shared),
+            "kv_block_cows": float(self.kv_block_cows),
             "preemptions": float(self.preemptions),
             "swap_ins": float(self.swap_ins),
+            "swap_outs": float(self.swap_outs),
+            "swap_in_bytes": float(self.swap_in_bytes),
+            "swap_out_bytes": float(self.swap_out_bytes),
             "kv_used_fraction": self.kv_used_fraction(),
+            "kv_quant_enabled": 1.0 if self.kv_quant else 0.0,
             "kv_bytes_per_token": float(self.kv_bytes_per_token),
             "kv_bytes_per_block": float(self.kv_bytes_per_block),
         })
@@ -1228,8 +1599,11 @@ class DecodeEngine:
                 "kv_pool_occupancy": _ratio(pool.blocks_in_use,
                                             pool.blocks_total),
                 "kv_free_blocks": float(self.kv_free_blocks()),
-                "requests_swapped": float(len(self._preempted)),
+                "requests_swapped": float(len(self._swapped)),
             })
+        if self._prefix is not None:
+            out["prefix_blocks_in_use"] = float(self._prefix.blocks_in_use)
+            out["prefix_blocks_total"] = float(self._prefix.blocks_total)
         return out
 
     # -- internals ---------------------------------------------------------
@@ -1260,53 +1634,169 @@ class DecodeEngine:
             self.trace.close("queue_wait", req.req_id, {"shed": True})
             self.trace.finish(req.req_id, {"shed": True}, name="shed")
 
+    def _on_prefix_evict(self, n: int) -> None:
+        self.prefix_evictions += n
+        self.metrics.on_prefix_evictions(n)
+
+    def _prefix_probe(self, prompt) -> Tuple[int, Optional[tuple], bool]:
+        """(matched_tokens, prefix_group_key, next_block_pending) for
+        the prefix-affinity scheduler: a pure host trie walk. The group
+        key (the prompt's first block) is None for prompts too short to
+        ever share a block."""
+        ids, pending = self._prefix.match(prompt)
+        T = self.prefix_block
+        key = tuple(prompt[:T]) if len(prompt) > T else None
+        return len(ids) * T, key, pending
+
     def _admit_rows(self, admissions: List[Tuple[int, _Request]]) -> None:
         """Bind this step's admissions to their rows and queue their
-        prefills (run by `_advance_prefills` this step). First tokens
-        are NOT sampled here: each row's last-prompt logits stay on the
-        device in `_last_logits` and the decode loop samples them. The
-        paged engine admits through `_admit_rows_paged`."""
+        prefills (run by `_advance_prefills` this step). With the prefix
+        cache on, each admission first probes the trie: a warm prompt's
+        matched blocks are COPIED from the prefix pool into the row
+        (same-chain-length copies share one `_prefix_copy_in`) and only
+        the suffix is prefilled; novel full blocks are registered
+        PENDING and copied out as the row's prefill covers them. First
+        tokens are NOT sampled here: each row's last-prompt logits stay
+        on the device in `_last_logits` and the decode loop samples
+        them. The paged engine admits through `_admit_rows_paged`."""
         if self.paged:
             self._admit_rows_paged(admissions)
             return
+        copy_groups: Dict[int, List[Tuple[int, List[int]]]] = {}
+        T = self.prefix_block
         for row, req in admissions:
             self.metrics.on_admit(req.req_id)
             if self.trace.enabled:
                 self.trace.close("queue_wait", req.req_id)
                 self.trace.instant("admit", req.req_id, {"row": row})
-            self._bind_row(row, req, [], 0)
-            self._row_prefill[row] = _PrefillState(req, 0)
+            start = 0
+            nodes: list = []
+            if self._prefix is not None:
+                ids, _ = self._prefix.match(req.prompt)
+                self.prefix_lookups += 1
+                if ids:
+                    self.prefix_hits += 1
+                    start = len(ids) * T
+                    self.prefix_reused_tokens += start
+                    # Pad the chain to a power of two by repeating its
+                    # last block: the rewrite lands past the matched
+                    # prefix, where the suffix prefill overwrites it.
+                    nbp = _pow2(len(ids))
+                    if nbp * T > self.max_len:
+                        nbp = len(ids)
+                    ids_p = list(ids) + [ids[-1]] * (nbp - len(ids))
+                    copy_groups.setdefault(nbp, []).append((row, ids_p))
+                nodes = self._prefix.extend(req.prompt)
+                self.metrics.on_prefix(hit=bool(ids), reused_tokens=start)
+                if self.trace.enabled:
+                    self.trace.instant(
+                        "prefix_match", req.req_id,
+                        {"hit": bool(ids), "matched_tokens": start})
+            self._bind_row(row, req, [], start)
+            self._row_prefill[row] = _PrefillState(req, start, nodes)
+        for nbp in sorted(copy_groups):
+            grp = copy_groups[nbp]
+            n = len(grp)
+            rows = np.zeros((_pow2(n),), np.int64)
+            bids = np.zeros((_pow2(n), nbp), np.int64)
+            for i, (row, ids_p) in enumerate(grp):
+                rows[i] = row
+                bids[i] = ids_p
+            rows[n:] = rows[n - 1]     # duplicate scatters: identical
+            bids[n:] = bids[n - 1]     # values
+            _prefix_copy_in(self.cache, self._pool_k, self._pool_v,
+                            self._dev(bids), self._dev(rows), T)
+            self.prefix_copy_dispatches += 1
 
     def _admit_rows_paged(
             self, admissions: List[Tuple[int, _Request]]) -> None:
-        """Bind each admission to a fresh BLOCK CHAIN covering its prompt
-        and queue its prefill (run by `_advance_prefills` this step). A
-        preempted request re-binds through `_swap_in_row` instead."""
-        T = self.kv_block_tokens
+        """Bind each admission to a BLOCK CHAIN and queue its prefill
+        (run by `_advance_prefills` this step). A warm prompt's matched
+        blocks are SHARED by incref, zero bytes moved; a FULL-prompt
+        match shares all but the tail block, which is copied once
+        (copy-on-write: the row's first generated token extends it; all
+        the round's copies go in one `_cow_blocks`) and whose last token
+        the prefill recomputes for its logits. Novel prompt blocks are
+        fresh, registered PENDING in the trie and committed as the
+        prefill covers them, with no copy. A preempted request re-binds
+        through `_swap_in_row` instead."""
+        T = self.prefix_block
+        cow_pairs: List[Tuple[int, int]] = []
         for row, req in admissions:
             self.metrics.on_admit(req.req_id)
-            if req.req_id in self._preempted:
-                if not self._swap_in_row(row, req):
+            swap = self._swapped.pop(req.req_id, None)
+            if swap is not None:
+                if not self._swap_in_row(row, req, swap):
                     # The gate's estimate went stale: requeue.
+                    self._swapped[req.req_id] = swap
                     self._requeue_front(req)
                 continue
             if self.trace.enabled:
                 self.trace.close("queue_wait", req.req_id)
                 self.trace.instant("admit", req.req_id, {"row": row})
-            ids = self._pool_alloc(-(-len(req.prompt) // T))
-            if ids is None:
+            start = 0
+            shared: List[int] = []
+            cow_src: Optional[int] = None
+            nodes: list = []
+            if self._prefix is not None:
+                ids, _ = self._prefix.match(req.prompt, allow_full=True)
+                self.prefix_lookups += 1
+                if ids and len(ids) * T == len(req.prompt):
+                    cow_src = int(ids[-1])
+                    shared = [int(i) for i in ids[:-1]]
+                    start = len(req.prompt) - 1
+                elif ids:
+                    shared = [int(i) for i in ids]
+                    start = len(shared) * T
+            n_total = -(-len(req.prompt) // T)
+            # Pin the shared blocks FIRST: the eviction inside
+            # _pool_alloc can then never recycle them under this row.
+            self.kv_pool.incref(shared)
+            new_ids = self._pool_alloc(n_total - len(shared))
+            if new_ids is None:
+                self.kv_pool.decref(shared)
                 if self.trace.enabled:
                     self.trace.open("queue_wait", req.req_id)
                 self._requeue_front(req)
                 continue
-            self._bind_row(row, req, ids, 0)
-            self._row_prefill[row] = _PrefillState(req, 0)
+            if cow_src is not None:
+                cow_pairs.append((cow_src, new_ids[0]))
+                self.kv_block_cows += 1
+                self.metrics.on_kv_cow()
+            chain = shared + new_ids
+            if self._prefix is not None:
+                hit = bool(shared) or cow_src is not None
+                if hit:
+                    self.prefix_hits += 1
+                self.prefix_reused_tokens += start
+                self.kv_blocks_shared += len(shared)
+                if shared:
+                    self.metrics.on_kv_shared(len(shared))
+                self.metrics.on_prefix(hit=hit, reused_tokens=start)
+                if self.trace.enabled:
+                    self.trace.instant(
+                        "prefix_match", req.req_id,
+                        {"hit": hit, "matched_tokens": start,
+                         "shared_blocks": len(shared),
+                         "cow": cow_src is not None})
+                nodes = self._prefix.register(req.prompt, chain)
+            self._bind_row(row, req, chain, start)
+            self._row_prefill[row] = _PrefillState(req, start, nodes)
+        if cow_pairs:
+            n_pad = _pow2(len(cow_pairs))
+            src = np.zeros((n_pad,), np.int64)   # pad = null block:
+            dst = np.zeros((n_pad,), np.int64)   # 0 -> 0 is a no-op
+            for i, (a, b) in enumerate(cow_pairs):
+                src[i] = a
+                dst[i] = b
+            _cow_blocks(self._pool_tensors(), self._dev(src),
+                        self._dev(dst))
 
     def _bind_row(self, row: int, req: _Request, chain: List[int],
                   start: int) -> None:
         """Reset a slot row's decode state for `req` and, paged, point
         it at its block chain (budget/tok_idx are overridden by the
-        recompute path)."""
+        swap-in path, which restores rather than restarts)."""
         self.row_req[row] = req
         self.row_len[row] = start
         self.row_budget[row] = req.max_new_tokens
@@ -1326,11 +1816,18 @@ class DecodeEngine:
         self.metrics.observe_queue_depth(len(self.scheduler))
 
     def _pool_alloc(self, n: int) -> Optional[List[int]]:
-        """n fresh blocks, or None when the pool cannot cover them (the
-        caller preempts a row or defers the admission)."""
+        """n fresh blocks, evicting cold committed prefix blocks LRU
+        first when the free list runs short (the trie never evicts a
+        block any row still holds). None when nothing more can be
+        evicted: the caller preempts a row or defers the admission."""
         if n <= 0:
             return []
-        return self.kv_pool.alloc(n)
+        ids = self.kv_pool.alloc(n)
+        while ids is None:
+            if self._prefix is None or not self._prefix.evict_one():
+                return None
+            ids = self.kv_pool.alloc(n)
+        return ids
 
     def _ensure_decode_blocks(self, rows: List[int], H: int,
                               inflight: int = 0) -> bool:
@@ -1384,13 +1881,35 @@ class DecodeEngine:
         return self.scheduler.choose_victim(ordered, self.row_req)
 
     def _preempt_row(self, row: int) -> None:
-        """Evict a live row mid-decode: drop its blocks and requeue it at
-        the FRONT; re-admission replays prompt + emitted tokens. The
-        token stream continues unchanged, because the sampling noise
-        depends only on the request's key and token index."""
+        """Evict a live row mid-decode and requeue it at the FRONT.
+        preempt="swap" gathers its blocks (and a quantized pool's scale
+        rows) into fresh tensors and starts their copy to pinned host
+        memory (`_host_async`: an event, no wait); the blocks go back to
+        the pool at once, since anything later that reuses them is
+        enqueued after the gather. preempt="recompute" just drops them;
+        re-admission replays prompt + emitted tokens. Either way the
+        token stream continues unchanged: the sampling noise depends
+        only on the request's key and token index. Needs a drained ring:
+        the swap ledger reads the row's replayed host state."""
+        assert not self._ring, "preemption needs a drained pipeline"
         req = self.row_req[row]
-        n_blocks = len(self._row_blocks[row])
-        self._preempted.add(req.req_id)
+        ids = self._row_blocks[row]
+        host = logits = None
+        if self.preempt_mode == "swap":
+            nbp = _pow2(max(1, len(ids)))
+            bids = np.zeros((nbp,), np.int64)
+            bids[:len(ids)] = ids
+            parts = _swap_out_gather(self._pool_tensors(), self._dev(bids))
+            host = [_host_async(x) for x in parts]
+            logits = _host_async(self._last_logits[row].clone())
+        swap = _SwapState(host, len(ids), int(self.row_len[row]),
+                          int(self._tok_idx[row]),
+                          int(self.row_budget[row]), logits)
+        self._swapped[req.req_id] = swap
+        if host is not None:
+            self.swap_outs += 1
+            self.swap_out_bytes += swap.nbytes
+            self.metrics.on_swap_out(swap.nbytes)
         self._release_row_blocks(row)
         self.row_req[row] = None
         self.row_len[row] = 0
@@ -1401,28 +1920,58 @@ class DecodeEngine:
         if self.trace.enabled:
             self.trace.span_since_mark(
                 "preempt_swap_out", req.req_id,
-                {"mode": "recompute", "blocks": n_blocks, "bytes": 0})
+                {"mode": self.preempt_mode, "blocks": len(ids),
+                 "bytes": swap.nbytes})
         req.resume = True
         self._requeue_front(req)
 
-    def _swap_in_row(self, row: int, req: _Request) -> bool:
-        """Re-admit a preempted request: allocate a chain for prompt +
-        emitted tokens, re-prefill them, and continue the stream at the
-        saved token index. False if the pool cannot cover it now."""
-        replay = list(req.prompt) + list(req.tokens)
-        ids = self._pool_alloc(-(-len(replay) // self.kv_block_tokens))
+    def _swap_in_row(self, row: int, req: _Request,
+                     swap: _SwapState) -> bool:
+        """Re-admit a preempted request. Swap mode scatters its host
+        copies into a fresh chain and restores the row exactly where it
+        froze: decodable this very step, no prefill. Recompute mode
+        re-prefills prompt + emitted tokens and continues the stream at
+        the saved token index. False if the pool cannot cover it now
+        (the caller requeues)."""
+        T = self.prefix_block
+        if swap.host is None:
+            replay = list(req.prompt) + list(req.tokens)
+            ids = self._pool_alloc(-(-len(replay) // T))
+            if ids is None:
+                return False
+            self._bind_row(row, req, ids, 0)
+            self.row_budget[row] = req.max_new_tokens - len(req.tokens)
+            self._tok_idx[row] = len(req.tokens)
+            # No trie registration: emitted tokens are not a prompt.
+            self._row_prefill[row] = _PrefillState(req, 0, [],
+                                                   prompt=replay)
+            self.swap_ins += 1
+            if self.trace.enabled:
+                self.trace.span_since_mark(
+                    "swap_in", req.req_id,
+                    {"mode": "recompute", "replay_tokens": len(replay)})
+            return True
+        ids = self._pool_alloc(swap.n_blocks)
         if ids is None:
             return False
-        self._preempted.discard(req.req_id)
-        self._bind_row(row, req, ids, 0)
-        self.row_budget[row] = req.max_new_tokens - len(req.tokens)
-        self._tok_idx[row] = len(req.tokens)
-        self._row_prefill[row] = _PrefillState(req, 0, prompt=replay)
+        nbp = _pow2(max(1, swap.n_blocks))
+        bids = np.zeros((nbp,), np.int64)     # pad = null block: the
+        bids[:swap.n_blocks] = ids            # gather's padding lands
+        #                                       back where it came from
+        _swap_in_scatter(self._pool_tensors(), [b.data for b in swap.host],
+                         self._dev(bids))
+        self._last_logits[row].copy_(swap.logits.data, non_blocking=True)
+        self._bind_row(row, req, ids, swap.row_len)
+        self.row_budget[row] = swap.budget
+        self._tok_idx[row] = swap.tok_idx
         self.swap_ins += 1
+        self.swap_in_bytes += swap.nbytes
+        self.metrics.on_swap_in(swap.nbytes)
         if self.trace.enabled:
             self.trace.span_since_mark(
                 "swap_in", req.req_id,
-                {"mode": "recompute", "replay_tokens": len(replay)})
+                {"mode": "swap", "bytes": swap.nbytes,
+                 "blocks": swap.n_blocks})
         return True
 
     def _release_row_blocks(self, row: int) -> None:
@@ -1435,11 +1984,27 @@ class DecodeEngine:
         self._bt[row, :] = 0
 
     def _fits_now(self, req: _Request) -> bool:
-        """Admission gate: would this request's blocks fit right now?"""
-        n = len(req.prompt)
-        if req.req_id in self._preempted:
-            n += len(req.tokens)
-        return -(-n // self.kv_block_tokens) <= self.kv_free_blocks()
+        """Admission gate: would this request's NEW blocks fit the pool
+        right now, counting evictable cold trie blocks? A pure host
+        probe (peek=True: deferring must not touch LRU recency). A stale
+        optimistic answer is safe: `_admit_rows_paged` re-checks."""
+        T = self.prefix_block
+        swap = self._swapped.get(req.req_id)
+        if swap is not None:
+            if swap.host is not None:
+                need = swap.n_blocks
+            else:
+                need = -(-(len(req.prompt) + len(req.tokens)) // T)
+        else:
+            need = -(-len(req.prompt) // T)
+            if self._prefix is not None:
+                ids, _ = self._prefix.match(req.prompt, peek=True,
+                                            allow_full=True)
+                if ids and len(ids) * T == len(req.prompt):
+                    need -= len(ids) - 1   # the tail block is copied
+                else:
+                    need -= len(ids)
+        return need <= self.kv_free_blocks()
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. On the card it goes
@@ -1451,16 +2016,23 @@ class DecodeEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _advance_prefills(self) -> None:
-        """Prefill every newly bound row, same-bucket prompts batched
-        into ONE `_prefill_rows` / `_prefill_rows_paged` dispatch. Each
-        row is decodable in this same step: its prefill scattered its
-        true last-prompt logits."""
+        """Advance every mid-prefill row by one chunk (the whole
+        remaining prompt when `prefill_chunk` is None), same-bucket
+        chunks batched into ONE `_prefill_rows` / `_prefill_rows_paged`
+        call, padded to a power of two rows by repeating the last. A row
+        whose frontier reaches its prompt's end leaves `_row_prefill`
+        and is decodable this same step (its last chunk scattered the
+        true last-prompt logits). Prefix blocks the frontier has passed
+        are committed to the trie (paged) or copied out to the prefix
+        pool first (dense)."""
         if not self._row_prefill:
             return
         groups: Dict[int, List[Tuple[int, _PrefillState, int]]] = {}
         for row, st in self._row_prefill.items():
             C = len(st.prompt) - st.pos
-            # Bucket the prompt, capped so the write never runs past
+            if self.prefill_chunk is not None:
+                C = min(C, self.prefill_chunk)
+            # Bucket the chunk, capped so the write never runs past
             # max_len.
             Cb = min(self._bucket(C), self.max_len - st.pos)
             groups.setdefault(Cb, []).append((row, st, C))
@@ -1468,10 +2040,11 @@ class DecodeEngine:
             grp = groups[Cb]
             n = len(grp)
             t0 = self.trace.now() if self.trace.enabled else 0.0
-            prompts = np.zeros((n, Cb), np.int64)
-            rows = np.zeros((n,), np.int64)
-            starts = np.zeros((n,), np.int64)
-            last_idx = np.zeros((n,), np.int64)
+            n_pad = _pow2(n)
+            prompts = np.zeros((n_pad, Cb), np.int64)
+            rows = np.zeros((n_pad,), np.int64)
+            starts = np.zeros((n_pad,), np.int64)
+            last_idx = np.zeros((n_pad,), np.int64)
             real = 0
             for i, (row, st, C) in enumerate(grp):
                 prompts[i, :C] = st.prompt[st.pos:st.pos + C]
@@ -1479,18 +2052,24 @@ class DecodeEngine:
                 starts[i] = st.pos
                 last_idx[i] = C - 1
                 real += C
+            prompts[n:] = prompts[n - 1]   # filler: repeat the last row,
+            rows[n:] = rows[n - 1]         # whose duplicate scatters
+            starts[n:] = starts[n - 1]     # write identical values
+            last_idx[n:] = last_idx[n - 1]
             args = (self._dev(rows), self._dev(starts), self._dev(last_idx),
                     self.cfg)
             if self.paged:
                 _prefill_rows_paged(
                     self.params, self._dev(prompts), self._pool_k,
                     self._pool_v, self._last_logits,
-                    self._dev(self._bt[rows]), *args)
+                    self._dev(self._bt[rows]), *args,
+                    scale_k=self._scale_k, scale_v=self._scale_v,
+                    qspec=self.kv_quant_spec)
             else:
                 _prefill_rows(self.params, self._dev(prompts), self.cache,
                               self._last_logits, *args)
             self.prefill_dispatches += 1
-            padded = n * Cb - real
+            padded = n_pad * Cb - real
             self.prefill_real_tokens += real
             self.prefill_padded_tokens += padded
             self.metrics.on_prefill_batch(real, padded)
@@ -1499,6 +2078,8 @@ class DecodeEngine:
                                self.trace.now() - t0, lane="dispatch",
                                args={"bucket": Cb, "rows": n,
                                      "real": real, "padded": padded})
+        done_rows = []
+        for grp in groups.values():
             for row, st, C in grp:
                 st.pos += C
                 self.row_len[row] = st.pos
@@ -1507,7 +2088,45 @@ class DecodeEngine:
                         "prefill_chunk", st.req.req_id,
                         {"pos": st.pos, "tokens": C,
                          "prompt_tokens": len(st.prompt)})
-        self._row_prefill.clear()
+                if self._prefix is not None:
+                    if self.paged:
+                        self._commit_covered(st)
+                    else:
+                        self._flush_copy_out(row, st)
+                if st.pos >= len(st.prompt):
+                    done_rows.append(row)
+        for row in done_rows:
+            del self._row_prefill[row]
+
+    def _commit_covered(self, st: _PrefillState) -> None:
+        """Paged twin of `_flush_copy_out`: the row's prefill wrote the
+        trie's blocks in place (they ARE its chain), so a pending block
+        the frontier has covered just commits, with no copy."""
+        T = self.prefix_block
+        while st.nodes and (st.nodes[0][0] + 1) * T <= st.pos:
+            _, node = st.nodes.pop(0)
+            self._prefix.commit(node)
+
+    def _flush_copy_out(self, row: int, st: _PrefillState) -> None:
+        """Copy every pending prefix block the row's frontier now covers
+        out to the prefix pool (one `_prefix_copy_out` per consecutive
+        run, padded to a power of two with the scratch block) and COMMIT
+        it: from the next admission round on, `match` hands the block to
+        warm requests."""
+        T = self.prefix_block
+        while st.nodes and (st.nodes[0][0] + 1) * T <= st.pos:
+            run = [st.nodes.pop(0)]
+            while st.nodes and st.nodes[0][0] == run[-1][0] + 1 and \
+                    (st.nodes[0][0] + 1) * T <= st.pos:
+                run.append(st.nodes.pop(0))
+            bids = np.zeros((_pow2(len(run)),), np.int64)
+            for i, (_, node) in enumerate(run):
+                bids[i] = node.block_id
+            _prefix_copy_out(self.cache, self._pool_k, self._pool_v, row,
+                             run[0][0] * T, self._dev(bids), T)
+            self.prefix_copy_dispatches += 1
+            for _, node in run:
+                self._prefix.commit(node)
 
     def _emit_block(self, block: np.ndarray, entry: _InflightStep,
                     emitted: Dict[int, List[int]]) -> None:

@@ -3,10 +3,12 @@
 Port of `ray_tpu/models/engine_metrics.py`, cut to the planes the
 port's engine has today: the request lifecycle (queue wait, TTFT, TPOT,
 tokens, steps, occupancy), decode dispatches and device->host syncs,
-prefill padding, the async decode pipeline (flushes, overrun, effective
-depth, host lag) and the paged KV pool (occupancy, preemptions). The
-prefix-cache, tensor-parallel, handoff, speculative and multi-LoRA
-planes come with those engine features (ROADMAP.md Queue A).
+prefill padding and chunked-prefill stalls, the async decode pipeline
+(flushes, overrun, effective depth, host lag), the prefix cache
+(lookups, hits, reused tokens, evictions) and the paged KV pool
+(occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes).
+The tensor-parallel, handoff, speculative and multi-LoRA planes come
+with those engine features (ROADMAP.md Queue A).
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -124,7 +126,16 @@ class EngineMetrics:
         self.decode_horizon = _Agg()
         self.prefill_real_tokens = 0
         self.prefill_padded_tokens = 0
+        self.prefill_stalls = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_reused_tokens = 0
+        self.prefix_evictions = 0
+        self.kv_blocks_shared = 0
+        self.kv_block_cows = 0
         self.preemptions = 0
+        self.swap_in_bytes = 0
+        self.swap_out_bytes = 0
         self.kv_pool_blocks_total = 0
         self.kv_pool_blocks_in_use = 0
         self.kv_pool_blocks_free = 0
@@ -201,9 +212,40 @@ class EngineMetrics:
         self._m_prefill_padded = counter(
             "llm_engine_prefill_padded_tokens_total",
             "Length-bucket filler tokens run through batched prefill")
+        self._m_prefill_stalls = counter(
+            "llm_engine_chunked_prefill_stalls_total",
+            "Engine steps with >= 1 row frozen mid-chunked-prefill")
+        self._m_prefix_lookups = counter(
+            "llm_engine_prefix_lookups_total",
+            "Admissions probed against the prefix-cache trie")
+        self._m_prefix_hits = counter(
+            "llm_engine_prefix_hits_total",
+            "Admissions that matched >= 1 cached prefix block")
+        self._m_prefix_reused = counter(
+            "llm_engine_prefix_reused_tokens_total",
+            "Prompt tokens copied or shared from the prefix cache, not "
+            "prefilled")
+        self._m_prefix_evictions = counter(
+            "llm_engine_prefix_evictions_total",
+            "Cold prefix blocks recycled by LRU eviction")
+        self._m_kv_shared = counter(
+            "llm_engine_kv_blocks_shared_total",
+            "Prefix-cache blocks shared into warm admissions by refcount "
+            "(zero bytes copied)")
+        self._m_kv_cow = counter(
+            "llm_engine_kv_block_cow_total",
+            "Shared blocks duplicated copy-on-write (a full-prompt hit "
+            "whose tail block the new row must extend)")
         self._m_preemptions = counter(
             "llm_engine_preemptions_total",
-            "Live decode rows evicted to free KV pool blocks")
+            "Live decode rows evicted to free KV pool blocks "
+            "(preempt-and-swap or preempt-and-recompute)")
+        self._m_swap_out = counter(
+            "llm_engine_swap_out_bytes_total",
+            "Bytes spilled device->host by preemption swap-outs")
+        self._m_swap_in = counter(
+            "llm_engine_swap_in_bytes_total",
+            "Bytes restored host->device by preemption swap-ins")
         self._m_kv_pool_total = gauge(
             "llm_engine_kv_pool_blocks",
             "KV pool size in blocks (null block excluded)")
@@ -340,10 +382,49 @@ class EngineMetrics:
             self.pipeline_overrun_tokens += n
             self._m_pipe_overrun.inc(n)
 
+    def on_prefix(self, *, hit: bool, reused_tokens: int = 0) -> None:
+        """One admission probed the prefix-cache trie; on a hit,
+        `reused_tokens` prompt tokens were copied or shared, not run."""
+        self.prefix_lookups += 1
+        self._m_prefix_lookups.inc()
+        if hit:
+            self.prefix_hits += 1
+            self._m_prefix_hits.inc()
+        if reused_tokens > 0:
+            self.prefix_reused_tokens += reused_tokens
+            self._m_prefix_reused.inc(reused_tokens)
+
+    def on_prefix_evictions(self, n: int = 1) -> None:
+        if n > 0:
+            self.prefix_evictions += n
+            self._m_prefix_evictions.inc(n)
+
+    def on_kv_shared(self, n: int) -> None:
+        """`n` pool blocks handed to an admission by incref: the warm
+        part of the prompt cost zero copy bytes."""
+        if n > 0:
+            self.kv_blocks_shared += n
+            self._m_kv_shared.inc(n)
+
+    def on_kv_cow(self, n: int = 1) -> None:
+        if n > 0:
+            self.kv_block_cows += n
+            self._m_kv_cow.inc(n)
+
     def on_preempt(self, n: int = 1) -> None:
         if n > 0:
             self.preemptions += n
             self._m_preemptions.inc(n)
+
+    def on_swap_out(self, nbytes: int) -> None:
+        if nbytes > 0:
+            self.swap_out_bytes += nbytes
+            self._m_swap_out.inc(nbytes)
+
+    def on_swap_in(self, nbytes: int) -> None:
+        if nbytes > 0:
+            self.swap_in_bytes += nbytes
+            self._m_swap_in.inc(nbytes)
 
     def on_kv_pool(self, total: int, in_use: int, free: int,
                    bytes_per_token: float = 0.0) -> None:
@@ -369,6 +450,13 @@ class EngineMetrics:
             self._m_prefill_real.inc(real_tokens)
         if padded_tokens > 0:
             self._m_prefill_padded.inc(padded_tokens)
+
+    def on_prefill_stall(self, n: int = 1) -> None:
+        """One engine step ran with >= 1 row frozen mid-chunked-prefill
+        (decode advanced without it, or was skipped entirely)."""
+        if n > 0:
+            self.prefill_stalls += n
+            self._m_prefill_stalls.inc(n)
 
     def observe_queue_depth(self, depth: int) -> None:
         """Gauge update outside a step (e.g. right after submit)."""
@@ -408,7 +496,17 @@ class EngineMetrics:
             "prefill_padded_tokens": self.prefill_padded_tokens,
             "prefill_padding_waste_frac": _ratio(
                 self.prefill_padded_tokens, prefill_total),
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": _ratio(self.prefix_hits, self.prefix_lookups),
+            "prefix_reused_tokens": self.prefix_reused_tokens,
+            "prefix_evictions": self.prefix_evictions,
+            "chunked_prefill_stalls": self.prefill_stalls,
+            "kv_blocks_shared": self.kv_blocks_shared,
+            "kv_block_cows": self.kv_block_cows,
             "preemptions": self.preemptions,
+            "swap_in_bytes": self.swap_in_bytes,
+            "swap_out_bytes": self.swap_out_bytes,
             "kv_pool_blocks_total": self.kv_pool_blocks_total,
             "kv_pool_blocks_in_use": self.kv_pool_blocks_in_use,
             "kv_pool_blocks_free": self.kv_pool_blocks_free,
@@ -458,11 +556,25 @@ class NullEngineMetrics:
 
     def on_pipeline_overrun(self, n): pass
 
+    def on_prefix(self, *, hit, reused_tokens=0): pass
+
+    def on_prefix_evictions(self, n=1): pass
+
+    def on_kv_shared(self, n): pass
+
+    def on_kv_cow(self, n=1): pass
+
     def on_preempt(self, n=1): pass
+
+    def on_swap_out(self, nbytes): pass
+
+    def on_swap_in(self, nbytes): pass
 
     def on_kv_pool(self, total, in_use, free, bytes_per_token=0.0): pass
 
     def on_prefill_batch(self, real_tokens, padded_tokens): pass
+
+    def on_prefill_stall(self, n=1): pass
 
     def observe_queue_depth(self, depth): pass
 

@@ -28,8 +28,10 @@ Span catalogue (name / lane / meaning):
 - ``queue_wait`` (req): submit -> admission.
 - ``prefill_chunk`` (req): one prompt-prefill dispatch.
 - ``decode_block`` (req): the request's share of one decode dispatch.
-- ``preempt_swap_out`` / ``swap_in`` (req): a recompute preemption
-  round trip.
+- ``prefix_match`` (req, instant): an admission's trie probe (args:
+  hit, matched_tokens; paged also shared_blocks and cow).
+- ``preempt_swap_out`` / ``swap_in`` (req): a preemption round trip
+  (args: mode "swap" with blocks and bytes, or "recompute").
 - ``finish`` / ``shed`` (req): instant markers closing the lifecycle.
 - ``dispatch`` / ``host_drain`` (engine lane): one decode dispatch
   (H iterations enqueued) / its blocking device->host token pull.

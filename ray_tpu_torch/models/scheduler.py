@@ -1,9 +1,9 @@
 """Request-scheduler policies for the continuous-batching DecodeEngine.
 
 Own copy of `ray_tpu/models/scheduler.py` (the port imports nothing of
-the JAX package): the base policy, FIFO and priority. The prefix- and
-adapter-affinity policies wait for the engine features they serve
-(prefix cache, multi-LoRA; see ROADMAP.md Queue A).
+the JAX package): the base policy, FIFO, priority and the prefix-
+affinity policy. The adapter-affinity policy waits for the multi-LoRA
+engine it serves (ROADMAP.md Queue A, A8).
 
 The policy picks which QUEUED request gets the next freed decode slot,
 plus the two admission-control knobs every production LLM server grows:
@@ -72,6 +72,12 @@ class SchedulerPolicy:
     def __len__(self) -> int:
         raise NotImplementedError
 
+    def queued_requests(self) -> list:
+        """The queued request OBJECTS, in no particular order: a
+        read-only view for load probes (`pending_prefill_tokens`).
+        Callers must not mutate the returned requests or the list."""
+        raise NotImplementedError
+
     def horizon_hint(self, *, free_slots: int,
                      max_horizon: int) -> int:
         """Suggested decode horizon for the NEXT engine step: 1 while a
@@ -113,6 +119,9 @@ class FIFOPolicy(SchedulerPolicy):
     def __len__(self) -> int:
         return len(self._q)
 
+    def queued_requests(self) -> list:
+        return list(self._q)
+
 
 class PriorityPolicy(SchedulerPolicy):
     """Admit by priority class (LOWER number = admitted first), FIFO
@@ -134,13 +143,74 @@ class PriorityPolicy(SchedulerPolicy):
     def __len__(self) -> int:
         return len(self._heap)
 
+    def queued_requests(self) -> list:
+        return [r for _, _, r in self._heap]
 
-_POLICIES = {"fifo": FIFOPolicy, "priority": PriorityPolicy}
+
+class PrefixAffinityPolicy(FIFOPolicy):
+    """FIFO order, made prefix-cache aware: never admit a request COLD
+    when admitting it one round later would be WARM.
+
+    The engine (built with prefix_cache=True) attaches a probe via
+    `attach_prefix_probe`: ``probe(prompt) -> (matched_tokens,
+    prefix_group_key, next_block_pending)``, a pure host walk of the
+    prefix trie. `pop` scans the queue in FIFO order and SKIPS, for this
+    admission round only, any request that is about to become warmer:
+
+    - its next prefix block is PENDING: a live row is already
+      prefilling exactly the blocks this request would recompute;
+    - a same-prefix-group request (same first block) was already popped
+      COLD this round: the first of a burst sharing one system prompt
+      leads and computes the shared blocks once, the rest wait for it.
+
+    `pop` returns None when every queued request is deferred (the
+    engine stops admitting for the step). The leader IS admitted and
+    its prefill always advances, so the blocks followers wait on commit
+    after finitely many steps. Without a probe the policy is plain
+    FIFO. Like every policy it reorders admission only."""
+
+    name = "prefix"
+
+    def __init__(self):
+        super().__init__()
+        self._probe = None
+        self._round_cold: set = set()   # group keys popped cold this round
+        self.deferrals = 0   # pops skipped to wait for a warmer admission
+
+    def attach_prefix_probe(self, probe) -> None:
+        self._probe = probe
+
+    def begin_admission_round(self) -> None:
+        self._round_cold = set()
+
+    def pop(self):
+        if self._probe is None:
+            return super().pop()
+        for i, req in enumerate(self._q):
+            if getattr(req, "resume", False):
+                # A preempted row coming back: its K/V is in the host
+                # swap buffer (or replayed from its own history), not in
+                # the trie, so deferring it only delays its restart.
+                del self._q[i]
+                return req
+            matched, key, pending = self._probe(req.prompt)
+            if pending or (key is not None and key in self._round_cold):
+                self.deferrals += 1
+                continue                 # warmer next round: defer
+            if key is not None and matched == 0:
+                self._round_cold.add(key)   # cold leader of its group
+            del self._q[i]
+            return req
+        return None
+
+
+_POLICIES = {"fifo": FIFOPolicy, "priority": PriorityPolicy,
+             "prefix": PrefixAffinityPolicy}
 
 
 def make_policy(spec) -> SchedulerPolicy:
     """Resolve a policy spec: an instance passes through, a name
-    ("fifo" | "priority") constructs the built-in."""
+    ("fifo" | "priority" | "prefix") constructs the built-in."""
     if isinstance(spec, SchedulerPolicy):
         return spec
     try:
@@ -153,4 +223,4 @@ def make_policy(spec) -> SchedulerPolicy:
 
 __all__ = ["EngineOverloaded", "EngineDraining", "SubmitTimeout",
            "SchedulerPolicy", "FIFOPolicy", "PriorityPolicy",
-           "make_policy"]
+           "PrefixAffinityPolicy", "make_policy"]

@@ -1,12 +1,14 @@
 """Where the serving time goes: profile the DecodeEngine on the card.
 
     python3 -m ray_tpu_torch.profile_serve [--impl auto|reference] [--paged]
+        [--kv-quant int8|fp8_e4m3]
 
 Serves the same 8 requests as chip_smoke.py (Llama-3-8B at its
 published widths, seeded random bf16 weights, prompts of 64-512 tokens,
 32 new tokens each, greedy) through the engine's default construction
 (dense cache, pipeline depth 2, the decode loop replayed as CUDA graphs)
-or, with ``--paged``, the paged engine: once to warm up, then once more
+or, with ``--paged``, the paged engine (``--kv-quant`` makes its pool
+int8 or fp8-e4m3): once to warm up, then once more
 under `torch.profiler` with CUDA activity. Prints the device time summed
 by kernel family (the paged-attention kernels, matrix products, the
 rest), the paged-attention kernels' and all kernels' device time per
@@ -52,7 +54,11 @@ def main() -> None:
                     choices=("auto", "kernel", "reference"))
     ap.add_argument("--paged", action="store_true",
                     help="profile the paged engine instead of the dense one")
+    ap.add_argument("--kv-quant", choices=("int8", "fp8_e4m3"),
+                    help="quantize the paged engine's KV pool")
     args = ap.parse_args()
+    if args.kv_quant and not args.paged:
+        ap.error("--kv-quant needs --paged")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: no CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -74,7 +80,7 @@ def main() -> None:
     def serve():
         eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
                            kv_block_tokens=32, greedy=True,
-                           paged=args.paged)
+                           paged=args.paged, kv_quant=args.kv_quant)
         for p in prompts:
             eng.submit(p, 32)
         torch.cuda.synchronize()
@@ -96,7 +102,10 @@ def main() -> None:
         us, n = fams.get(f, (0.0, 0))
         fams[f] = (us + e.self_device_time_total, n + e.count)
     s = eng.stats()
-    print(f"[profile] impl={args.impl}, {'paged' if args.paged else 'dense'}"
+    layout = "paged" if args.paged else "dense"
+    if args.kv_quant:
+        layout += f" {args.kv_quant}"
+    print(f"[profile] impl={args.impl}, {layout}"
           f" engine: wall {wall:.3f} s, device busy "
           f"{total_us / 1e6:.3f} s ({total_us / 1e6 / wall:.1%} of wall); "
           f"{eng.decode_iterations} decode iterations in "

@@ -111,6 +111,7 @@ def test_defaults_are_the_jax_defaults(weights):
     _, _, tp = weights
     eng = DecodeEngine(tp, TCFG, max_len=MAX_LEN)
     assert not eng.paged and eng.pipeline_depth == 2
+    assert eng.preempt_mode == "swap"
     assert eng.cache["k"].shape == (TCFG.n_layers, 8, MAX_LEN,
                                     TCFG.n_kv_heads, TCFG.head_dim)
     s = eng.stats()

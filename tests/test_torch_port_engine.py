@@ -147,7 +147,8 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
     pool = 10 * block_bytes(TCFG.n_layers, T, TCFG.n_kv_heads,
                             TCFG.head_dim, 4)
     eng = DecodeEngine(tp, TCFG, batch_slots=4, max_len=MAX_LEN,
-                       paged=True, kv_block_tokens=T, kv_pool_bytes=pool)
+                       paged=True, kv_block_tokens=T, kv_pool_bytes=pool,
+                       preempt="recompute")
     assert eng.kv_pool.blocks_total == 10
     got = _drive(eng, prompts, budgets)
     assert got == [_jax_solo(jp, p, n) for p, n in zip(prompts, budgets)]
@@ -158,8 +159,6 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"preempt": "swap"},
-    {"kv_quant": "int8"}, {"prefix_cache": True}, {"prefill_chunk": 4},
     {"draft_params": "draft"}, {"lora": "lora"}, {"tp": 2},
     {"mesh": "mesh"}, {"sanitize": True}],
     ids=lambda k: next(iter(k)))
