@@ -14,13 +14,18 @@ Phases, each of which must pass:
                dk/dv).
   3. kernel  — the paged decode-attention kernel (split pass + combine
                pass) against its plain PyTorch version at Llama-3-8B
-               decode shapes (bf16, int8 and fp8 pools; 1 and 5 queries
-               per row), with its split plan and grid, and times at S=1
-               (the kernel's as a replayed CUDA graph, and per eager call)
-               beside the memory bound and their share of it.
+               decode shapes (bf16, int8 and fp8 pools; 1, 2, 3 and 5
+               queries per row: decode and the speculative verify pass
+               at spec_window 1, 2, 4) and at the Llama-3.2-1B draft's
+               (head dim 64; bf16 and int8; 1 and 2 queries), with its
+               split plan and grid, and every case's time (a replayed
+               CUDA graph; at S=1, D=128 also per eager call) beside the
+               memory bound and their share of it.
   4. small   — a 2-layer f32 model served by the DecodeEngine, dense
                and paged (kernel, CUDA-graph decode loop), must emit the
-               greedy tokens of solo `generate` (plain attention).
+               greedy tokens of solo `generate` (plain attention), also
+               with a speculative draft (an independent 1-layer one and
+               the model itself).
   5. serve   — Llama-3-8B at its published widths (seeded random bf16
                weights) serves 8 requests (32 new tokens each, greedy)
                through four engines: dense at pipeline depths 2 (the
@@ -60,7 +65,33 @@ Phases, each of which must pass:
                writes' shares, the swap bytes and times, TTFT p50 with
                and without the prefix cache and what one pool budget
                holds in bf16 and int8.
-  7. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+  7. spec    — speculative decoding on the serve phase's traffic and
+               Llama-3-8B (30 new tokens, spec_window 4), four engines:
+               (a) paged bf16 with a Llama-3.2-1B draft at its published
+               widths (random weights, so acceptance near 0), (b) paged
+               bf16 drafting with the target itself (acceptance near 1),
+               (c) dense (the JAX defaults) and (d) paged int8 with the
+               1B draft. In each run B2's launch count must equal
+               n_layers per plain decode iteration plus 32 + 16 x W per
+               round of width W, every dispatch after its key's first
+               must be a replayed CUDA graph, the plain attention never
+               runs, every block of both planes comes back, and the
+               timed run (after an untimed one) replays only graphs.
+               Given the run's own tokens, the non-spec engine on the
+               same pool or cache (teacher-forced at the decode step's
+               width and at the verify pass's; misses printed with their
+               logit gaps) must agree with them to within 0.03 of the
+               two widths' own agreement, and on bf16 at >= 0.95 at the
+               verify width; (b)'s acceptance must reach that of a draft
+               picking the target's decode-width choices, less 0.05,
+               and (a)'s stay below (b)'s. A fresh
+               engine of each construction, rows live mid-serving,
+               checks that a replayed round writes the eager round's
+               emits and row state, and times one round on the card with
+               its draft and verify parts. Prints steady decode tokens/s
+               beside the serve phase's no-draft rate, TTFT p50 and the
+               spec counters.
+  8. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
                edge cases (bf16 cases run the wgmma kernels, c_f32 the
@@ -70,7 +101,7 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
-  8. train   — bench.py:flagship_config()'s widths at full depth (only
+  9. train   — bench.py:flagship_config()'s widths at full depth (only
                remat_policy changed, to "full") train on batch 8 x 2048
                tokens with f32 master weights and adamw(3e-4,
                weight_decay=0.0): one warm-up step and 5 timed steps. The
@@ -79,7 +110,7 @@ Phases, each of which must pass:
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
-  9. parity  — one training step's loss, grad norm and gradients at the
+ 10. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]}; the last
@@ -211,7 +242,7 @@ def _graph_ms(fn, calls=20, reps=20):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def _kernel_inputs(S, pool, copies):
+def _kernel_inputs(S, pool, copies, D=D):
     """`copies` independent input sets at the decode shapes (timing
     rotates through them so each launch finds its pages outside the
     50 MB L2). Row 0 has no live slot; the others' frontiers are ragged
@@ -248,7 +279,7 @@ def _kernel_inputs(S, pool, copies):
             torch.from_numpy(q_slots).to(dev), q_slots)
 
 
-def _bound_ms(q_slots, S, pool):
+def _bound_ms(q_slots, S, pool, D=D):
     """Least time for these inputs: each live K/V slot read once (per kv
     head), q and the scales and table entries of live blocks read once,
     out written once, over the memory rate; the 4*D flops per live slot
@@ -271,6 +302,15 @@ def _bound_ms(q_slots, S, pool):
                                  "operations")
 
 
+# B2's kernel-phase cases (pool, S, D): the decode step (S=1), the
+# speculative verify pass at spec_window 1, 2 and 4 (S = W+1 = 2, 3, 5;
+# Llama-3-8B's head dim 128) and the Llama-3.2-1B draft's steps (S = 1
+# and its 2-wide catch-up chunk, head dim 64).
+KERNEL_CASES = tuple((pool, S, 128) for pool in ("bf16", "int8", "fp8_e4m3")
+                     for S in (1, 2, 3, 5)) + tuple(
+    (pool, S, 64) for pool in ("bf16", "int8") for S in (1, 2))
+
+
 def kernel_phase():
     from ray_tpu_torch.ops import paged_attention_kernel as pak
     from ray_tpu_torch.ops.attention import paged_attention
@@ -284,59 +324,58 @@ def kernel_phase():
         f"{blocks} split blocks")
     assert blocks > sms, f"{blocks} split blocks do not fill {sms} SMs"
     results = {}
-    for pool in ("bf16", "int8", "fp8_e4m3"):
-        for S in (1, 5):
-            sets, bt, qs, qs_np = _kernel_inputs(S, pool,
-                                                 4 if S == 1 else 1)
-            q, kp, vp, ks, vs = sets[0]
-            kw = dict(kv_valid_len=span, k_scale=ks, v_scale=vs)
-            out = paged_attention(q, kp, vp, bt, qs, impl="kernel", **kw)
-            plain_pages = (kp.float(), vp.float()) if pool == "bf16" \
-                else (kp, vp)
-            ref = paged_attention(q.float(), *plain_pages, bt, qs,
-                                  impl="reference", **kw)
-            torch.cuda.synchronize()
-            # The kernel writes 0 for a row with no live slot; the plain
-            # version (like the JAX reference) averages v there.
-            dead = torch.from_numpy((qs_np < 0).all(axis=1)).cuda()
-            ref[dead] = 0.0
-            out32 = out.float()
-            assert torch.isfinite(out32).all(), f"{pool} S={S}: non-finite"
-            assert bool((out32[dead] == 0).all()), f"{pool} S={S}: dead row"
-            err = (out32 - ref).abs()
-            ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-            smem, mma = pak.kernel_config(q.dtype, kp.dtype, (H // KV) * S,
-                                          D, T)
-            line = (f"[kernel] pool={pool} S={S}: max_abs_err="
-                    f"{err.max().item():.3e} (atol {ATOL}, rtol {RTOL}); "
-                    f"{'tensor-core' if mma else 'FMA'} split kernel, "
-                    f"{smem} B dynamic shared memory per block")
-            assert ok, line + " FAILED"
-            res = {"max_abs_err": err.max().item()}
-            if S == 1:
-                i = [0]
+    for pool, S, Dh in KERNEL_CASES:
+        sets, bt, qs, qs_np = _kernel_inputs(S, pool, 4, Dh)
+        q, kp, vp, ks, vs = sets[0]
+        kw = dict(kv_valid_len=span, k_scale=ks, v_scale=vs)
+        out = paged_attention(q, kp, vp, bt, qs, impl="kernel", **kw)
+        plain_pages = (kp.float(), vp.float()) if pool == "bf16" \
+            else (kp, vp)
+        ref = paged_attention(q.float(), *plain_pages, bt, qs,
+                              impl="reference", **kw)
+        torch.cuda.synchronize()
+        # The kernel writes 0 for a row with no live slot; the plain
+        # version (like the JAX reference) averages v there.
+        dead = torch.from_numpy((qs_np < 0).all(axis=1)).cuda()
+        ref[dead] = 0.0
+        out32 = out.float()
+        tag = f"{pool} S={S} D={Dh}"
+        assert torch.isfinite(out32).all(), f"{tag}: non-finite"
+        assert bool((out32[dead] == 0).all()), f"{tag}: dead row"
+        err = (out32 - ref).abs()
+        ok = bool((err <= ATOL + RTOL * ref.abs()).all())
+        smem, mma = pak.kernel_config(q.dtype, kp.dtype, (H // KV) * S,
+                                      Dh, T)
+        line = (f"[kernel] pool={pool} S={S} D={Dh}: max_abs_err="
+                f"{err.max().item():.3e} (atol {ATOL}, rtol {RTOL}); "
+                f"{'tensor-core' if mma else 'FMA'} split kernel, "
+                f"{smem} B dynamic shared memory per block")
+        assert ok, line + " FAILED"
+        res = {"max_abs_err": err.max().item()}
+        i = [0]
 
-                def run(impl):
-                    q, kp, vp, ks, vs = sets[i[0] % len(sets)]
-                    i[0] += 1
-                    if impl == "reference" and pool == "bf16":
-                        q, kp, vp = q.float(), kp.float(), vp.float()
-                    paged_attention(q, kp, vp, bt, qs, kv_valid_len=span,
-                                    k_scale=ks, v_scale=vs, impl=impl)
+        def run(impl):
+            q, kp, vp, ks, vs = sets[i[0] % len(sets)]
+            i[0] += 1
+            if impl == "reference" and pool == "bf16":
+                q, kp, vp = q.float(), kp.float(), vp.float()
+            paged_attention(q, kp, vp, bt, qs, kv_valid_len=span,
+                            k_scale=ks, v_scale=vs, impl=impl)
 
-                res["ms"] = _graph_ms(lambda: run("kernel"))
-                eager = _time_ms(lambda: run("kernel"), 100)
-                res["plain_ms"] = _time_ms(lambda: run("reference"), 10)
-                res["bound_ms"], res["bound_by"] = _bound_ms(qs_np, S, pool)
-                line += (f"; kernel {res['ms']:.4f} ms on the card (CUDA "
-                         f"graph), {eager:.4f} ms per eager call; plain "
-                         f"{res['plain_ms']:.4f} ms (eager); bound "
-                         f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
-                         f"{res['bound_ms'] / res['ms']:.1%} of bound")
-            log(line)
-            results[(pool, S)] = res
-            del sets, q, kp, vp, ks, vs, out, ref
-            torch.cuda.empty_cache()
+        res["ms"] = _graph_ms(lambda: run("kernel"))
+        res["plain_ms"] = _time_ms(lambda: run("reference"), 5)
+        res["bound_ms"], res["bound_by"] = _bound_ms(qs_np, S, pool, Dh)
+        line += f"; kernel {res['ms']:.4f} ms on the card (CUDA graph)"
+        if S == 1 and Dh == D:
+            line += (f", {_time_ms(lambda: run('kernel'), 100):.4f} ms per"
+                     " eager call")
+        line += (f"; plain {res['plain_ms']:.4f} ms (eager); bound "
+                 f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                 f"{res['bound_ms'] / res['ms']:.1%} of bound")
+        log(line)
+        results[(pool, S, Dh)] = res
+        del sets, q, kp, vp, ks, vs, out, ref
+        torch.cuda.empty_cache()
     return results
 
 
@@ -353,20 +392,36 @@ def small_phase():
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in rng.randint(5, 41, size=6)]
     solo = [generate(params, torch.tensor([p], device="cuda"), cfg,
-                     max_new_tokens=16)[0, len(p):].tolist()
+                     max_new_tokens=15)[0, len(p):].tolist()
             for p in prompts]
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    drafts = {"none": {}, "1-layer draft": dict(
+        draft_params=llama_init(dcfg, seed=2, device="cuda"),
+        draft_cfg=dcfg), "self-draft": dict(draft_params=params,
+                                             draft_cfg=cfg)}
     for paged in (False, True):
-        eng = DecodeEngine(params, cfg, batch_slots=4, max_len=128,
-                           kv_block_tokens=16, paged=paged)
-        ids = [eng.submit(p, 16) for p in prompts]
-        out = eng.run()
-        for rid, want in zip(ids, solo):
-            assert out[rid] == want, \
-                f"small: request {rid} {out[rid]} != {want}"
-        assert eng.stats()["decode_graph_replays"] > 0
-        assert not paged or eng.kv_pool.blocks_in_use == 0
+        for draft, kw in drafts.items():
+            eng = DecodeEngine(params, cfg, batch_slots=4, max_len=128,
+                               kv_block_tokens=16, paged=paged, **kw)
+            ids = [eng.submit(p, 15) for p in prompts]
+            out = eng.run()
+            for rid, want in zip(ids, solo):
+                assert out[rid] == want, \
+                    f"small ({draft}): request {rid} {out[rid]} != {want}"
+            s = eng.stats()
+            assert s["decode_graph_replays"] > 0
+            assert not kw or s["spec_dispatches"] > 0
+            assert not paged or eng.kv_pool.blocks_in_use == 0
+            if draft == "self-draft":
+                # 15 = 3 rounds of W+1: in f32 every proposal verifies,
+                # through the full-accept draft-lag lane
+                assert s["spec_acceptance_rate"] == 1.0, \
+                    f"small: self-draft acceptance " \
+                    f"{s['spec_acceptance_rate']}"
     log(f"[small] f32 2-layer engine, dense and paged (kernel, CUDA graphs)"
-        f" == solo generate (plain) on {len(prompts)} requests x 16 tokens")
+        f", plain and speculative (1-layer and self-draft, the latter at "
+        f"acceptance 1.0) == solo generate (plain) on {len(prompts)} "
+        f"requests x 15 tokens")
 
 
 # The serve phase's engines: (label, paged, pipeline_depth). The first is
@@ -470,16 +525,31 @@ def _decode_rate(eng):
     return tokens / secs if secs else 0.0
 
 
-def _check_run(label, cfg, eng, toks, run, plain=False):
-    assert all(len(t) == NEW_TOKENS for t in toks), [len(t) for t in toks]
+def _b2_calls(eng):
+    """B2 calls the engine's dispatches make: n_layers per plain decode
+    iteration, and per speculative round of width W one per target layer
+    (the verify pass) and one per draft layer per draft step (the
+    catch-up chunk and W-1 scans)."""
+    n = eng.cfg.n_layers * eng.decode_iterations
+    if eng.spec_enabled:
+        n += sum(k * (eng.cfg.n_layers + eng.draft_cfg.n_layers * w)
+                 for w, k in eng.spec_dispatches_by_window.items())
+    return n
+
+
+def _check_run(label, cfg, eng, toks, run, plain=False,
+               new_tokens=NEW_TOKENS, base=(0, 0)):
+    """``base``: the engine's (B2 calls, decode dispatches) before the
+    run, for an engine that served a warm-up run first."""
+    assert all(len(t) == new_tokens for t in toks), [len(t) for t in toks]
     assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
     assert torch.isfinite(eng._last_logits).all()
-    want = 0 if plain else cfg.n_layers * eng.decode_iterations
+    want = 0 if plain else _b2_calls(eng) - base[0]
     assert run["launches"] == want, \
         f"{label}: kernel launches {run['launches']} != {want}"
-    assert run["gets"] == eng.decode_dispatches, \
-        f"{label}: {run['gets']} _device_get for {eng.decode_dispatches} " \
-        "dispatches"
+    assert run["gets"] == eng.decode_dispatches - base[1], \
+        f"{label}: {run['gets']} _device_get for " \
+        f"{eng.decode_dispatches - base[1]} dispatches"
     s = eng.stats()
     assert s["decode_graph_replays"] > 0, f"{label}: no graph replayed"
     # every retired row returned its blocks: only the prefix trie holds any
@@ -525,15 +595,20 @@ def llama3_8b():
     return cfg, params
 
 
-def serve_phase(smi, cfg, params):
+def serve_prompts(vocab_size):
+    """The serve phase's 8 prompts (seed 0; 111-423 tokens)."""
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in rng.randint(64, 513, size=N_REQUESTS)]
+    return [rng.randint(0, vocab_size, size=n).tolist()
+            for n in rng.randint(64, 513, size=N_REQUESTS)]
+
+
+def serve_phase(smi, cfg, params):
+    prompts = serve_prompts(cfg.vocab_size)
     log(f"[serve] prompt lengths {[len(p) for p in prompts]}, "
         f"max_new_tokens {NEW_TOKENS}, 8 slots, max_len 2048, greedy")
 
     # One timed run each (A B C D), then one profiled run each.
-    tokens, runs = {}, {}
+    tokens, runs, rates = {}, {}, {}
     main_launches = None
     for i, (label, paged, depth) in enumerate(SERVE_RUNS):
         eng, toks, run = _serve(params, cfg, prompts, paged=paged,
@@ -572,6 +647,7 @@ def serve_phase(smi, cfg, params):
         steady = [r["steady"] for r, _ in timed]
         spans = [r["span_rate"] for r, _ in timed]
         s = timed[0][1]
+        rates[label] = steady[0]
         log(f"[serve] {label}: steady decode "
             + " / ".join(f"{x:.1f}" for x in steady)
             + " tokens/s (blocks after the first, card clock; trace span "
@@ -606,7 +682,7 @@ def serve_phase(smi, cfg, params):
         f"later tokens)")
     del eng_r
     torch.cuda.empty_cache()
-    return main_launches
+    return main_launches, rates
 
 
 # The kvmem phase: 16 requests in 2 groups of 8, each group sharing a
@@ -762,50 +838,83 @@ def _iteration_profile(eng, cfg):
     return out
 
 
-def _teacher_forced(params, cfg, prompts, ref, kv_quant):
-    """The share of positions at which a pool's greedy choice equals
-    `ref`'s token GIVEN `ref`'s own history: 8 rows at a time are
-    prefilled in 256-token chunks, then fed `ref`'s tokens one decode
-    iteration at a time through the engine's decode step (the pool's
-    write and B2, eagerly), the argmax of the logits read before each
-    feed. Unlike the elementwise agreement of two free-running streams,
-    one early difference does not reroute the rest of a stream."""
+def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
+                  width=1, prefill_chunk=KVMEM_CHUNK):
+    """The target's greedy choice at each position GIVEN `ref`'s own
+    history, on a fresh non-spec engine's pool (``paged=False``: its
+    dense cache, read through B2's block-table view): 8 rows at a time
+    are prefilled (in ``prefill_chunk``-token chunks), then fed `ref`'s
+    tokens
+    ``width`` at a time through the engine's decode step (width 1) or
+    a speculative round's verify step (width W+1: `_spec_core` /
+    `_spec_core_paged`), eagerly, the pool's write and B2 included.
+    Returns the picks and, per position, the logit of the pick minus
+    that of `ref`'s token (0 where they agree), each [requests,
+    tokens]. Unlike the elementwise agreement of two free-running
+    streams, one early difference does not reroute the rest of a
+    stream."""
     from ray_tpu_torch import DecodeEngine
     from ray_tpu_torch.models import engine as engine_mod
 
-    hits = total = 0
+    n_new = len(ref[0])
+    picks = np.zeros((len(prompts), n_new), np.int64)
+    gaps = np.zeros((len(prompts), n_new), np.float64)
     for lo in range(0, len(prompts), 8):
         idx = list(range(lo, min(lo + 8, len(prompts))))
         eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
-                           paged=True, kv_block_tokens=32,
-                           kv_quant=kv_quant, prefill_chunk=KVMEM_CHUNK)
+                           paged=paged, kv_block_tokens=32,
+                           kv_quant=kv_quant, prefill_chunk=prefill_chunk)
         for i in idx:
-            eng.submit(prompts[i], NEW_TOKENS)
+            eng.submit(prompts[i], n_new)
         rows = list(range(len(idx)))
         eng._admit_rows([(r, eng.scheduler.pop()) for r in rows])
         while eng._row_prefill:
             eng._advance_prefills()
-        assert eng._ensure_decode_blocks(rows, NEW_TOKENS, 0)
         dev = eng.device
-        bt = torch.from_numpy(eng._bt).to(dev)
+        if paged:
+            assert eng._ensure_decode_blocks(rows, n_new, 0)
+            bt = torch.from_numpy(eng._bt).to(dev)
         row_len = torch.from_numpy(eng.row_len.astype(np.int64)).to(dev)
         forced = torch.tensor([ref[i] for i in idx], device=dev)
-        toks = torch.zeros(eng.B, dtype=torch.long, device=dev)
         live = torch.zeros(eng.B, dtype=torch.long, device=dev)
         live[:len(idx)] = 1
-        logits = eng._last_logits
-        for j in range(NEW_TOKENS):
-            hits += int((logits[:len(idx)].argmax(-1) == forced[:, j]).sum())
-            total += len(idx)
-            toks[:len(idx)] = forced[:, j]
+
+        def record(logits, j):
+            lg = logits[:len(idx)]
+            pick = lg.argmax(-1)
+            picks[idx, j] = pick.cpu().numpy()
+            gaps[idx, j] = (lg.gather(1, pick[:, None])
+                            - lg.gather(1, forced[:, j:j + 1]))[:, 0].cpu(
+                                ).numpy()
+
+        record(eng._last_logits, 0)
+        for j in range(0, n_new - 1, width):
+            S = min(width, n_new - 1 - j)
+            toks = torch.zeros((eng.B, S), dtype=torch.long, device=dev)
+            toks[:len(idx)] = forced[:, j:j + S]
             with torch.no_grad():
-                logits = engine_mod._decode_core_paged(
-                    params, toks, eng._pool_k, eng._pool_v, bt, row_len, cfg,
-                    eng._scale_k, eng._scale_v, eng.kv_quant_spec)
-            row_len = row_len + live
+                if paged:
+                    logits = engine_mod._spec_core_paged(
+                        params, toks, eng._pool_k, eng._pool_v, bt, row_len,
+                        cfg, eng._scale_k, eng._scale_v, eng.kv_quant_spec)
+                else:
+                    logits = engine_mod._spec_core(
+                        params, toks, eng.cache, row_len, cfg, eng.max_len,
+                        eng._view_bt)
+            for i in range(S):
+                record(logits[:, i], j + i + 1)
+            row_len = row_len + live * S
         del eng
         torch.cuda.empty_cache()
-    return hits / total
+    return picks, gaps
+
+
+def _teacher_forced(params, cfg, prompts, ref, kv_quant):
+    """The share of positions at which the pool's greedy choice equals
+    `ref`'s token given `ref`'s own history (`_forced_picks`, width
+    1)."""
+    picks, _ = _forced_picks(params, cfg, prompts, ref, kv_quant)
+    return float((picks == np.asarray(ref)).mean())
 
 
 def kvmem_phase(smi, cfg, params):
@@ -956,6 +1065,300 @@ def kvmem_phase(smi, cfg, params):
         f"{cold})")
     del runs
     torch.cuda.empty_cache()
+
+
+# The spec phase: the serve phase's traffic on Llama-3-8B, speculative
+# rounds of width up to SPEC_WINDOW, SPEC_NEW_TOKENS new tokens each (a
+# multiple of W+1, so a fully accepting run truncates no round). Drafts:
+# Llama-3.2-1B at its published widths (random weights: acceptance near
+# 0, speculation's worst case) or the target itself (acceptance near 1).
+SPEC_WINDOW, SPEC_NEW_TOKENS = 4, 30
+SPEC_MIN_AGREE = 0.95
+SPEC_FLOOR_MARGIN = 0.03     # of the two non-spec widths' agreement
+SPEC_RUNS = (("a paged bf16, 1B draft", dict(paged=True), "1b"),
+             ("b paged bf16, self-draft", dict(paged=True), "self"),
+             ("c dense (the JAX defaults), 1B draft", dict(), "1b"),
+             ("d paged int8, 1B draft", dict(paged=True, kv_quant="int8"),
+              "1b"))
+
+
+def llama32_1b():
+    """Llama-3.2-1B's published widths (meta-llama/Llama-3.2-1B
+    config.json): vocab 128256, dim 2048, 16 layers, 32/8 heads (head
+    dim 64), ffn 8192, rope_theta 500000. Cut: the lm_head is untied
+    (the port's LlamaConfig has no tying) and the llama3 rope scaling is
+    not applied (the port has none); the weights are random."""
+    from ray_tpu_torch import LlamaConfig
+
+    return LlamaConfig(vocab_size=128256, dim=2048, n_layers=16, n_heads=32,
+                       n_kv_heads=8, ffn_dim=8192, rope_theta=500000.0,
+                       max_seq_len=8192)
+
+
+def _live_rows(eng, prompts, new_tokens):
+    """Admit and prefill `prompts` into the (idle) engine's rows and
+    stage them as a primary round's inputs: the state a round starts
+    from mid-serving."""
+    for p in prompts:
+        eng.submit(p, new_tokens)
+    rows = list(range(len(prompts)))
+    eng._admit_rows([(r, eng.scheduler.pop()) for r in rows])
+    while eng._row_prefill:
+        eng._advance_prefills()
+    if eng.paged:
+        assert eng._ensure_decode_blocks(rows, SPEC_WINDOW + 1, 0)
+    eng._stage_inputs(False, np.full((eng.B,), SPEC_WINDOW, np.int64))
+
+
+def _round_state(eng):
+    """Clones of everything one round writes: the staged inputs and row
+    state, `_last_logits`, and the blocks the rows' tables reach (with
+    the null block) of both planes, or the whole dense caches."""
+    from ray_tpu_torch.ops.kv_quant import raw
+
+    out = [("din", eng._din.clone()), ("logits", eng._last_logits.clone())]
+    if eng.paged:
+        for tensors, bt in ((eng._pool_tensors(), eng._bt),
+                            ([t for t in (eng._pool_dk, eng._pool_dv,
+                                          eng._scale_dk, eng._scale_dv)
+                              if t is not None], eng._bt_d)):
+            ids = torch.from_numpy(np.union1d(bt.reshape(-1), [0])).to(
+                eng.device)
+            out += [(t, ids, raw(t).index_select(1, ids)) for t in tensors]
+    else:
+        out += [(t, None, t.clone()) for c in (eng.cache, eng._d_cache)
+                for t in (c["k"], c["v"])]
+    return out
+
+
+def _restore(eng, state):
+    from ray_tpu_torch.ops.kv_quant import raw
+
+    eng._din.copy_(state[0][1])
+    eng._last_logits.copy_(state[1][1])
+    for t, ids, x in state[2:]:
+        if ids is None:
+            t.copy_(x)
+        else:
+            raw(t).index_copy_(1, ids, x)
+
+
+def _replay_check(eng):
+    """Given the same state (rows live mid-serving), the engine's
+    captured ("spec", W, all-greedy) graph replayed writes the emit
+    block, the row state and draft lanes of the round run eagerly.
+    Returns the largest difference of the carried logits."""
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
+
+    graph, static, _ = eng._graphs.graphs[("spec", SPEC_WINDOW, True)]
+    state = _round_state(eng)
+    before = pak.launches
+    eager = eng._spec_body(SPEC_WINDOW, True).clone()
+    pak.launches = before
+    din, logits = eng._din.clone(), eng._last_logits.clone()
+    _restore(eng, state)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager), "replayed round: emits differ"
+    assert torch.equal(eng._din, din), "replayed round: row state differs"
+    return (eng._last_logits - logits).abs().max().item()
+
+
+def _round_profile(eng, params, cfg):
+    """The card's ms of one W=SPEC_WINDOW round from live rows (one
+    round captured as a CUDA graph and replayed), of its draft part (the
+    2-wide catch-up chunk and W-1 scans) and of its verify pass alone,
+    each captured and replayed the same way."""
+    from ray_tpu_torch.models import engine as engine_mod
+
+    dp, dc = eng.draft_params, eng.draft_cfg
+    st = eng._d_state
+    chunk = eng._last_logits.argmax(-1)[:, None].repeat(1, SPEC_WINDOW + 1)
+    row_len = st[0].clone()
+    if eng.paged:
+        bt, bt_d = eng._d_bt.to(torch.int32), eng._d_bt_d.to(torch.int32)
+
+        def target(t, start):
+            return engine_mod._spec_core_paged(
+                params, t, eng._pool_k, eng._pool_v, bt, start, cfg,
+                eng._scale_k, eng._scale_v, eng.kv_quant_spec)
+
+        def draft(t, start):
+            return engine_mod._spec_core_paged(
+                dp, t, eng._pool_dk, eng._pool_dv, bt_d, start, dc,
+                eng._scale_dk, eng._scale_dv, eng.kv_quant_spec)
+    else:
+        def target(t, start):
+            return engine_mod._spec_core(params, t, eng.cache, start, cfg,
+                                         eng.max_len, eng._view_bt)
+
+        def draft(t, start):
+            return engine_mod._spec_core(dp, t, eng._d_cache, start, dc,
+                                         eng.max_len, eng._view_bt)
+
+    def draft_part():
+        draft(chunk[:, :2], row_len)
+        for j in range(SPEC_WINDOW - 1):
+            draft(chunk[:, :1], row_len + 1 + j)
+
+    with torch.no_grad():
+        return {"round": _graph_ms(lambda: eng._spec_body(SPEC_WINDOW, True),
+                                   calls=1, reps=10),
+                "draft": _graph_ms(draft_part, calls=1, reps=10),
+                "verify": _graph_ms(lambda: target(chunk, row_len), calls=1,
+                                    reps=10)}
+
+
+def _sim_acceptance(ref, picks, W):
+    """The (proposed, accepted) draft tokens of rounds of width W over
+    `ref`'s streams by a draft that proposes `picks` (its greedy choice
+    at each position given `ref`'s history): a round from position p
+    (its t0 = ref[p]) accepts proposals k = 1, 2, .. while picks[p + k]
+    == ref[p + k], emits at most the tokens its row has left, and the
+    next round starts after its last emit."""
+    prop = acc = 0
+    for r, q in zip(ref, picks):
+        p, n = 0, len(r)
+        while p < n:
+            a = 0
+            while a < W and p + a + 1 < n and q[p + a + 1] == r[p + a + 1]:
+                a += 1
+            prop += W
+            acc += a
+            p += a + 1
+    return prop, acc
+
+
+def spec_phase(smi, cfg, params, serve_rates):
+    """Speculative decoding on Llama-3-8B (see the module docstring);
+    returns engine (a)'s B2 launches."""
+    from ray_tpu_torch import DecodeEngine
+    from ray_tpu_torch.models.llama import llama_init
+
+    prompts = serve_prompts(cfg.vocab_size)
+    dcfg = llama32_1b()
+    t0 = time.perf_counter()
+    dparams = llama_init(dcfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[spec] Llama-3.2-1B draft ({dcfg.num_params() / 1e9:.2f} B params"
+        f" with an untied lm_head, bf16) initialised in "
+        f"{time.perf_counter() - t0:.1f} s; target Llama-3-8B; the serve "
+        f"phase's 8 prompts, {SPEC_NEW_TOKENS} new tokens each, 8 slots, "
+        f"max_len 2048, greedy, spec_window {SPEC_WINDOW}; each engine "
+        f"serves the traffic once untimed (its rounds' first dispatches "
+        f"and captures), then the timed run")
+    W = SPEC_WINDOW
+    out = {}
+    for label, kw, draft in SPEC_RUNS:
+        dp, dc = (params, cfg) if draft == "self" else (dparams, dcfg)
+
+        def engine():
+            return DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
+                                kv_block_tokens=32, greedy=True, trace=True,
+                                draft_params=dp, draft_cfg=dc,
+                                spec_window=W, **kw)
+
+        eng = engine()
+        with _plain_attention_forbidden():
+            _, warm, _ = _drive(eng, prompts, SPEC_NEW_TOKENS)
+            base = (_b2_calls(eng), eng.decode_dispatches)
+            replays0 = eng._graphs.replays
+            eng, toks, run = _drive(eng, prompts, SPEC_NEW_TOKENS)
+        s = _check_run(f"spec {label}", cfg, eng, toks, run,
+                       new_tokens=SPEC_NEW_TOKENS, base=base)
+        assert toks == warm, f"spec {label}: the timed run's tokens changed"
+        n_keys = len(eng._graphs.graphs)
+        assert s["spec_dispatches"] > 0, f"spec {label}: no round"
+        assert s["decode_graph_replays"] == eng.decode_dispatches - n_keys, \
+            f"spec {label}: a dispatch after its key's first was not replayed"
+        assert not eng.paged or eng.kv_pool.blocks_in_use == 0
+        assert not eng.paged or eng.kv_pool_d.blocks_in_use == 0, \
+            f"spec {label}: draft blocks not returned"
+        by_w = dict(sorted(eng.spec_dispatches_by_window.items()))
+        log(f"[spec] {label}: steady decode {run['steady']:.1f} tokens/s "
+            f"(card clock; the serve phase's no-draft "
+            f"{'paged' if eng.paged else 'dense'} depth-2 run "
+            f"{serve_rates['paged, depth 2' if eng.paged else 'dense, depth 2']:.1f}"
+            f"), TTFT p50 {run['ttft_p50']:.4f} s, wall {run['wall']:.3f} s;"
+            f" over both runs: acceptance {s['spec_acceptance_rate']:.3f}, "
+            f"window effective {s['spec_window_effective']:.3f}, rounds "
+            f"{int(s['spec_rounds'])}, draft tokens wasted "
+            f"{int(s['spec_draft_tokens_wasted'])}, {eng.spec_dispatches} "
+            f"spec dispatches by width {by_w}, {eng.decode_iterations} plain "
+            f"decode iterations; timed run: B2 launches {run['launches']} = "
+            f"{cfg.n_layers} per plain iteration + ({cfg.n_layers} + "
+            f"{dc.n_layers} x W) per round, {run['gets']} dispatches, all "
+            f"{eng._graphs.replays - replays0} replayed CUDA graphs ({n_keys}"
+            f" keys); draft seedings {int(s['spec_prefill_dispatches'])}; "
+            f"peak memory {run['peak'] / 2**30:.2f} GiB; on {smi}")
+        assert eng._graphs.replays - replays0 == run["gets"], \
+            f"spec {label}: the timed run dispatched outside its graphs"
+        del eng
+        torch.cuda.empty_cache()
+        # the target's own choices given this run's history, at the
+        # decode step's width and at the verify pass's
+        forced = {w: _forced_picks(params, cfg, prompts, toks,
+                                   kw.get("kv_quant"), paged="paged" in kw,
+                                   width=w, prefill_chunk=None)
+                  for w in (1, W + 1)}
+        ref = np.asarray(toks)
+        agree = {w: float((p == ref).mean()) for w, (p, _) in forced.items()}
+        floor = float((forced[1][0] == forced[W + 1][0]).mean())
+        miss = [(int(i), int(j), round(float(forced[1][1][i, j]), 4))
+                for i, j in zip(*np.nonzero(forced[1][0] != ref))]
+        log(f"[spec] {label}: teacher-forced agreement with the non-spec "
+            f"engine on the same {'pool' if 'paged' in kw else 'cache'}: "
+            f"{agree[1]:.4f} at the decode step's width, {agree[W + 1]:.4f}"
+            f" at the verify pass's (S={W + 1}); the two non-spec widths "
+            f"agree on {floor:.4f} (the noise floor); misses at width 1 "
+            f"(request, position, logit gap): {miss}")
+        sim = _sim_acceptance(toks, forced[1][0], W)
+        out[label] = dict(run=run, stats=s, agree=agree, floor=floor,
+                          sim=sim[1] / sim[0])
+        # a fresh engine of the same construction: rows live mid-serving
+        eng = engine()
+        with _plain_attention_forbidden():
+            eng.submit(prompts[0], W + 1)
+            eng.run()                                  # captures W=4
+            _live_rows(eng, prompts, SPEC_NEW_TOKENS)
+            gap = _replay_check(eng)
+            prof = _round_profile(eng, params, cfg)
+        out[label]["prof"] = prof
+        log(f"[spec] {label}: a replayed W={W} round == the round run "
+            f"eagerly from the same state (emits, row state, draft lanes; "
+            f"carried logits within {gap:.3e}); one round on the card "
+            f"{prof['round']:.3f} ms; apart: its draft part {prof['draft']:.3f}"
+            f" ms ({prof['draft'] / prof['round']:.1%}), its verify pass "
+            f"{prof['verify']:.3f} ms ({prof['verify'] / prof['round']:.1%})"
+            f" (CUDA graphs, 8 live rows); on {smi}")
+        del eng
+        torch.cuda.empty_cache()
+    del dparams
+    torch.cuda.empty_cache()
+    # Random-weight logits sit at near ties (the misses' gaps above), so
+    # two valid non-spec computations — the decode step's width and the
+    # verify pass's — pick differently at a few percent of positions:
+    # that agreement is the noise floor, and the run's tokens must agree
+    # with each width to within SPEC_FLOOR_MARGIN of it. On a bf16 pool
+    # or cache the verify width is the round's own computation, so the
+    # tokens must also agree with it at SPEC_MIN_AGREE; an int8 pool's
+    # bytes depend on its write history (a round requantizes blocks
+    # holding rejected proposals), which neither width replays.
+    short = [f"{k} {v['agree'][W + 1]:.4f} / {v['agree'][1]:.4f} (floor "
+             f"{v['floor']:.4f})" for k, v in out.items()
+             if min(v["agree"].values()) < v["floor"] - SPEC_FLOOR_MARGIN
+             or ("int8" not in k and v["agree"][W + 1] < SPEC_MIN_AGREE)]
+    assert not short, f"spec: teacher-forced agreement too low: {short}"
+    acc = {k[0]: v["stats"]["spec_acceptance_rate"] for k, v in out.items()}
+    sim_b = out[SPEC_RUNS[1][0]]["sim"]
+    log(f"[spec] acceptance: 1B draft {acc['a']:.3f} (paged), "
+        f"{acc['c']:.3f} (dense), {acc['d']:.3f} (int8); self-draft "
+        f"{acc['b']:.3f}, against {sim_b:.3f} for a draft that picks the "
+        f"target's decode-width choices on the same streams")
+    assert acc["b"] >= sim_b - 0.05, \
+        f"spec: self-draft acceptance {acc['b']:.3f} < {sim_b:.3f} - 0.05"
+    assert acc["a"] < acc["b"], f"spec: acceptance {acc}"
+    return out[SPEC_RUNS[0][0]]["run"]["launches"]
 
 
 def _flash_pairs(Sq, Sk, causal):
@@ -1234,8 +1637,9 @@ def main():
     fres = phase("flash", flash_phase)
     phase("small", small_phase)
     cfg, params = phase("init", llama3_8b)
-    launches = phase("serve", serve_phase, smi, cfg, params)
+    launches, serve_rates = phase("serve", serve_phase, smi, cfg, params)
     phase("kvmem", kvmem_phase, smi, cfg, params)
+    spec_launches = phase("spec", spec_phase, smi, cfg, params, serve_rates)
     # kvmem's swap watchers tie engines (and through them the weights)
     # in reference cycles: collect them before the train phase measures
     # its peak memory
@@ -1254,7 +1658,13 @@ def main():
         _kernel_entry("paged_attention",
                       "ray_tpu_torch/csrc/paged_attention.cu",
                       "ray_tpu/ops/paged_attention_kernel.py:104",
-                      launches, kres[("bf16", 1)]),
+                      launches, kres[("bf16", 1, D)]),
+        # the speculative path: engine (a)'s launches, the verify pass's
+        # shape (S = 5) timed
+        _kernel_entry("paged_attention (speculative round, S=5 verify)",
+                      "ray_tpu_torch/csrc/paged_attention.cu",
+                      "ray_tpu/ops/paged_attention_kernel.py:104",
+                      spec_launches, kres[("bf16", 5, D)]),
         _kernel_entry("flash_fwd", sm90_src, f"{flash_py}:130",
                       tlaunches["fwd"], main_flash["fwd"]),
         _kernel_entry("flash_bwd_dq", sm90_src, f"{flash_py}:192",

@@ -70,10 +70,20 @@ and solo `generate`; a quantized pool's bytes and scales equal the JAX
 engine's after prefill and decode; sampled output equals the port's own
 solo `generate` under the same per-request seed.
 
+Speculative decoding (``draft_params=``, ``draft_cfg=``,
+``spec_window=``) turns each decode dispatch into ONE batched
+draft-propose / target-verify round (`_spec_loop`): the draft's K/V live
+in a second plane (a dense cache, or a private block pool of the target
+pool's dtype with its own scale slabs), the round writes both planes
+and accepts on the device (`_spec_accept`), and on the card it is a
+CUDA graph per ("spec", W, all-greedy) key whose attention runs on B2
+at S = W+1 query rows (verify) and S = 2 / 1 (draft). Greedy rows emit
+solo greedy `generate`'s tokens whatever the draft proposes; sampled
+rows take one sampled token per round.
+
 Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: speculative decoding (A7b), multi-LoRA (A8), tensor
-parallelism (A9), fleet failover resume (A10) and the runtime sanitizer
-(A14).
+ROADMAP.md item: multi-LoRA (A8), tensor parallelism (A9), fleet
+failover resume (A10) and the runtime sanitizer (A14).
 """
 
 from __future__ import annotations
@@ -100,6 +110,7 @@ from ray_tpu_torch.models.scheduler import (EngineDraining,
                                             EngineOverloaded,
                                             SchedulerPolicy, SubmitTimeout,
                                             make_policy)
+from ray_tpu_torch.models.speculative import SpecMetrics, SpecStats
 from ray_tpu_torch.ops import paged_attention_kernel as pak
 from ray_tpu_torch.ops.attention import paged_attention
 from ray_tpu_torch.ops.kv_quant import (KVQuantSpec, block_scale,
@@ -347,30 +358,32 @@ def _prefix_copy_out(cache, pool_k: torch.Tensor, pool_v: torch.Tensor,
             seg.shape[0], nb, block_tokens, *seg.shape[2:])
 
 
-def _decode_layer_rows(h, layer, k_cache, v_cache, write_slots,
+def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
                        cfg: LlamaConfig, max_len: int, view_bt=None):
-    """One decoder layer, one new token per row, each row writing its
-    K/V at its own slot and attending its own prefix. h: [B, 1, d];
-    caches [B, S, KV, D] (S >= max_len); write_slots: [B].
+    """One decoder layer, S new tokens per row (S=1 in decode, S > 1 in
+    a speculative round), each row writing its K/V at its own slots and
+    attending its own prefix, per query causally. h: [B, S, d]; caches
+    [B, span, KV, D] (span >= max_len); slots: [B, S].
 
-    ``view_bt`` [B, S/T] int32 (the card) runs attention on B2 over the
-    cache viewed as pages of T slots — ``bt[b, p] = b*(S/T) + p``, no
-    copy — with ``kv_valid_len = max_len``; it computes the dense mask
-    exactly (``slot <= q_slot`` and ``slot < max_len``). Without it,
-    the plain `_cached_attention` runs, as in the JAX dense path."""
+    ``view_bt`` [B, span/T] int32 (the card) runs attention on B2 over
+    the cache viewed as pages of T slots — ``bt[b, p] = b*(span/T) +
+    p``, no copy — with ``kv_valid_len = max_len``; it computes the
+    dense mask exactly (``slot <= q_slot`` and ``slot < max_len``).
+    Without it, the plain `_cached_attention` runs, as in the JAX dense
+    path."""
     B = h.shape[0]
-    bidx = torch.arange(B, device=h.device)
-    wl = write_slots.long()
+    bidx = torch.arange(B, device=h.device)[:, None]
+    sl = slots.long()
 
     def write_kv(k_cache, v_cache, k, v):
-        k_cache[bidx, wl] = k[:, 0].to(k_cache.dtype)
-        v_cache[bidx, wl] = v[:, 0].to(v_cache.dtype)
+        k_cache[bidx, sl] = k.to(k_cache.dtype)
+        v_cache[bidx, sl] = v.to(v_cache.dtype)
         return k_cache, v_cache
 
     attend = None
     if view_bt is not None:
         T = k_cache.shape[1] // view_bt.shape[1]
-        q_slots = write_slots.to(torch.int32)[:, None]
+        q_slots = slots.to(torch.int32)
 
         def attend(q, k_cache, v_cache):
             pages = (-1, T) + tuple(k_cache.shape[2:])
@@ -378,9 +391,29 @@ def _decode_layer_rows(h, layer, k_cache, v_cache, write_slots,
                                    v_cache.view(pages), view_bt, q_slots,
                                    kv_valid_len=max_len, impl="kernel")
 
-    h, _, _ = _layer_body(h, layer, k_cache, v_cache, wl[:, None], write_kv,
-                          wl[:, None], max_len, cfg, attend=attend)
+    h, _, _ = _layer_body(h, layer, k_cache, v_cache, sl, write_kv, sl,
+                          max_len, cfg, attend=attend)
     return h
+
+
+def _spec_core(params: Params, toks: torch.Tensor, cache,
+               starts: torch.Tensor, cfg: LlamaConfig, max_len: int,
+               view_bt=None) -> torch.Tensor:
+    """Feed each row's chunk ``toks`` [B, S] at slots ``starts[b] +
+    arange(S)`` of the dense cache (in place); returns the logits [B, S,
+    vocab] f32. Decode is its S=1 case (`_decode_core`); a speculative
+    round's draft steps and target verify are the rest. Dead/frozen rows
+    compute discarded garbage at their own slots, which every mask
+    excludes until the slot's next write."""
+    S = toks.shape[1]
+    slots = starts.long()[:, None] + torch.arange(
+        S, device=toks.device)[None, :]
+    h = params["tok_embed"][toks]
+    for i in range(cfg.n_layers):
+        h = _decode_layer_rows(h, _layer(params, i), cache["k"][i],
+                               cache["v"][i], slots, cfg, max_len, view_bt)
+    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(h, params["lm_head"], cfg)
 
 
 def _decode_core(params: Params, toks: torch.Tensor, cache,
@@ -388,52 +421,48 @@ def _decode_core(params: Params, toks: torch.Tensor, cache,
                  view_bt=None) -> torch.Tensor:
     """One decode step for ALL slots of the dense cache: row b's token
     ``toks[b]`` is written at slot ``row_len[b]`` and attends slots
-    [0, row_len[b]]. Dead/frozen rows compute discarded garbage at their
-    frontier slot, which every mask excludes until the slot's next
-    prefill overwrites it. Returns next-token logits [B, vocab] f32; the
+    [0, row_len[b]]. Returns next-token logits [B, vocab] f32; the
     cache is updated in place."""
-    h = params["tok_embed"][toks[:, None]]
-    for i in range(cfg.n_layers):
-        h = _decode_layer_rows(h, _layer(params, i), cache["k"][i],
-                               cache["v"][i], row_len, cfg, max_len,
-                               view_bt)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg)[:, 0]
+    return _spec_core(params, toks[:, None], cache, row_len, cfg, max_len,
+                      view_bt)[:, 0]
 
 
-def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, write_slots,
+def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, slots,
                              cfg: LlamaConfig, k_scale=None, v_scale=None,
                              qspec: Optional[KVQuantSpec] = None):
-    """One decoder layer, one new token per row, against the pool: row
-    b's new K/V land in physical block ``bt[b, slot // T]`` at offset
-    ``slot % T`` and attention reads back through the block table.
-    Frontier blocks are private to their row (a full-prompt prefix hit
-    copies its tail block at admission), so live rows' writes never
-    collide; retired/empty rows write garbage into the null block.
+    """One decoder layer, S new tokens per row, against the pool: row
+    b's new K/V land in physical blocks ``bt[b, slot // T]`` at offsets
+    ``slot % T`` and its S queries attend back through the block table,
+    per query causally (slots [B, S]). Frontier blocks are private to
+    their row (a full-prompt prefix hit copies its tail block at
+    admission), so live rows' writes never collide; retired/empty rows,
+    and a speculative round's overshoot slots past a row's chain, write
+    garbage into the null block, which no live query attends.
 
     A quantized pool (``qspec`` with this layer's ``k_scale`` /
-    ``v_scale`` [NB, KV]) writes through `paged_quant_write`'s
-    frontier-block read-modify-write and hands B2 the scales, which it
-    applies inside its page loads."""
+    ``v_scale`` [NB, KV]) writes the whole S-wide window through
+    `paged_quant_write`'s read-modify-write (a window may straddle a
+    block boundary) and hands B2 the scales, which it applies inside
+    its page loads."""
     B = h.shape[0]
     T = k_pages.shape[1]
     span = bt.shape[1] * T                 # == engine max_len
-    bidx = torch.arange(B, device=h.device)
-    wl = write_slots.long()
-    q_slots = write_slots.to(torch.int32)[:, None]
+    bidx = torch.arange(B, device=h.device)[:, None]
+    sl = slots.long()
+    q_slots = slots.to(torch.int32)
 
     if qspec is None:
-        blk = bt[bidx, wl // T].long()     # [B] physical frontier block
-        off = wl % T
+        blk = bt[bidx, sl // T].long()     # [B, S] physical blocks
+        off = sl % T
 
         def write_kv(k_pages, v_pages, k, v):
-            k_pages[blk, off] = k[:, 0].to(k_pages.dtype)
-            v_pages[blk, off] = v[:, 0].to(v_pages.dtype)
+            k_pages[blk, off] = k.to(k_pages.dtype)
+            v_pages[blk, off] = v.to(v_pages.dtype)
             return k_pages, v_pages
     else:
         def write_kv(k_pages, v_pages, k, v):
-            paged_quant_write(k_pages, k_scale, bt, wl, k[:, :1], qspec)
-            paged_quant_write(v_pages, v_scale, bt, wl, v[:, :1], qspec)
+            paged_quant_write(k_pages, k_scale, bt, sl[:, 0], k, qspec)
+            paged_quant_write(v_pages, v_scale, bt, sl[:, 0], v, qspec)
             return k_pages, v_pages
 
     def attend(q, k_pages, v_pages):
@@ -441,9 +470,31 @@ def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, write_slots,
                                kv_valid_len=span, k_scale=k_scale,
                                v_scale=v_scale, impl=cfg.attn_impl)
 
-    h, _, _ = _layer_body(h, layer, k_pages, v_pages, wl[:, None],
-                          write_kv, wl[:, None], span, cfg, attend=attend)
+    h, _, _ = _layer_body(h, layer, k_pages, v_pages, sl, write_kv, sl,
+                          span, cfg, attend=attend)
     return h
+
+
+def _spec_core_paged(params: Params, toks: torch.Tensor,
+                     pool_k: torch.Tensor, pool_v: torch.Tensor,
+                     bt: torch.Tensor, starts: torch.Tensor,
+                     cfg: LlamaConfig, scale_k=None, scale_v=None,
+                     qspec: Optional[KVQuantSpec] = None) -> torch.Tensor:
+    """`_spec_core` against the pool (block tables ``bt``): the chunk
+    [B, S] at slots ``starts + arange(S)``, logits [B, S, vocab]; a
+    quantized pool passes its scale slabs [L, NB, KV] too."""
+    S = toks.shape[1]
+    slots = starts.long()[:, None] + torch.arange(
+        S, device=toks.device)[None, :]
+    h = params["tok_embed"][toks]
+    for i in range(cfg.n_layers):
+        scales = ((None, None) if qspec is None
+                  else (scale_k[i], scale_v[i]))
+        h = _decode_layer_rows_paged(h, _layer(params, i), pool_k[i],
+                                     pool_v[i], bt, slots, cfg, *scales,
+                                     qspec=qspec)
+    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(h, params["lm_head"], cfg)
 
 
 def _decode_core_paged(params: Params, toks: torch.Tensor,
@@ -451,17 +502,10 @@ def _decode_core_paged(params: Params, toks: torch.Tensor,
                        bt: torch.Tensor, row_len: torch.Tensor,
                        cfg: LlamaConfig, scale_k=None, scale_v=None,
                        qspec: Optional[KVQuantSpec] = None) -> torch.Tensor:
-    """`_decode_core` against the pool (block tables ``bt``); a
-    quantized pool passes its scale slabs [L, NB, KV] too."""
-    h = params["tok_embed"][toks[:, None]]
-    for i in range(cfg.n_layers):
-        scales = ((None, None) if qspec is None
-                  else (scale_k[i], scale_v[i]))
-        h = _decode_layer_rows_paged(h, _layer(params, i), pool_k[i],
-                                     pool_v[i], bt, row_len, cfg, *scales,
-                                     qspec=qspec)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg)[:, 0]
+    """`_decode_core` against the pool: one token per row at slot
+    ``row_len``, next-token logits [B, vocab]."""
+    return _spec_core_paged(params, toks[:, None], pool_k, pool_v, bt,
+                            row_len, cfg, scale_k, scale_v, qspec)[:, 0]
 
 
 def _decode_loop(step, last_logits, row_len, active, budget, tok_idx,
@@ -540,6 +584,153 @@ def _decode_multi_paged(params: Params, pool_k, pool_v, bt, last_logits,
         bt.shape[1] * pool_k.shape[2])
 
 
+def _spec_accept(chunk, proposals, ver, v_logits, last_logits, row_len,
+                 active, budget, tok_idx, d_tok, row_greedy, w_row,
+                 window: int, eos_id: Optional[int], max_len: int):
+    """Acceptance, correction and freezing of one speculative round on
+    the device, shared by the dense and paged rounds (the batched form
+    of the solo accept loop in `models/speculative.py`; the host never
+    sees logits).
+
+    Per row: the longest prefix of ``proposals`` [B, W] equal to the
+    target's argmax continuation ``ver`` [B, W+1], capped at the row's
+    adaptive width ``w_row`` and forced to 0 on sampled rows (they emit
+    just the t0 they sampled); emit ``[t0, d_1..d_a, correction]`` cut
+    at the first eos, the budget and the room exactly as `_decode_loop`
+    freezes a row, and carry the correction's logits so the next
+    round's t0 is this round's correction. Returns the -1-trailing
+    [W+1, B] int32 emit block and the advanced carry (last_logits,
+    row_len, active, budget, tok_idx, d_lag, d_tok): after a FULLY
+    accepted round the draft has consumed d_1..d_{W-1} and still owes
+    d_W (``d_lag`` 1, pending token ``d_tok``); any rejection leaves it
+    at the emitted history (``d_lag`` 0)."""
+    B = row_len.shape[0]
+    dev = row_len.device
+    bidx = torch.arange(B, device=dev)
+    jW = torch.arange(window, device=dev)
+    match = (proposals == ver[:, :window]) \
+        & (jW[None, :] < w_row[:, None]) & row_greedy[:, None]
+    acc = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    pos = torch.arange(window + 1, device=dev)
+    valid = pos[None, :] <= acc[:, None]
+    if eos_id is not None:
+        # keep the first eos, cut everything after it (mid-window eos)
+        iseos = ((chunk == eos_id) & valid).long()
+        valid = valid & ((torch.cumsum(iseos, dim=1) - iseos) == 0)
+    valid = valid & (pos[None, :] < budget[:, None]) & active[:, None]
+    n = valid.sum(dim=1)
+    emits = torch.where(valid, chunk, -1).T.to(torch.int32)   # [W+1, B]
+
+    budget = budget - n
+    tok_idx = tok_idx + n
+    last = (n - 1).clamp(min=0)
+    done_now = (budget <= 0) | (row_len + n >= max_len)
+    if eos_id is not None:
+        done_now = done_now | ((n >= 1) & (chunk[bidx, last] == eos_id))
+    cont = active & ~done_now
+    row_len = row_len + n * cont
+    last_logits = torch.where(cont[:, None], v_logits[bidx, last],
+                              last_logits)
+    full = cont & (n == window + 1)
+    d_tok = torch.where(full, chunk[:, window], d_tok)
+    d_lag = torch.where(active, full.long(), 0)
+    return emits, last_logits, row_len, cont, budget, tok_idx, d_lag, d_tok
+
+
+def _spec_loop(step, d_step, last_logits, row_len, active, budget, tok_idx,
+               d_lag, d_tok, row_keys, row_greedy, w_row,
+               temperature: float, window: int, greedy: bool,
+               top_k: Optional[int], top_p: Optional[float],
+               eos_id: Optional[int], max_len: int):
+    """ONE batched draft-propose / target-verify round for every row,
+    the speculative replacement of a `_decode_loop` dispatch.
+    ``step(toks [B, S], starts) -> logits [B, S, vocab]`` runs the
+    target over its cache layout, ``d_step`` the draft over its plane:
+
+      t0      = argmax(last_logits)   (sampled rows: their sampled token)
+      draft   consumes the 2-wide chunk [pend, t0] at ``row_len -
+              d_lag`` (pend = d_tok when the last round was fully
+              accepted, else t0, whose duplicate K/V the first proposal
+              overwrites), then W-1 greedy steps at ``row_len + 1 + j``
+      verify  ONE target pass over [t0, d_1..d_W] at ``row_len``
+      accept  `_spec_accept`
+
+    Stale K/V of rejected candidates lies exactly where the next
+    round's writes land first, so nothing is rolled back. Emitted tokens
+    are always the target's own argmax chain: a stale or cold draft
+    plane only lowers acceptance. Returns `_spec_accept`'s emit block
+    and carry."""
+    B = row_len.shape[0]
+    bidx = torch.arange(B, device=row_len.device)
+    t0 = torch.argmax(last_logits, dim=-1)
+    if not greedy:
+        t0 = torch.where(row_greedy, t0,
+                         sample_rows(last_logits, row_keys, tok_idx,
+                                     greedy=False, temperature=temperature,
+                                     top_k=top_k, top_p=top_p))
+    pend = torch.where(d_lag == 1, d_tok, t0)
+    d_logits = d_step(torch.stack([pend, t0], dim=1), row_len - d_lag)
+    props = [torch.argmax(d_logits[bidx, d_lag], dim=-1)]
+    for j in range(window - 1):
+        lg = d_step(props[-1][:, None], row_len + 1 + j)
+        props.append(torch.argmax(lg[:, 0], dim=-1))
+    proposals = torch.stack(props, dim=1)                   # [B, W]
+    chunk = torch.cat([t0[:, None], proposals], dim=1)      # [B, W+1]
+    v_logits = step(chunk, row_len)
+    return _spec_accept(chunk, proposals, torch.argmax(v_logits, dim=-1),
+                        v_logits, last_logits, row_len, active, budget,
+                        tok_idx, d_tok, row_greedy, w_row, window, eos_id,
+                        max_len)
+
+
+@torch.no_grad()
+def _spec_round(params: Params, d_params: Params, cache, d_cache,
+                last_logits, row_len, active, budget, tok_idx, d_lag, d_tok,
+                row_keys, row_greedy, w_row, temperature: float,
+                cfg: LlamaConfig, d_cfg: LlamaConfig, window: int,
+                greedy: bool, top_k: Optional[int], top_p: Optional[float],
+                eos_id: Optional[int], *, max_len: int, view_bt=None):
+    """The dense speculative round (`_spec_loop` over `_spec_core` on
+    the target cache and the draft cache). ``view_bt`` (the card) runs
+    both planes' attention on B2 over block-table views; both caches
+    have the same row span, so one view serves both."""
+    return _spec_loop(
+        lambda t, st: _spec_core(params, t, cache, st, cfg, max_len,
+                                 view_bt),
+        lambda t, st: _spec_core(d_params, t, d_cache, st, d_cfg, max_len,
+                                 view_bt),
+        last_logits, row_len, active, budget, tok_idx, d_lag, d_tok,
+        row_keys, row_greedy, w_row, temperature, window, greedy, top_k,
+        top_p, eos_id, max_len)
+
+
+@torch.no_grad()
+def _spec_round_paged(params: Params, d_params: Params, pool_k, pool_v,
+                      pool_dk, pool_dv, bt, bt_d, last_logits, row_len,
+                      active, budget, tok_idx, d_lag, d_tok, row_keys,
+                      row_greedy, w_row, temperature: float,
+                      cfg: LlamaConfig, d_cfg: LlamaConfig, window: int,
+                      greedy: bool, top_k: Optional[int],
+                      top_p: Optional[float], eos_id: Optional[int], *,
+                      scale_k=None, scale_v=None, scale_dk=None,
+                      scale_dv=None, qspec: Optional[KVQuantSpec] = None):
+    """The speculative round over the block pools: the target through
+    ``bt``, the draft through its private table ``bt_d`` (draft blocks
+    are never shared: the trie indexes only the target pool). With
+    ``qspec`` BOTH planes are quantized, each with its own scale slabs;
+    `paged_quant_write` zeroes a rejected window's stale slots out of
+    the next overlapping write's absmax."""
+    return _spec_loop(
+        lambda t, st: _spec_core_paged(params, t, pool_k, pool_v, bt, st,
+                                       cfg, scale_k, scale_v, qspec),
+        lambda t, st: _spec_core_paged(d_params, t, pool_dk, pool_dv, bt_d,
+                                       st, d_cfg, scale_dk, scale_dv,
+                                       qspec),
+        last_logits, row_len, active, budget, tok_idx, d_lag, d_tok,
+        row_keys, row_greedy, w_row, temperature, window, greedy, top_k,
+        top_p, eos_id, bt.shape[1] * pool_k.shape[2])
+
+
 @torch.no_grad()
 def _cow_blocks(tensors: List[torch.Tensor], src: torch.Tensor,
                 dst: torch.Tensor) -> None:
@@ -582,7 +773,9 @@ def _swap_in_scatter(tensors: List[torch.Tensor], host,
 class _DecodeGraphs:
     """The decode loop on the card as CUDA graphs: one per (H,
     all-greedy) key of one engine (so one cache layout), all in one
-    memory pool; at most 2 x (log2(decode_horizon) + 1) graphs.
+    memory pool; at most 2 x (log2(decode_horizon) + 1) graphs, and a
+    speculative engine's rounds one per ("spec", W, all-greedy) key
+    besides (at most 2 x (log2(spec_window) + 1) more).
 
     A key's FIRST dispatch runs eagerly on a side stream, which is
     torch's warm-up before capture (it builds B2 and sets up cuBLAS for
@@ -717,19 +910,27 @@ class _SwapState:
 
 class _InflightStep:
     """One dispatched, not yet drained decode step: its token block on
-    its way to the host (`_HostBlock`), its horizon, the rows it was
-    dispatched for, and whether it ran AHEAD (dispatched before the host
-    had replayed the previous block) — only those can hold overrun
-    iterations for rows that had already finished."""
+    its way to the host (`_HostBlock`), its horizon (a speculative
+    round's W+1), the rows it was dispatched for, and whether it ran
+    AHEAD (dispatched before the host had replayed the previous block)
+    — only those can hold overrun iterations for rows that had already
+    finished. A speculative round also keeps its width ``w_max`` and
+    per-row caps ``w_row``: a chained round reuses them, and the drain
+    accounts each row's proposals with them."""
 
-    __slots__ = ("toks", "H", "rows", "run_ahead")
+    __slots__ = ("toks", "H", "rows", "run_ahead", "spec", "w_max",
+                 "w_row")
 
     def __init__(self, toks: _HostBlock, H: int, rows: List[int],
-                 run_ahead: bool):
+                 run_ahead: bool, spec: bool = False, w_max: int = 0,
+                 w_row: Optional[np.ndarray] = None):
         self.toks = toks
         self.H = H
         self.rows = rows
         self.run_ahead = run_ahead
+        self.spec = spec
+        self.w_max = w_max
+        self.w_row = w_row
 
 
 class DecodeEngine:
@@ -841,7 +1042,15 @@ class DecodeEngine:
                 "kv_quant requires paged=True: quantization scales are "
                 "per-block slabs of the paged KV pool")
         if draft_params is not None:
-            raise _unported("speculative decoding (draft_params=)", "A7b")
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: speculative decoding needs a "
+                    "shared tokenizer")
+            if spec_window < 1:
+                raise ValueError("spec_window must be >= 1")
         if lora is not None:
             raise _unported("multi-LoRA serving (lora=)", "A8")
         if mesh is not None or tp is not None:
@@ -935,19 +1144,49 @@ class DecodeEngine:
             if attach is not None:
                 attach(self._prefix_probe)
         self.prefill_chunk = prefill_chunk
-        # The decode loop's inputs on the device, one int64 buffer: row
-        # state [4, B] (row_len, active, budget, tok_idx; the loop
-        # writes it back, so a run-ahead dispatch chains off it), row
-        # keys [B, 2], the greedy lane [B] and, paged, the block tables
-        # [B, MB]. A dispatch stages its host half in ONE copy.
-        Bn = self.B
-        n_in = 7 * Bn + (Bn * self._mb if paged else 0)
-        self._din = torch.zeros((n_in,), dtype=torch.int64,
-                                device=self.device)
+        # The speculative plane (`_init_draft_plane`): the draft's K/V
+        # beside the target's, and its accounting (all 0 with spec off).
+        self.spec_enabled = draft_params is not None
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_window = spec_window
+        self.spec_dispatches = 0       # speculative rounds launched
+        self.spec_dispatches_by_window: Dict[int, int] = {}   # W -> n
+        self.spec_rounds = 0           # per-row rounds replayed
+        self.spec_proposed = 0         # draft tokens proposed (w_row)
+        self.spec_accepted = 0         # draft tokens emitted
+        self.spec_wasted = 0           # proposed but rejected
+        self.spec_prefill_dispatches = 0   # draft-plane seedings
+        self.spec_metrics: Optional[SpecMetrics] = None
+        if self.spec_enabled:
+            self._init_draft_plane(enable_metrics)
+        # The decode loop's inputs on the device, one int64 buffer, in
+        # order: the chained row state (row_len, active, budget,
+        # tok_idx, then a speculative engine's draft lanes d_lag and
+        # d_tok; a dispatch writes it back, so a run-ahead dispatch
+        # chains off it), row keys [B, 2], the greedy lane [B], a
+        # speculative round's per-row widths w_row [B] and, paged, the
+        # block tables [B, MB] (and the draft's). A dispatch stages its
+        # host part in ONE copy.
+        Bn, spec = self.B, self.spec_enabled
+        n_state = (6 if spec else 4) * Bn
+        self._n_chain = n_state + 2 * Bn   # what a run-ahead keeps
+        mb = self._mb if paged else 0
+        lanes = 2 if spec else 1
+        self._din = torch.zeros((self._n_chain + lanes * Bn * (1 + mb),),
+                                dtype=torch.int64, device=self.device)
         self._d_state = self._din[:4 * Bn].view(4, Bn)
-        self._d_keys = self._din[4 * Bn:6 * Bn].view(Bn, 2)
-        self._d_greedy = self._din[6 * Bn:7 * Bn]
-        self._d_bt = self._din[7 * Bn:].view(Bn, -1) if paged else None
+        self._d_spec = self._din[4 * Bn:n_state].view(2, Bn) if spec \
+            else None
+        self._d_keys = self._din[n_state:self._n_chain].view(Bn, 2)
+        o = self._n_chain
+        self._d_greedy = self._din[o:o + Bn]
+        self._d_wrow = self._din[o + Bn:o + 2 * Bn] if spec else None
+        o += lanes * Bn
+        self._d_bt = self._din[o:o + Bn * mb].view(Bn, mb) if paged \
+            else None
+        self._d_bt_d = self._din[o + Bn * mb:].view(Bn, mb) \
+            if paged and spec else None
         self._graphs = (_DecodeGraphs(self.device)
                         if self.device.type == "cuda" else None)
         self.row_len = np.zeros((self.B,), np.int32)   # written slots
@@ -1053,6 +1292,59 @@ class DecodeEngine:
                 block_tokens=T, n_blocks=n_blocks,
                 on_evict=self._on_prefix_evict, pool=self.kv_pool)
 
+    def _init_draft_plane(self, enable_metrics: bool) -> None:
+        """The speculative plane: the DRAFT model's K/V in a dense cache
+        of the target's row span, or (paged) in a private block pool and
+        table — draft blocks are never shared or in the trie, and the
+        pool holds a full row for every slot, so it never runs dry — of
+        the target pool's dtype (a quantized pool's draft plane has its
+        own scale slabs). Host lanes mirror the device's draft-lag carry
+        and keep each row's acceptance over its last 16 rounds for the
+        adaptive window."""
+        dcfg = self.draft_cfg
+        if dcfg.max_seq_len < self.max_len:
+            raise ValueError(f"draft max_seq_len {dcfg.max_seq_len} < "
+                             f"engine max_len {self.max_len}")
+        if self.draft_params["tok_embed"].device != self.device:
+            raise ValueError(
+                f"draft params on {self.draft_params['tok_embed'].device},"
+                f" target params on {self.device}")
+        B = self.B
+        self._d_lag = np.zeros((B,), np.int64)
+        self._d_tok = np.zeros((B,), np.int64)
+        self._spec_hist: List[collections.deque] = [
+            collections.deque(maxlen=16) for _ in range(B)]
+        # the draft prefill's logits: written, never read
+        self._d_last_logits = torch.zeros((B, dcfg.vocab_size),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        L, KV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
+        self._scale_dk = self._scale_dv = None
+        self._d_cache = None
+        self.kv_pool_d = None
+        if not self.paged:
+            self._d_cache = init_cache(dcfg, B, self.cache["k"].shape[2],
+                                       device=self.device)
+        else:
+            n_blocks = 1 + B * self._mb
+            self.kv_pool_d = BlockPool(n_blocks, label="draft_kv")
+            self._bt_d = np.zeros((B, self._mb), np.int32)
+            self._row_blocks_d: List[List[int]] = [[] for _ in range(B)]
+            qspec = self.kv_quant_spec
+            self._pool_dk = torch.zeros(
+                (L, n_blocks, self.kv_block_tokens, KV, D),
+                dtype=dcfg.dtype if qspec is None else qspec.dtype,
+                device=self.device)
+            self._pool_dv = torch.zeros_like(self._pool_dk)
+            if qspec is not None:
+                self._scale_dk = torch.zeros((L, n_blocks, KV),
+                                             dtype=torch.float32,
+                                             device=self.device)
+                self._scale_dv = torch.zeros_like(self._scale_dk)
+        if enable_metrics:
+            # the llm_spec_* series carry the engine's id
+            self.spec_metrics = SpecMetrics(spec_id=self.engine_id)
+
     def _pool_tensors(self) -> List[torch.Tensor]:
         """The paged pool's device tensors that blocks index: pages K
         and V, then a quantized pool's scale slabs."""
@@ -1096,6 +1388,14 @@ class DecodeEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds engine max_len "
                 f"{self.max_len}")
+        if (self.spec_enabled and len(prompt) + max_new_tokens
+                + self.spec_window > self.max_len):
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) + spec_window ({self.spec_window}) "
+                f"exceeds engine max_len {self.max_len}: the verify chunk "
+                "writes up to spec_window slots past the last emitted "
+                "token, so speculative engines need that margin")
         if self.paged:
             # A request must fit the pool alone in the worst case (every
             # other row preempted) or it could never complete.
@@ -1265,8 +1565,28 @@ class DecodeEngine:
     def _dispatch_primary(self, decodable: List[int], live: List[int],
                           horizon: Optional[int]) -> List[int]:
         """Launch the step's PRIMARY dispatch (ring empty, host state
-        fully replayed) at the adaptive horizon. Returns the possibly
-        narrowed decodable set (paged reservation may preempt)."""
+        fully replayed): a speculative draft/verify round when the
+        engine has a draft plane and a decodable greedy row with budget
+        to speculate into, else the plain loop at the adaptive horizon.
+        A step with a row mid-chunked-prefill always decodes plainly at
+        H=1: the chunk cadence outranks speculation depth. Returns the
+        possibly narrowed decodable set (paged reservation may
+        preempt)."""
+        if self.spec_enabled and len(decodable) == len(live):
+            W, w_row = self._spec_plan(decodable)
+            if W:
+                if self.paged:
+                    decodable, Hr = self._reserve_decode_blocks(decodable,
+                                                                W + 1)
+                    if Hr < W + 1:
+                        # The pool cannot cover the verify chunk even
+                        # after preemption: decode plainly at the
+                        # horizon the reservation holds.
+                        self._dispatch_decode(Hr, decodable,
+                                              run_ahead=False)
+                        return decodable
+                self._dispatch_spec(W, w_row, decodable, run_ahead=False)
+                return decodable
         H = horizon
         if H is None:
             H = self.scheduler.horizon_hint(
@@ -1285,30 +1605,45 @@ class DecodeEngine:
         self._dispatch_decode(H, decodable, run_ahead=False)
         return decodable
 
-    def _stage_inputs(self, run_ahead: bool) -> None:
-        """Copy the host inputs of a decode dispatch into `_din` in one
-        copy: the row state and keys for a primary dispatch, then the
-        greedy lane and (paged) the block tables, snapshotted here, so
+    def _stage_inputs(self, run_ahead: bool,
+                      w_row: Optional[np.ndarray] = None) -> None:
+        """Copy the host inputs of a dispatch into `_din` in one copy:
+        the row state (with a speculative engine's draft lanes) and keys
+        for a primary dispatch, then the greedy lane, a speculative
+        round's widths ``w_row`` (1s for a plain dispatch, which reads
+        none) and (paged) the block tables, snapshotted here, so
         host-side growth only reaches later dispatches. A run-ahead
-        dispatch keeps the row state the previous loop left on the
+        dispatch keeps the row state the previous dispatch left on the
         device. On the card the staging buffer is pinned and the copy
         does not block; the caching host allocator keeps the buffer
         from reuse until the copy has run."""
         B = self.B
-        lo = 6 * B if run_ahead else 0
+        lo = self._n_chain if run_ahead else 0
+        parts: List[Any] = []
+        if not run_ahead:
+            parts += [self.row_len,
+                      [r is not None and b not in self._row_prefill
+                       for b, r in enumerate(self.row_req)],
+                      self.row_budget, self._tok_idx]
+            if self.spec_enabled:
+                parts += [self._d_lag, self._d_tok]
+            parts.append(self._row_keys)
+        parts.append(self._row_greedy)
+        if self.spec_enabled:
+            parts.append(np.ones((B,), np.int64) if w_row is None
+                         else w_row)
+        if self.paged:
+            parts.append(self._bt)
+            if self.spec_enabled:
+                parts.append(self._bt_d)
         buf = torch.empty((self._din.numel() - lo,), dtype=torch.int64,
                           pin_memory=self.device.type == "cuda")
         a = buf.numpy()
-        if not run_ahead:
-            a[0:B] = self.row_len
-            a[B:2 * B] = [r is not None and b not in self._row_prefill
-                          for b, r in enumerate(self.row_req)]
-            a[2 * B:3 * B] = self.row_budget
-            a[3 * B:4 * B] = self._tok_idx
-            a[4 * B:6 * B] = self._row_keys.reshape(-1)
-        a[6 * B - lo:7 * B - lo] = self._row_greedy
-        if self.paged:
-            a[7 * B - lo:] = self._bt.reshape(-1)
+        o = 0
+        for x in parts:
+            x = np.asarray(x).reshape(-1)
+            a[o:o + x.size] = x
+            o += x.size
         self._din[lo:].copy_(buf, non_blocking=True)
 
     def _decode_body(self, H: int, greedy: bool) -> torch.Tensor:
@@ -1337,6 +1672,99 @@ class DecodeEngine:
         st.copy_(torch.stack([row_len, active.to(st.dtype), budget,
                               tok_idx]))
         return toks
+
+    def _spec_body(self, W: int, greedy: bool) -> torch.Tensor:
+        """One speculative round over the persistent device buffers
+        (both planes, `_last_logits`, the row state, the draft lanes,
+        keys, greedy lane, widths and block tables), writing the carry
+        back in place; returns the [W+1, B] emit block. Runs eagerly on
+        the CPU and is captured as a CUDA graph on the card."""
+        st, dl = self._d_state, self._d_spec
+        args = (self._last_logits, st[0], st[1] != 0, st[2], st[3], dl[0],
+                dl[1], self._d_keys, self._d_greedy != 0, self._d_wrow,
+                self.temperature, self.cfg, self.draft_cfg, W, greedy,
+                self.top_k, self.top_p, self.eos_id)
+        if self.paged:
+            out = _spec_round_paged(
+                self.params, self.draft_params, self._pool_k, self._pool_v,
+                self._pool_dk, self._pool_dv, self._d_bt.to(torch.int32),
+                self._d_bt_d.to(torch.int32), *args, scale_k=self._scale_k,
+                scale_v=self._scale_v, scale_dk=self._scale_dk,
+                scale_dv=self._scale_dv, qspec=self.kv_quant_spec)
+        else:
+            out = _spec_round(self.params, self.draft_params, self.cache,
+                              self._d_cache, *args, max_len=self.max_len,
+                              view_bt=self._view_bt)
+        emits, last_logits, row_len, active, budget, tok_idx, d_lag, \
+            d_tok = out
+        self._last_logits.copy_(last_logits)
+        st.copy_(torch.stack([row_len, active.to(st.dtype), budget,
+                              tok_idx]))
+        dl.copy_(torch.stack([d_lag, d_tok]))
+        return emits
+
+    def _spec_plan(self, decodable: List[int]
+                   ) -> Tuple[int, Optional[np.ndarray]]:
+        """This dispatch's draft width. Each greedy decodable row's
+        acceptance over its last 16 rounds feeds
+        `SchedulerPolicy.spec_window_hint`; the dispatch width W is the
+        largest hint rounded UP to a power of two (a bounded number of
+        graphs, as with the horizon) and capped at `spec_window`, and
+        each row keeps its own hint as its acceptance cap ``w_row``, so
+        a narrowing row changes no graph. (0, None) declines: no
+        decodable greedy row, or every greedy row down to its last
+        budgeted token (a plain step emits that one token for less)."""
+        greedy_rows = [b for b in decodable if self._row_greedy[b]]
+        if not greedy_rows:
+            return 0, None
+        if int(self.row_budget[greedy_rows].max()) <= 1:
+            return 0, None
+        rates: List[Optional[float]] = []
+        for b in greedy_rows:
+            prop = sum(p for p, _ in self._spec_hist[b])
+            acc = sum(a for _, a in self._spec_hist[b])
+            rates.append(acc / prop if prop else None)
+        hints = self.scheduler.spec_window_hint(
+            rates=rates, spec_window=self.spec_window)
+        w_row = np.ones((self.B,), np.int64)
+        wmax = 1
+        for b, w in zip(greedy_rows, hints):
+            w = max(1, min(int(w), self.spec_window))
+            w_row[b] = w
+            wmax = max(wmax, w)
+        return min(self.spec_window, _pow2(wmax)), w_row
+
+    def _dispatch_spec(self, W: int, w_row: np.ndarray, rows: List[int],
+                       run_ahead: bool) -> None:
+        """Launch ONE speculative round, the twin of `_dispatch_decode`
+        with the same async contract: the emit block's copy to the host
+        starts at once, the carry (the draft lanes with it) stays on the
+        device for a chained round, and the host pulls the block once,
+        at drain. The ring entry's H is W+1, the block's height and the
+        pessimistic count of tokens in flight."""
+        tr = self.trace
+        t0 = tr.now() if tr.enabled else 0.0
+        self._stage_inputs(run_ahead, w_row)
+        all_greedy = bool(self._row_greedy.all())
+        body = functools.partial(self._spec_body, W, all_greedy)
+        if self._graphs is None:
+            toks = body()
+        else:
+            toks = self._graphs.run(("spec", W, all_greedy), body)
+        self._ring.append(_InflightStep(
+            _host_async(toks), W + 1, list(rows), run_ahead, spec=True,
+            w_max=W, w_row=np.array(w_row, np.int64)))
+        self.decode_dispatches += 1
+        self.spec_dispatches += 1
+        self.spec_dispatches_by_window[W] = \
+            self.spec_dispatches_by_window.get(W, 0) + 1
+        self.metrics.on_dispatch(W + 1, host_syncs=0)
+        if tr.enabled:
+            # the round's acceptance is known only at drain, where its
+            # spec_verify span lands
+            tr.add("spec_draft", t0, tr.now() - t0, lane="dispatch",
+                   args={"window": W, "proposed": int(w_row[rows].sum()),
+                         "rows": len(rows), "run_ahead": run_ahead})
 
     def _dispatch_decode(self, H: int, rows: List[int],
                          run_ahead: bool) -> None:
@@ -1377,10 +1805,21 @@ class DecodeEngine:
                 or self.scheduler.admissions_pending()):
             return
         while len(self._ring) < self.pipeline_depth:
+            last = self._ring[-1]
             inflight = sum(e.H for e in self._ring)
             rem = int(self.row_budget[rows].max()) - inflight
             if rem <= 0:
                 break              # every further iteration would overrun
+            if last.spec:
+                # Chain another round at the SAME widths: the adaptive
+                # window moves only once the host has replayed
+                # acceptance, and unchanged widths replay the same graph.
+                if self.paged and not self._ensure_decode_blocks(
+                        rows, last.w_max + 1, inflight):
+                    break
+                self._dispatch_spec(last.w_max, last.w_row, rows,
+                                    run_ahead=True)
+                continue
             if horizon is not None:
                 Hn = horizon
             else:
@@ -1412,8 +1851,18 @@ class DecodeEngine:
         self.host_syncs += 1
         self.host_transfer_bytes += block.nbytes
         self.metrics.on_host_sync(nbytes=block.nbytes)
-        self._emit_block(block, entry, emitted)
+        rounds, proposed, accepted = self._emit_block(block, entry,
+                                                      emitted)
         self.metrics.on_pipeline_drain(depth, len(self._ring))
+        if entry.spec and rounds:
+            self.metrics.on_spec_round(rounds, proposed, accepted)
+            if self.spec_metrics is not None:
+                self.spec_metrics.observe(SpecStats(
+                    rounds=rounds, proposed=proposed, accepted=accepted))
+        if entry.spec and tr.enabled:
+            tr.add("spec_verify", t0, tr.now() - t0, lane="drain",
+                   args={"window": entry.w_max, "rounds": rounds,
+                         "proposed": proposed, "accepted": accepted})
         if tr.enabled:
             tr.add("host_drain", t0, tr.now() - t0, lane="drain",
                    args={"horizon": entry.H, "depth": depth,
@@ -1525,7 +1974,11 @@ class DecodeEngine:
         evictions, dense copies), ``kv_blocks_shared`` /
         ``kv_block_cows``, ``swap_*`` (swap-outs, bytes each way),
         ``chunked_prefill_stalls``, ``pending_prefill_tokens`` and
-        ``kv_quant_enabled``; zero where a feature is off."""
+        ``kv_quant_enabled``. The speculative plane: ``spec_*``
+        (dispatches, per-row rounds, proposed / accepted / wasted draft
+        tokens, the lifetime acceptance rate, ``window_effective`` =
+        proposed / rounds, draft seedings). Every key is published, 0
+        where its feature is off."""
         def _ratio(num: float, den: float) -> float:
             return num / den if den else 0.0
 
@@ -1604,6 +2057,24 @@ class DecodeEngine:
         if self._prefix is not None:
             out["prefix_blocks_in_use"] = float(self._prefix.blocks_in_use)
             out["prefix_blocks_total"] = float(self._prefix.blocks_total)
+        out.update({
+            "spec_enabled": 1.0 if self.spec_enabled else 0.0,
+            "spec_window": float(self.spec_window if self.spec_enabled
+                                 else 0),
+            "spec_dispatches": float(self.spec_dispatches),
+            "spec_rounds": float(self.spec_rounds),
+            "spec_proposed": float(self.spec_proposed),
+            "spec_accepted": float(self.spec_accepted),
+            "spec_acceptance_rate": _ratio(self.spec_accepted,
+                                           self.spec_proposed),
+            "spec_window_effective": _ratio(self.spec_proposed,
+                                            self.spec_rounds),
+            "spec_draft_tokens_wasted": float(self.spec_wasted),
+            "spec_prefill_dispatches": float(self.spec_prefill_dispatches),
+        })
+        if self.spec_enabled and self.paged:
+            out["spec_kv_pool_blocks_in_use"] = float(
+                self.kv_pool_d.blocks_in_use)
         return out
 
     # -- internals ---------------------------------------------------------
@@ -1663,6 +2134,7 @@ class DecodeEngine:
             self._admit_rows_paged(admissions)
             return
         copy_groups: Dict[int, List[Tuple[int, List[int]]]] = {}
+        draft_seeds: List[Tuple[int, List[int]]] = []
         T = self.prefix_block
         for row, req in admissions:
             self.metrics.on_admit(req.req_id)
@@ -1694,6 +2166,9 @@ class DecodeEngine:
                         {"hit": bool(ids), "matched_tokens": start})
             self._bind_row(row, req, [], start)
             self._row_prefill[row] = _PrefillState(req, start, nodes)
+            # the draft plane has no prefix cache: it is seeded with the
+            # FULL prompt, even after a warm target admission
+            draft_seeds.append((row, req.prompt))
         for nbp in sorted(copy_groups):
             grp = copy_groups[nbp]
             n = len(grp)
@@ -1707,6 +2182,7 @@ class DecodeEngine:
             _prefix_copy_in(self.cache, self._pool_k, self._pool_v,
                             self._dev(bids), self._dev(rows), T)
             self.prefix_copy_dispatches += 1
+        self._seed_draft_rows(draft_seeds)
 
     def _admit_rows_paged(
             self, admissions: List[Tuple[int, _Request]]) -> None:
@@ -1722,6 +2198,7 @@ class DecodeEngine:
         through `_swap_in_row` instead."""
         T = self.prefix_block
         cow_pairs: List[Tuple[int, int]] = []
+        draft_seeds: List[Tuple[int, List[int]]] = []
         for row, req in admissions:
             self.metrics.on_admit(req.req_id)
             swap = self._swapped.pop(req.req_id, None)
@@ -1730,6 +2207,11 @@ class DecodeEngine:
                     # The gate's estimate went stale: requeue.
                     self._swapped[req.req_id] = swap
                     self._requeue_front(req)
+                else:
+                    # The swap never carries the draft plane: re-seed it
+                    # from prompt + emitted, the sequence the target's
+                    # restored K/V holds.
+                    draft_seeds.append((row, req.prompt + req.tokens))
                 continue
             if self.trace.enabled:
                 self.trace.close("queue_wait", req.req_id)
@@ -1782,6 +2264,7 @@ class DecodeEngine:
                 nodes = self._prefix.register(req.prompt, chain)
             self._bind_row(row, req, chain, start)
             self._row_prefill[row] = _PrefillState(req, start, nodes)
+            draft_seeds.append((row, req.prompt))
         if cow_pairs:
             n_pad = _pow2(len(cow_pairs))
             src = np.zeros((n_pad,), np.int64)   # pad = null block:
@@ -1791,6 +2274,62 @@ class DecodeEngine:
                 dst[i] = b
             _cow_blocks(self._pool_tensors(), self._dev(src),
                         self._dev(dst))
+        self._seed_draft_rows(draft_seeds)
+
+    def _seed_draft_rows(self, seeds: List[Tuple[int, List[int]]]) -> None:
+        """Seed the DRAFT plane of freshly (re)bound rows: one
+        full-sequence draft prefill per length bucket, in the admission
+        step (the draft is cheap; the target's chunked prefill still
+        paces TTFT), in place, padded to a power of two rows by
+        repeating the last. Each seeded row's draft lanes and acceptance
+        history restart. A draft chain that cannot be allocated skips
+        the seed: a cold draft only lowers acceptance, never the tokens.
+        A no-op without a draft plane."""
+        if not self.spec_enabled or not seeds:
+            return
+        T = self.prefix_block
+        groups: Dict[int, List[Tuple[int, List[int]]]] = {}
+        for row, toks in seeds:
+            self._d_lag[row] = 0
+            self._d_tok[row] = 0
+            self._spec_hist[row].clear()
+            if self.paged and not self._ensure_draft_blocks(
+                    row, -(-len(toks) // T)):
+                continue
+            Cb = min(self._bucket(len(toks)), self.max_len)
+            groups.setdefault(Cb, []).append((row, toks))
+        for Cb in sorted(groups):
+            grp = groups[Cb]
+            n = len(grp)
+            t0 = self.trace.now() if self.trace.enabled else 0.0
+            n_pad = _pow2(n)
+            prompts = np.zeros((n_pad, Cb), np.int64)
+            rows = np.zeros((n_pad,), np.int64)
+            last_idx = np.zeros((n_pad,), np.int64)
+            for i, (row, toks) in enumerate(grp):
+                prompts[i, :len(toks)] = toks
+                rows[i] = row
+                last_idx[i] = len(toks) - 1
+            prompts[n:] = prompts[n - 1]    # filler: repeat the last row,
+            rows[n:] = rows[n - 1]          # whose duplicate scatters
+            last_idx[n:] = last_idx[n - 1]  # write identical values
+            args = (self._dev(rows), self._dev(np.zeros_like(rows)),
+                    self._dev(last_idx), self.draft_cfg)
+            if self.paged:
+                _prefill_rows_paged(
+                    self.draft_params, self._dev(prompts), self._pool_dk,
+                    self._pool_dv, self._d_last_logits,
+                    self._dev(self._bt_d[rows]), *args,
+                    scale_k=self._scale_dk, scale_v=self._scale_dv,
+                    qspec=self.kv_quant_spec)
+            else:
+                _prefill_rows(self.draft_params, self._dev(prompts),
+                              self._d_cache, self._d_last_logits, *args)
+            self.spec_prefill_dispatches += 1
+            if self.trace.enabled:
+                self.trace.add("spec_draft_prefill", t0,
+                               self.trace.now() - t0, lane="dispatch",
+                               args={"bucket": Cb, "rows": n})
 
     def _bind_row(self, row: int, req: _Request, chain: List[int],
                   start: int) -> None:
@@ -1850,6 +2389,26 @@ class DecodeEngine:
                     return False
                 self._row_blocks[b].extend(got)
                 self._bt[b, have:have + len(got)] = got
+            if self.spec_enabled and not self._ensure_draft_blocks(b, nb):
+                return False
+        return True
+
+    def _ensure_draft_blocks(self, b: int, nb: int) -> bool:
+        """Grow row ``b``'s DRAFT chain to ``nb`` blocks. The draft pool
+        holds a full chain for every slot, so this cannot fail for live
+        rows; False is returned defensively (callers treat it as a dry
+        target pool). Coverage is for acceptance, not correctness: a
+        draft write past the chain lands in the null block, which no
+        live query attends, and a garbage draft only lowers
+        acceptance."""
+        have = len(self._row_blocks_d[b])
+        if nb <= have:
+            return True
+        got = self.kv_pool_d.alloc(nb - have)
+        if got is None:
+            return False
+        self._row_blocks_d[b].extend(got)
+        self._bt_d[b, have:have + len(got)] = got
         return True
 
     def _reserve_decode_blocks(self, decodable: List[int],
@@ -1982,6 +2541,14 @@ class DecodeEngine:
             self.kv_pool.decref(ids)
         self._row_blocks[row] = []
         self._bt[row, :] = 0
+        if self.spec_enabled:
+            # draft chains are private: decref frees them, and the plane
+            # is seeded anew at (re-)admission
+            d_ids = self._row_blocks_d[row]
+            if d_ids:
+                self.kv_pool_d.decref(d_ids)
+            self._row_blocks_d[row] = []
+            self._bt_d[row, :] = 0
 
     def _fits_now(self, req: _Request) -> bool:
         """Admission gate: would this request's NEW blocks fit the pool
@@ -2129,7 +2696,7 @@ class DecodeEngine:
                 self._prefix.commit(node)
 
     def _emit_block(self, block: np.ndarray, entry: _InflightStep,
-                    emitted: Dict[int, List[int]]) -> None:
+                    emitted: Dict[int, List[int]]) -> Tuple[int, int, int]:
         """Host replay of one [H, B] token block, mirroring
         `_decode_loop`'s per-iteration transition. Each column is a
         prefix of real tokens followed by -1s (a row freezes once and
@@ -2142,8 +2709,17 @@ class DecodeEngine:
         Rows found already retired only occur in run-ahead blocks
         dispatched before the host replayed the retiring block; their
         columns are all-masked on the device and accounted as
-        `pipeline_overrun_tokens`."""
+        `pipeline_overrun_tokens`.
+
+        A speculative round's [W+1, B] block replays the same way, and
+        returns (rounds, proposed, accepted) for `_drain_one` (all 0 for
+        a plain block): each live greedy row is one round that proposed
+        ``w_row[b]`` draft tokens, of which ``count - 1`` were accepted
+        (the verify pass's own token is free). The host draft lanes
+        mirror the device's: a fully emitted round leaves its last token
+        owed to the draft (lag 1), any other leaves none (lag 0)."""
         tr = self.trace
+        rounds = proposed = accepted = 0
         for b in entry.rows:
             req = self.row_req[b]
             if req is None:
@@ -2163,6 +2739,16 @@ class DecodeEngine:
                 tr.span_since_mark("decode_block", req.req_id,
                                    {"tokens": count, "horizon": entry.H,
                                     "batch": len(entry.rows)})
+            if entry.spec and self._row_greedy[b]:
+                prop_b, acc_b = int(entry.w_row[b]), count - 1
+                rounds += 1
+                proposed += prop_b
+                accepted += acc_b
+                self.spec_rounds += 1
+                self.spec_proposed += prop_b
+                self.spec_accepted += acc_b
+                self.spec_wasted += prop_b - acc_b
+                self._spec_hist[b].append((prop_b, acc_b))
             self.row_budget[b] -= count
             self._tok_idx[b] += count
             out_of_room = self.row_len[b] + count >= self.max_len
@@ -2179,9 +2765,17 @@ class DecodeEngine:
                 self.row_budget[b] = 0
                 self._tok_idx[b] = 0
                 self._row_greedy[b] = bool(self.greedy)
+                if self.spec_enabled:
+                    self._d_lag[b] = 0
+                    self._d_tok[b] = 0
                 if self.paged:
                     # The blocks return to the pool NOW, so admission
                     # capacity tracks finished tokens, not live slots.
                     self._release_row_blocks(b)
             else:
                 self.row_len[b] += count
+                if entry.spec:
+                    full = count == entry.H
+                    self._d_lag[b] = 1 if full else 0
+                    self._d_tok[b] = toks[-1] if full else 0
+        return rounds, proposed, accepted

@@ -5,10 +5,11 @@ port's engine has today: the request lifecycle (queue wait, TTFT, TPOT,
 tokens, steps, occupancy), decode dispatches and device->host syncs,
 prefill padding and chunked-prefill stalls, the async decode pipeline
 (flushes, overrun, effective depth, host lag), the prefix cache
-(lookups, hits, reused tokens, evictions) and the paged KV pool
-(occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes).
-The tensor-parallel, handoff, speculative and multi-LoRA planes come
-with those engine features (ROADMAP.md Queue A).
+(lookups, hits, reused tokens, evictions), the paged KV pool
+(occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes)
+and speculative decoding (rounds, proposed and accepted draft tokens,
+acceptance rate). The tensor-parallel, handoff and multi-LoRA planes
+come with those engine features (ROADMAP.md Queue A).
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -144,6 +145,9 @@ class EngineMetrics:
         self.pipeline_overrun_tokens = 0
         self.host_lag_steps = 0
         self.pipeline_depth = _Agg()
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
         tag = {"engine": self.engine_id}
         keys = ("engine",)
@@ -270,6 +274,21 @@ class EngineMetrics:
             "llm_engine_host_lag_steps",
             "Fused decode steps dispatched but not yet replayed on "
             "the host (ring length after the last drain)")
+        # The speculative plane: engine-tagged aggregates beside the
+        # per-plane llm_spec_* series of `speculative.SpecMetrics`, which
+        # carry the same engine id.
+        self._m_spec_rounds = counter(
+            "llm_engine_spec_rounds_total",
+            "Draft-propose / target-verify rounds replayed at drain")
+        self._m_spec_proposed = counter(
+            "llm_engine_spec_proposed_total",
+            "Draft tokens proposed inside speculative dispatches")
+        self._m_spec_accepted = counter(
+            "llm_engine_spec_accepted_total",
+            "Proposed draft tokens the target accepted")
+        self._m_spec_rate = gauge(
+            "llm_engine_spec_acceptance_rate",
+            "Cumulative accepted / proposed (0..1; 0 with spec off)")
 
     # -- lifecycle hooks (called by DecodeEngine) --------------------------
 
@@ -458,6 +477,23 @@ class EngineMetrics:
             self.prefill_stalls += n
             self._m_prefill_stalls.inc(n)
 
+    def on_spec_round(self, rounds: int, proposed: int,
+                      accepted: int) -> None:
+        """One drained speculative block: `rounds` live greedy rows each
+        verified their proposals, `proposed` draft tokens in all, of
+        which `accepted` matched the target's argmax chain."""
+        self.spec_rounds += rounds
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        if rounds > 0:
+            self._m_spec_rounds.inc(rounds)
+        if proposed > 0:
+            self._m_spec_proposed.inc(proposed)
+        if accepted > 0:
+            self._m_spec_accepted.inc(accepted)
+        if self.spec_proposed:
+            self._m_spec_rate.set(self.spec_accepted / self.spec_proposed)
+
     def observe_queue_depth(self, depth: int) -> None:
         """Gauge update outside a step (e.g. right after submit)."""
         self.queue_depth = depth
@@ -518,6 +554,11 @@ class EngineMetrics:
             "host_lag_steps": self.host_lag_steps,
             "pipeline_depth_effective": _ratio(self.pipeline_depth.sum,
                                                self.pipeline_depth.count),
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_acceptance_rate": _ratio(self.spec_accepted,
+                                           self.spec_proposed),
         }
         self.queue_wait_s.fields("queue_wait_s", out)
         self.ttft_s.fields("ttft_s", out)
@@ -575,6 +616,8 @@ class NullEngineMetrics:
     def on_prefill_batch(self, real_tokens, padded_tokens): pass
 
     def on_prefill_stall(self, n=1): pass
+
+    def on_spec_round(self, rounds, proposed, accepted): pass
 
     def observe_queue_depth(self, depth): pass
 

@@ -35,6 +35,19 @@ Span catalogue (name / lane / meaning):
 - ``finish`` / ``shed`` (req): instant markers closing the lifecycle.
 - ``dispatch`` / ``host_drain`` (engine lane): one decode dispatch
   (H iterations enqueued) / its blocking device->host token pull.
+- ``spec_draft`` (engine ``dispatch`` lane): one speculative dispatch,
+  draft proposals and target verify in one round (args: window,
+  proposed, rows, run_ahead).
+- ``spec_draft_prefill`` (engine ``dispatch`` lane): draft-plane prompt
+  seeding at admission or swap-in (args: bucket, rows).
+- ``spec_verify`` (engine ``drain`` lane): the host's acceptance
+  accounting of one drained speculative block (args: window, rounds,
+  proposed, accepted).
+
+Speculative spans ride the ENGINE lanes: one round serves the whole
+batch, so a per-request span would break the per-request contiguity
+that `tools/trace_report.py` sums; its `spec_summary` folds them
+apart.
 """
 
 from __future__ import annotations

@@ -16,16 +16,16 @@ plus the two admission-control knobs every production LLM server grows:
   burst of long prompts cannot stall every in-flight decode row.
 
 Scheduling only changes WHICH request is admitted when a slot frees —
-and, via `horizon_hint`, how many decode iterations the engine runs
-before it re-consults the queue — never what an admitted request
-computes.
+and, via `horizon_hint` and `spec_window_hint`, how many decode
+iterations or draft tokens one dispatch holds — never what an admitted
+request computes.
 """
 
 from __future__ import annotations
 
 import collections
 import heapq
-from typing import List
+from typing import List, Optional
 
 
 class EngineOverloaded(RuntimeError):
@@ -88,6 +88,29 @@ class SchedulerPolicy:
         if len(self) and free_slots > 0:
             return 1
         return max_horizon
+
+    def spec_window_hint(self, *, rates: List[Optional[float]],
+                         spec_window: int) -> List[int]:
+        """Per-row draft width for the next speculative dispatch, one
+        entry per candidate row, each in [1, spec_window]. ``rates``
+        holds each row's recent acceptance rate (accepted / proposed
+        over the engine's sliding window of rounds), or None for a row
+        with no history yet. Default: a fresh row gets the full window;
+        a measured row gets ``1 + rate * (spec_window - 1)`` rounded,
+        so a row rejecting everything still proposes one token, which
+        rides free on the verify pass. The engine dispatches at the
+        largest hint (rounded up to a power of two, capped at
+        spec_window) and applies each row's hint as its acceptance
+        cap."""
+        out = []
+        for r in rates:
+            if r is None:
+                out.append(spec_window)
+            else:
+                out.append(max(1, min(spec_window,
+                                      1 + int(r * (spec_window - 1)
+                                              + 0.5))))
+        return out
 
     def admissions_pending(self) -> bool:
         """Could an admission decision change the batch soon? The

@@ -159,7 +159,7 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"draft_params": "draft"}, {"lora": "lora"}, {"tp": 2},
+    {"lora": "lora"}, {"tp": 2},
     {"mesh": "mesh"}, {"sanitize": True}],
     ids=lambda k: next(iter(k)))
 def test_out_of_slice_knobs_raise(weights, knob):

@@ -446,13 +446,14 @@ def test_quant_swap_round_trip_exact(weights, ample_int8, mode):
                                             TCFG.head_dim, 4))
     eng = DecodeEngine(tp, TCFG, **kw)
     assert eng.kv_pool.blocks_total == 10 and eng.preempt_mode == "swap"
-    sent, checked = {}, []
+    sent, checked, held = {}, [], []
     real_gather, real_scatter = tengine._swap_out_gather, \
         tengine._swap_in_scatter
 
     def gather(*args):
         parts = real_gather(*args)   # on the CPU these ARE the host copies
         sent[id(parts[0])] = [p.clone() for p in parts]
+        held.append(parts)   # keeps each id unique: no reuse after a free
         return parts
 
     def scatter(tensors, host, ids):
