@@ -91,7 +91,36 @@ Phases, each of which must pass:
                its draft and verify parts. Prints steady decode tokens/s
                beside the serve phase's no-draft rate, TTFT p50 and the
                spec counters.
-  8. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+  8. lora    — multi-LoRA serving on the serve phase's model and 8
+               prompts (32 new tokens, greedy, scheduler="adapter"):
+               requests through three random LoraConfig() adapters
+               (rank 8, wq/wk/wv/wo, each delta ~10% of its projection)
+               or the base model, [ad0, ad1, -, ad2, ad0, ad1, -, ad2].
+               Engines (a) dense depth 2, (b) paged bf16, (c) paged int8,
+               4 adapter slots, each beside a plain engine of the same
+               construction; each serves once untimed, then timed. In
+               every timed run B2 launches n_layers x decode iterations,
+               every dispatch is a replayed graph and every slot
+               reference and block comes back. Gates: base rows of (a)
+               and (b) equal the plain engine's; b = 0 adapters give the
+               base tokens; adapter rows differ from the base at > 0.5 of
+               positions; layer 0's delta on the card against f64 (2e-2
+               of its max); adapter rows' teacher-forced picks of a plain
+               engine on lora_merge'd weights within 0.03 of the plain
+               engine's agreement with itself on weights rounded through
+               a merge and unmerge, every miss a near tie (logit gap
+               <= 0.2; the widths-1-and-5 floor printed beside), and the
+               same gate failing each fault planted in (a)'s stacks (wo
+               delta dropped, scale applied twice, the wrong slot); (c)
+               given (b)'s history at >= 0.5; a residency run with 2 slots evicts, prefetches
+               and hits, and a graph captured before an eviction and
+               re-commit replays the eager dispatch; rank 16 on all
+               seven targets; a 2-layer f32 model at 8B widths against
+               each adapter's solo run on merged weights (differing picks
+               within a 1e-3 logit gap). Prints tokens/s beside plain, ms
+               and kernels per iteration, the adapter ops' ms, TTFT p50
+               and the host-to-commit time of one adapter.
+  9. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
                edge cases (bf16 cases run the wgmma kernels, c_f32 the
@@ -101,7 +130,7 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
-  9. train   — bench.py:flagship_config()'s widths at full depth (only
+ 10. train   — bench.py:flagship_config()'s widths at full depth (only
                remat_policy changed, to "full") train on batch 8 x 2048
                tokens with f32 master weights and adamw(3e-4,
                weight_decay=0.0): one warm-up step and 5 timed steps. The
@@ -110,12 +139,20 @@ Phases, each of which must pass:
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
- 10. parity  — one training step's loss, grad norm and gradients at the
+ 11. lora-train — the train phase's config, batch and depth, adapters
+               only: LoraConfig(rank=8, targets=(wq, wv, w_gate)),
+               adamw(1e-2), one warm-up and 5 timed steps. The loss must
+               fall, the base stay bit-unchanged, every adapter leaf move
+               and the kernels launch as in the full step. Prints step
+               ms, tokens/s and peak memory beside the full step's.
+ 12. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}. Any failure raises, exits
-non-zero and prints no result line; so does a machine without CUDA.
+The line before the last is a JSON object {"kernels": [...]} (a kernel
+that more than one path runs at its timed shape also gives each path's
+launches, "launches_by_path"); the last line is {"ok": true, "device":
+{...}}. Any failure raises, exits non-zero and prints no result line;
+so does a machine without CUDA.
 """
 
 import concurrent.futures
@@ -442,8 +479,9 @@ def _serve(params, cfg, prompts, *, paged, depth, profile=False):
     return _drive(eng, prompts, NEW_TOKENS, profile=profile)
 
 
-def _drive(eng, prompts, new_tokens, profile=False):
-    """Submit every prompt to `eng`, then `step()` until nothing is
+def _drive(eng, prompts, new_tokens, profile=False, aids=None):
+    """Submit every prompt to `eng` (request i through adapter
+    ``aids[i]``, None = the base model), then `step()` until nothing is
     pending, counting B2's launches, the engine's `_device_get` pulls
     and the most live rows, and timing each token block's arrival on the
     card's clock. Returns the engine, the tokens per request and the
@@ -454,7 +492,9 @@ def _drive(eng, prompts, new_tokens, profile=False):
     from ray_tpu_torch.models import engine as engine_mod
     from ray_tpu_torch.ops import paged_attention_kernel as pak
 
-    ids = [eng.submit(p, new_tokens) for p in prompts]
+    aids = aids or [None] * len(prompts)
+    ids = [eng.submit(p, new_tokens, adapter_id=a)
+           for p, a in zip(prompts, aids)]
     gets, done = [0], []
     real_get, real_async = engine_mod._device_get, engine_mod._host_async
 
@@ -797,7 +837,8 @@ def _watch_first_swap(eng):
 def _iteration_profile(eng, cfg):
     """The card's ms per decode iteration of the engine's largest-horizon
     graph (replayed 3 times under torch.profiler, the idle rows doing a
-    live row's work), B2's ms of it, and, for a quantized pool, the ms
+    live row's work), B2's ms of it, the kernels an iteration launches,
+    and, for a quantized pool, the ms
     of one iteration's quantized writes (2 x n_layers `paged_quant_write`
     of 8 rows, captured and replayed as a CUDA graph)."""
     from torch.profiler import ProfilerActivity, profile
@@ -817,7 +858,8 @@ def _iteration_profile(eng, cfg):
     total = sum(e.self_device_time_total for e in rows) / 1e3 / (3 * H)
     b2 = sum(e.self_device_time_total for e in rows
              if "paged_decode" in e.key) / 1e3 / (3 * H)
-    out = {"H": H, "iter_ms": total, "b2_ms": b2, "write_ms": None}
+    out = {"H": H, "iter_ms": total, "b2_ms": b2, "write_ms": None,
+           "kernels": sum(e.count for e in rows) / (3 * H)}
     if eng.kv_quant_spec is not None:
         B, dev = eng.B, torch.device("cuda")
         bt = (torch.arange(1, B + 1, dtype=torch.int32, device=dev)[:, None]
@@ -838,8 +880,22 @@ def _iteration_profile(eng, cfg):
     return out
 
 
+def _admit_all(eng, rounds=16):
+    """Admit every queued request of an idle engine through its own
+    admission gate (`DecodeEngine._admission_round`: a cold adapter is
+    prefetched and its request deferred, then committed at the next
+    round), then run every row's prefill to its end."""
+    for _ in range(rounds):
+        if not len(eng.scheduler):
+            break
+        eng._admission_round()
+    assert not len(eng.scheduler), f"{len(eng.scheduler)} still queued"
+    while eng._row_prefill:
+        eng._advance_prefills()
+
+
 def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
-                  width=1, prefill_chunk=KVMEM_CHUNK):
+                  width=1, prefill_chunk=KVMEM_CHUNK, lora=None):
     """The target's greedy choice at each position GIVEN `ref`'s own
     history, on a fresh non-spec engine's pool (``paged=False``: its
     dense cache, read through B2's block-table view): 8 rows at a time
@@ -852,7 +908,9 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
     that of `ref`'s token (0 where they agree), each [requests,
     tokens]. Unlike the elementwise agreement of two free-running
     streams, one early difference does not reroute the rest of a
-    stream."""
+    stream. ``lora`` = (LoraConfig, {adapter id: tree}, per-prompt
+    adapter ids) runs a LoRA engine, every adapter resident. Rows are
+    admitted through the engine's own gate (`_admit_all`)."""
     from ray_tpu_torch import DecodeEngine
     from ray_tpu_torch.models import engine as engine_mod
 
@@ -861,15 +919,24 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
     gaps = np.zeros((len(prompts), n_new), np.float64)
     for lo in range(0, len(prompts), 8):
         idx = list(range(lo, min(lo + 8, len(prompts))))
+        lkw = {}
+        if lora is not None:
+            lkw = dict(lora=lora[0], max_live_adapters=len(lora[1]))
         eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
                            paged=paged, kv_block_tokens=32,
-                           kv_quant=kv_quant, prefill_chunk=prefill_chunk)
-        for i in idx:
-            eng.submit(prompts[i], n_new)
+                           kv_quant=kv_quant, prefill_chunk=prefill_chunk,
+                           **lkw)
+        if lora is not None:
+            for a, lp in lora[1].items():
+                eng.register_adapter(a, lp)
+                eng.adapter_pool.prefetch(a)
+            eng.adapter_pool.drain_prefetches()
+        ids = [eng.submit(prompts[i], n_new,
+                          adapter_id=None if lora is None else lora[2][i])
+               for i in idx]
+        _admit_all(eng)
         rows = list(range(len(idx)))
-        eng._admit_rows([(r, eng.scheduler.pop()) for r in rows])
-        while eng._row_prefill:
-            eng._advance_prefills()
+        assert [eng.row_req[r].req_id for r in rows] == ids
         dev = eng.device
         if paged:
             assert eng._ensure_decode_blocks(rows, n_new, 0)
@@ -878,6 +945,10 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
         forced = torch.tensor([ref[i] for i in idx], device=dev)
         live = torch.zeros(eng.B, dtype=torch.long, device=dev)
         live[:len(idx)] = 1
+        lora_kw = {}
+        if lora is not None:
+            lora_kw = dict(adapters=eng.adapter_pool.stacks,
+                           row_slot=torch.from_numpy(eng._row_slot).to(dev))
 
         def record(logits, j):
             lg = logits[:len(idx)]
@@ -896,11 +967,12 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
                 if paged:
                     logits = engine_mod._spec_core_paged(
                         params, toks, eng._pool_k, eng._pool_v, bt, row_len,
-                        cfg, eng._scale_k, eng._scale_v, eng.kv_quant_spec)
+                        cfg, eng._scale_k, eng._scale_v, eng.kv_quant_spec,
+                        **lora_kw)
                 else:
                     logits = engine_mod._spec_core(
                         params, toks, eng.cache, row_len, cfg, eng.max_len,
-                        eng._view_bt)
+                        eng._view_bt, **lora_kw)
             for i in range(S):
                 record(logits[:, i], j + i + 1)
             row_len = row_len + live * S
@@ -1096,37 +1168,39 @@ def llama32_1b():
 
 
 def _live_rows(eng, prompts, new_tokens):
-    """Admit and prefill `prompts` into the (idle) engine's rows and
-    stage them as a primary round's inputs: the state a round starts
-    from mid-serving."""
+    """Admit (`_admit_all`) and prefill `prompts` into the (idle)
+    engine's rows and stage them as a primary round's inputs: the state
+    a round starts from mid-serving."""
     for p in prompts:
         eng.submit(p, new_tokens)
+    _admit_all(eng)
     rows = list(range(len(prompts)))
-    eng._admit_rows([(r, eng.scheduler.pop()) for r in rows])
-    while eng._row_prefill:
-        eng._advance_prefills()
     if eng.paged:
         assert eng._ensure_decode_blocks(rows, SPEC_WINDOW + 1, 0)
     eng._stage_inputs(False, np.full((eng.B,), SPEC_WINDOW, np.int64))
 
 
 def _round_state(eng):
-    """Clones of everything one round writes: the staged inputs and row
-    state, `_last_logits`, and the blocks the rows' tables reach (with
-    the null block) of both planes, or the whole dense caches."""
+    """Clones of everything one round or decode dispatch writes: the
+    staged inputs and row state, `_last_logits`, and the blocks the rows'
+    tables reach (with the null block) of the target's and a speculative
+    engine's draft plane, or the whole dense caches."""
     from ray_tpu_torch.ops.kv_quant import raw
 
     out = [("din", eng._din.clone()), ("logits", eng._last_logits.clone())]
     if eng.paged:
-        for tensors, bt in ((eng._pool_tensors(), eng._bt),
-                            ([t for t in (eng._pool_dk, eng._pool_dv,
-                                          eng._scale_dk, eng._scale_dv)
-                              if t is not None], eng._bt_d)):
+        planes = [(eng._pool_tensors(), eng._bt)]
+        if eng.spec_enabled:
+            planes.append(([t for t in (eng._pool_dk, eng._pool_dv,
+                                        eng._scale_dk, eng._scale_dv)
+                            if t is not None], eng._bt_d))
+        for tensors, bt in planes:
             ids = torch.from_numpy(np.union1d(bt.reshape(-1), [0])).to(
                 eng.device)
             out += [(t, ids, raw(t).index_select(1, ids)) for t in tensors]
     else:
-        out += [(t, None, t.clone()) for c in (eng.cache, eng._d_cache)
+        caches = [eng.cache] + ([eng._d_cache] if eng.spec_enabled else [])
+        out += [(t, None, t.clone()) for c in caches
                 for t in (c["k"], c["v"])]
     return out
 
@@ -1361,6 +1435,628 @@ def spec_phase(smi, cfg, params, serve_rates):
     return out[SPEC_RUNS[0][0]]["run"]["launches"]
 
 
+# The lora phase: the serve phase's model and traffic (8 prompts, 32 new
+# tokens, greedy) under scheduler="adapter", request i through adapter
+# LORA_AIDS[i] (None = the base model), LoraConfig() (the JAX default:
+# rank 8, alpha 16, wq/wk/wv/wo). Three random adapters, each delta
+# about LORA_DELTA_RMS of its base projection's RMS.
+LORA_AIDS = ["ad0", "ad1", None, "ad2", "ad0", "ad1", None, "ad2"]
+LORA_DELTA_RMS = 0.1
+LORA_RUNS = (("a dense, depth 2 (the JAX defaults)", dict()),
+             ("b paged bf16", dict(paged=True)),
+             ("c paged int8", dict(paged=True, kv_quant="int8")))
+LORA_MIN_EFFECT = 0.5    # adapter rows differ from the base tokens at more
+# The teacher-forced gate against merged weights: agreement within
+# LORA_FLOOR_MARGIN of the plain engine's rounding floor, and every miss
+# a near tie (logit gap <= LORA_TIE_GAP). On an H100 the sound adapter
+# rows read 0.927-0.932 against a 0.9375 floor with misses' gaps up to
+# 0.078; the faults planted in engine (a)'s stacks (LORA_FAULTS: every
+# adapter's wo delta dropped, the scale applied twice, each adapter's
+# rows gathering the next adapter's factors) read 0.09-0.27 with gaps
+# of 1.4-2.8, and the gate must reject each of them.
+LORA_FLOOR_MARGIN = 0.03
+LORA_TIE_GAP = 0.2
+LORA_FAULTS = ("wo dropped", "scale twice", "wrong slot")
+LORA_LAYER_TOL = 2e-2    # one layer's delta against f64, of its max |value|
+LORA_F32_GAP = 1e-3      # f32: the largest logit gap of a differing pick
+LORA_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def lora_adapters(cfg, lcfg, n, seed):
+    """`n` random adapters on the card: `lora_init`'s A ~ N(0, 1/in) and
+    B ~ N(0, sigma), sigma = LORA_DELTA_RMS / (scale x sqrt(rank)), so
+    that x A (B x scale) has about LORA_DELTA_RMS of the RMS of x W (x
+    of unit RMS after the norm, W ~ N(0, 1/in) as `llama_init` draws
+    it)."""
+    from ray_tpu_torch import lora_init
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sigma = LORA_DELTA_RMS / (lcfg.scale * lcfg.rank ** 0.5)
+    out = {}
+    for i in range(n):
+        lp = lora_init(cfg, lcfg, generator=g, device="cuda")
+        for ab in lp["layers"].values():
+            ab["b"].normal_(0.0, sigma, generator=g)
+        out[f"ad{i}"] = lp
+    return out
+
+
+def _lora_engine(params, cfg, lcfg, loras, max_live=4, **kw):
+    from ray_tpu_torch import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
+                       kv_block_tokens=32, greedy=True, trace=True,
+                       scheduler="adapter", lora=lcfg,
+                       max_live_adapters=max_live, **kw)
+    for a, lp in loras.items():
+        eng.register_adapter(a, lp)
+    return eng
+
+
+def _lora_drained(label, eng):
+    """Every adapter-slot reference back to 0, no pending slot, every
+    KV block returned."""
+    refs = eng.adapter_pool._refs
+    assert not any(refs), f"{label}: adapter refs {refs}"
+    assert not eng._pending_slots, f"{label}: {eng._pending_slots}"
+    assert not eng.paged or eng.kv_pool.blocks_in_use == 0, \
+        f"{label}: {eng.kv_pool.blocks_in_use} blocks still in use"
+
+
+def _differ(a, b):
+    """Share of positions at which two token streams differ."""
+    return float((np.asarray(a) != np.asarray(b)).mean())
+
+
+def _delta_layer_check(eng, cfg, lcfg, loras):
+    """Layer 0's wq delta of 8 rows (slots of ad0, ad1, the null slot,
+    ad2, ...) by `_lora_delta` on the card (bf16) against an f64
+    evaluation of x A (B x scale) from the adapters' f32 factors.
+    Returns (max error / max |reference|, delta RMS / base projection
+    RMS over the adapter rows)."""
+    from ray_tpu_torch.models.generate import _lora_delta
+
+    pool = eng.adapter_pool
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(8, 1, cfg.dim, generator=g, device="cuda").to(cfg.dtype)
+    slots = torch.tensor([0 if a is None else pool._slot_of[a]
+                          for a in LORA_AIDS], device="cuda")
+    ab = {k: v[0] for k, v in pool.stacks["wq"].items()}
+    got = _lora_delta(x, ab, slots, cfg.dtype).double()
+    ref = torch.zeros_like(got)
+    for b, aid in enumerate(LORA_AIDS):
+        if aid is not None:
+            f = loras[aid]["layers"]["wq"]
+            ref[b] = (x[b].double() @ f["a"][0].double()
+                      @ (f["b"][0].double() * lcfg.scale))
+    null = [b for b, a in enumerate(LORA_AIDS) if a is None]
+    assert not got[null].any(), "lora: a null-slot row's delta is not 0"
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    base = (x.reshape(8, -1) @ eng.params["layers"]["wq"][0].reshape(
+        cfg.dim, -1)).double()
+    live = [b for b, a in enumerate(LORA_AIDS) if a is not None]
+    ratio = (ref[live].pow(2).mean().sqrt()
+             / base[live].pow(2).mean().sqrt()).item()
+    return err, ratio
+
+
+def _delta_ms(eng, cfg):
+    """The card's ms of one decode iteration's adapter ops alone: every
+    layer's and target's `_lora_delta` for 8 rows of one token and its
+    add onto the projection, captured as a CUDA graph and replayed."""
+    from ray_tpu_torch.models.generate import _lora_delta
+
+    pool = eng.adapter_pool
+    g = torch.Generator(device="cuda").manual_seed(10)
+    slots = torch.tensor([0 if a is None else pool._slot_of.get(a, 0)
+                          for a in LORA_AIDS], device="cuda")
+    xs = {n: torch.randn(8, 1, d[0], generator=g, device="cuda").to(
+        cfg.dtype) for n, d in pool._dims.items()}
+    ys = {n: torch.zeros(8, 1, d[1], device="cuda", dtype=cfg.dtype)
+          for n, d in pool._dims.items()}
+
+    def deltas():
+        for i in range(cfg.n_layers):
+            for n, ab in pool.stacks.items():
+                ys[n] + _lora_delta(xs[n], {k: v[i] for k, v in ab.items()},
+                                    slots, cfg.dtype)
+
+    with torch.no_grad():
+        return _graph_ms(deltas, calls=1, reps=10)
+
+
+def _prefetch_ms(cfg, lcfg, loras):
+    """Host clock from `prefetch` to the end of its commit for one
+    adapter (pinned host copies, a non-blocking copy on the side stream,
+    the in-place commit), synchronised: a one-slot pool cycles the
+    adapters twice, each commit evicting the last. Returns the times of
+    the second cycle and the adapter's bytes."""
+    from ray_tpu_torch.models.adapter_pool import AdapterPool
+    from ray_tpu_torch.models.lora import lora_num_params
+
+    pool = AdapterPool(cfg, lcfg, max_live_adapters=1, device="cuda")
+    for a, lp in loras.items():
+        pool.register(a, lp)
+    times = []
+    for a in list(loras) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.prefetch(a)
+        assert pool.drain_prefetches() == 1
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (times[len(loras):],
+            lora_num_params(cfg, lcfg) * cfg.dtype.itemsize)
+
+
+def _lora_live_rows(eng, prompts, aids):
+    """Bind `prompts` to the (idle) LoRA engine's rows through adapters
+    `aids` by the engine's own admission gate (`_admit_all`: with two
+    slots, committing a cold adapter evicts a resident), prefill them
+    and stage a primary dispatch's inputs. Returns the evictions this
+    made."""
+    pool = eng.adapter_pool
+    ev0 = pool.evictions
+    for p, a in zip(prompts, aids):
+        eng.submit(p, NEW_TOKENS, adapter_id=a)
+    _admit_all(eng)
+    rows = [r for r in range(eng.B) if eng.row_req[r] is not None]
+    if eng.paged:
+        assert eng._ensure_decode_blocks(rows, 8, 0)
+    eng._stage_inputs(False)
+    return pool.evictions - ev0
+
+
+def _decode_replay_check(eng):
+    """Given the same live rows, the engine's captured (H, all-greedy)
+    decode graph of the largest H replayed writes the token block and
+    row state of the same dispatch run eagerly. Returns (H, the largest
+    difference of the carried logits)."""
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
+
+    H = max(k[0] for k in eng._graphs.graphs if k[1] is True)
+    graph, static, _ = eng._graphs.graphs[(H, True)]
+    state = _round_state(eng)
+    before = pak.launches
+    eager = eng._decode_body(H, True).clone()
+    pak.launches = before
+    din, logits = eng._din.clone(), eng._last_logits.clone()
+    _restore(eng, state)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager), "lora: replayed tokens differ"
+    assert torch.equal(eng._din, din), "lora: replayed row state differs"
+    return H, (eng._last_logits - logits).abs().max().item()
+
+
+def _lora_faults(eng, prompts, aids):
+    """Engine `eng` (every adapter of `aids` resident) serving `prompts`
+    again once per fault of LORA_FAULTS, planted in its adapter stacks
+    in place (so its captured graphs read it) and taken out after the
+    run. Returns {fault: tokens per request}."""
+    pool = eng.adapter_pool
+    slots = [pool._slot_of[a] for a in dict.fromkeys(a for a in aids if a)]
+    nxt = slots[1:] + slots[:1]
+    saved = {n: {k: v.clone() for k, v in ab.items()}
+             for n, ab in pool.stacks.items()}
+    out = {}
+    for fault in LORA_FAULTS:
+        for n, ab in pool.stacks.items():
+            if fault == "wo dropped" and n == "wo":
+                ab["b"][:, slots] = 0
+            elif fault == "scale twice":
+                ab["b"][:, slots] = saved[n]["b"][:, slots] * 2
+            elif fault == "wrong slot":
+                for k, v in ab.items():
+                    v[:, slots] = saved[n][k][:, nxt]
+        with _plain_attention_forbidden():
+            _, out[fault], _ = _drive(eng, prompts, NEW_TOKENS, aids=aids)
+        for n, ab in pool.stacks.items():
+            for k, v in ab.items():
+                v.copy_(saved[n][k])
+    _lora_drained("lora faults", eng)
+    return out
+
+
+def _lora_serve(params, cfg, prompts, lcfg, loras, kw):
+    """A plain engine and a LoRA engine of one construction, each serving
+    the traffic once untimed (first dispatches, captures, the LoRA
+    engine's prefetches) and once timed with every plain attention
+    forbidden; both timed runs checked as the serve phase checks, the
+    LoRA one also for all-replayed dispatches and drained slots. Returns
+    {False: plain, True: LoRA} runs (tokens, run, stats, iteration
+    profile, the LoRA engine's warm tokens) and the LoRA engine."""
+    from ray_tpu_torch import DecodeEngine
+
+    out, keep = {}, None
+    for use_lora in (False, True):
+        if use_lora:
+            eng = _lora_engine(params, cfg, lcfg, loras, **kw)
+        else:
+            eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
+                               kv_block_tokens=32, greedy=True, trace=True,
+                               **kw)
+        aids = LORA_AIDS if use_lora else None
+        with _plain_attention_forbidden():
+            _, warm, _ = _drive(eng, prompts, NEW_TOKENS, aids=aids)
+            base = (_b2_calls(eng), eng.decode_dispatches)
+            replays0 = eng._graphs.replays
+            eng, toks, run = _drive(eng, prompts, NEW_TOKENS, aids=aids)
+        label = f"lora {'adapters' if use_lora else 'plain'} {kw}"
+        s = _check_run(label, cfg, eng, toks, run, base=base)
+        assert eng._graphs.replays - replays0 == run["gets"], \
+            f"{label}: the timed run dispatched outside its graphs"
+        if use_lora:
+            _lora_drained(label, eng)
+            assert s["adapter_prefetches"] == 3.0 and \
+                s["adapter_evictions"] == 0.0, s
+            keep = eng
+        out[use_lora] = dict(toks=toks, warm=warm, run=run, stats=s,
+                             prof=_iteration_profile(eng, cfg))
+        if not use_lora:
+            del eng
+            torch.cuda.empty_cache()
+    return out, keep
+
+
+def lora_phase(smi, cfg, params):
+    """Multi-LoRA serving on Llama-3-8B (see the module docstring);
+    returns engine (a)'s B2 launches in its timed run."""
+    from ray_tpu_torch import LoraConfig, lora_init, lora_merge
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.models.lora import lora_num_params
+
+    prompts = serve_prompts(cfg.vocab_size)
+    lcfg = LoraConfig()
+    loras = lora_adapters(cfg, lcfg, 3, seed=2)
+    mb = lora_num_params(cfg, lcfg) * 2 / 1e6
+    log(f"[lora] LoraConfig() (rank {lcfg.rank}, alpha {lcfg.alpha}, "
+        f"targets {'/'.join(lcfg.targets)}): {mb:.1f} MB an adapter in "
+        f"bf16; 3 random adapters (delta RMS ~{LORA_DELTA_RMS} of the base "
+        f"projection's); the serve phase's 8 prompts, {NEW_TOKENS} new "
+        f"tokens, greedy, scheduler='adapter', adapters {LORA_AIDS}; each "
+        f"engine serves once untimed, then timed, beside a plain engine of"
+        f" the same construction")
+    res = {}
+    t0 = time.perf_counter()
+    for label, kw in LORA_RUNS:
+        runs, eng = _lora_serve(params, cfg, prompts, lcfg, loras, kw)
+        res[label] = runs
+        plain, ad = runs[False], runs[True]
+        base_rows = [i for i, a in enumerate(LORA_AIDS) if a is None]
+        same = all(ad["toks"][i] == plain["toks"][i] for i in base_rows)
+        effect = {a: _differ([ad["toks"][i] for i, x in enumerate(LORA_AIDS)
+                              if x == a],
+                             [plain["toks"][i] for i, x in
+                              enumerate(LORA_AIDS) if x == a])
+                  for a in loras}
+        pa, pl = ad["prof"], plain["prof"]
+        log(f"[lora] {label}: steady decode {ad['run']['steady']:.1f} "
+            f"tokens/s with adapters, {plain['run']['steady']:.1f} plain "
+            f"(card clock, same call); TTFT p50 {ad['run']['ttft_p50']:.4f}"
+            f" / {plain['run']['ttft_p50']:.4f} s; ms per decode iteration "
+            f"{pa['iter_ms']:.3f} / {pl['iter_ms']:.3f} (+{pa['iter_ms'] - pl['iter_ms']:.3f},"
+            f" {(pa['iter_ms'] - pl['iter_ms']) / pa['iter_ms']:.1%} of the "
+            f"LoRA iteration), kernels an iteration {pa['kernels']:.0f} / "
+            f"{pl['kernels']:.0f} (+{pa['kernels'] - pl['kernels']:.0f}), "
+            f"B2 {pa['b2_ms']:.3f} ms; B2 launches {ad['run']['launches']} "
+            f"= {cfg.n_layers} x {ad['run']['launches'] // cfg.n_layers} "
+            f"decode iterations, all {ad['run']['gets']} timed dispatches "
+            f"replayed graphs; base rows {'equal' if same else 'DIFFER'}; "
+            f"adapter rows differ from the base tokens at "
+            + ", ".join(f"{a} {v:.3f}" for a, v in effect.items())
+            + f"; warm-run stats: deferrals "
+            f"{int(ad['stats']['adapter_prefetch_deferrals'])}, prefetches "
+            f"{int(ad['stats']['adapter_prefetches'])}, hits "
+            f"{int(ad['stats']['adapter_hits'])}/"
+            f"{int(ad['stats']['adapter_lookups'])}; peak memory "
+            f"{ad['run']['peak'] / 2**30:.2f} GiB; on {smi}")
+        if not label.startswith("c"):
+            assert same, f"lora {label}: base rows differ from the plain " \
+                f"engine's"
+        assert min(effect.values()) > LORA_MIN_EFFECT, \
+            f"lora {label}: adapters changed too few tokens {effect}"
+        if label.startswith("a"):
+            err, ratio = _delta_layer_check(eng, cfg, lcfg, loras)
+            dms = _delta_ms(eng, cfg)
+            log(f"[lora] layer 0's wq delta on the card (bf16) against f64 "
+                f"x A (B x scale): max error {err:.2e} of its max |value| "
+                f"(tolerance {LORA_LAYER_TOL}); delta RMS / base RMS "
+                f"{ratio:.4f}; null-slot rows exactly 0; one iteration's "
+                f"adapter ops alone ({cfg.n_layers} layers x "
+                f"{len(lcfg.targets)} targets, 8 rows, as a graph) "
+                f"{dms:.3f} ms")
+            assert err <= LORA_LAYER_TOL, f"lora: layer check {err}"
+            res[label]["delta_ms"] = dms
+            res[label]["faults"] = _lora_faults(eng, prompts, LORA_AIDS)
+        del eng
+        torch.cuda.empty_cache()
+    a_label, b_label, c_label = (r[0] for r in LORA_RUNS)
+
+    # b = 0: lora_init's adapters are the base model exactly
+    spent = {"engines": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    eng = _lora_engine(params, cfg, lcfg,
+                       {"z": lora_init(cfg, lcfg, device="cuda")},
+                       paged=True)
+    eng.adapter_pool.prefetch("z")      # resident: the plain schedule
+    eng.adapter_pool.drain_prefetches()
+    with _plain_attention_forbidden():
+        _, toks, _ = _drive(eng, prompts, NEW_TOKENS, aids=["z"] * 8)
+    _lora_drained("lora b=0", eng)
+    assert toks == res[b_label][False]["toks"], \
+        "lora: b = 0 adapters changed the base tokens"
+    del eng
+    torch.cuda.empty_cache()
+    log("[lora] b = 0 (lora_init) adapters on all 8 rows of (b): the plain "
+        "engine's tokens exactly")
+
+    # Teacher-forced: the adapter rows' picks given their own history,
+    # by a plain engine on lora_merge'd weights. Merged bf16 weights
+    # round W + delta where the engine rounds x W and the delta apart, a
+    # perturbation of every weight by about one bf16 step, so near ties
+    # flip. Two floors: the plain engine on its own tokens with its
+    # weights rounded the same way (bf16(bf16(W + delta) - delta), no
+    # change of function), which gates; and the plain engine fed 1 and
+    # 5 tokens a row (GEMMs of 8 and 40 rows), which is printed. Every
+    # miss must also be a near tie. The same comparison of engine (a)'s
+    # tokens under each planted fault (LORA_FAULTS) must fail the gate.
+    agree = {a_label: [], b_label: []}
+    rounded_floor = {a_label: [], b_label: []}
+    fault_hits = {f: [] for f in LORA_FAULTS}
+    fault_gaps = {f: [0.0] for f in LORA_FAULTS}
+    misses = []
+    for aid in loras:
+        rows = [i for i, a in enumerate(LORA_AIDS) if a == aid]
+        ps = [prompts[i] for i in rows]
+        merged = lora_merge(params, loras[aid], cfg, lcfg)
+        neg = {"layers": {n: {"a": ab["a"], "b": -ab["b"]}
+                          for n, ab in loras[aid]["layers"].items()}}
+        rounded = lora_merge(merged, neg, cfg, lcfg)
+        for label in (a_label, b_label):
+            paged = label == b_label
+            ref = [res[label][True]["toks"][i] for i in rows]
+            if not paged:
+                # (a)'s rows, then each fault's, in one engine
+                ref += [res[label]["faults"][f][i] for f in LORA_FAULTS
+                        for i in rows]
+            picks, gaps = _forced_picks(merged, cfg, ps * (len(ref)
+                                                           // len(rows)),
+                                        ref, None, paged=paged,
+                                        prefill_chunk=None)
+            hit = picks == np.asarray(ref)
+            n = len(rows)
+            agree[label].append(hit[:n])
+            misses += [(label[0], aid, rows[i], int(j),
+                        round(float(gaps[i, j]), 4))
+                       for i, j in zip(*np.nonzero(~hit[:n]))]
+            for k, f in enumerate(LORA_FAULTS[:len(ref) // n - 1]):
+                h = hit[n * (k + 1):n * (k + 2)]
+                fault_hits[f].append(h)
+                fault_gaps[f].append(float(gaps[n * (k + 1):n * (k + 2)]
+                                           [~h].max(initial=0.0)))
+            pref = [res[label][False]["toks"][i] for i in rows]
+            picks, _ = _forced_picks(rounded, cfg, ps, pref, None,
+                                     paged=paged, prefill_chunk=None)
+            rounded_floor[label].append(picks == np.asarray(pref))
+        del merged, rounded
+        torch.cuda.empty_cache()
+    ad_rows = [i for i, a in enumerate(LORA_AIDS) if a is not None]
+    ps = [prompts[i] for i in ad_rows]
+    ref = [res[a_label][False]["toks"][i] for i in ad_rows]
+    p1, _ = _forced_picks(params, cfg, ps, ref, None, paged=False,
+                          prefill_chunk=None)
+    p5, _ = _forced_picks(params, cfg, ps, ref, None, paged=False, width=5,
+                          prefill_chunk=None)
+    width_floor = float((p1 == p5).mean())
+    tf = {k: float(np.concatenate(v).mean()) for k, v in agree.items()}
+    fr = {k: float(np.concatenate(v).mean())
+          for k, v in rounded_floor.items()}
+    worst = max([0.0] + [m[-1] for m in misses])
+    fa = {f: float(np.concatenate(v).mean()) for f, v in fault_hits.items()}
+    fg = {f: max(v) for f, v in fault_gaps.items()}
+
+    def passes(agreement, gap, floor):
+        return (agreement >= floor - LORA_FLOOR_MARGIN
+                and gap <= LORA_TIE_GAP)
+
+    log(f"[lora] teacher-forced agreement of the adapter rows with a plain "
+        f"engine on lora_merge'd weights: (a) {tf[a_label]:.4f}, (b) "
+        f"{tf[b_label]:.4f}, largest logit gap of a miss {worst:.4f}; "
+        f"floors: the plain engine with its weights rounded through a "
+        f"merge and unmerge (a) {fr[a_label]:.4f}, (b) {fr[b_label]:.4f}; "
+        f"the plain engine at widths 1 and 5 (a) {width_floor:.4f}; gate: "
+        f"agreement >= floor - {LORA_FLOOR_MARGIN} and every miss's gap <="
+        f" {LORA_TIE_GAP}; planted faults in (a)'s stacks (agreement, "
+        f"largest gap): " + ", ".join(
+            f"{f} {fa[f]:.4f} / {fg[f]:.4f}" for f in LORA_FAULTS)
+        + f"; misses (engine, adapter, row, position, logit gap): {misses}")
+    low = [k for k in tf if not passes(tf[k], worst, fr[k])]
+    assert not low, f"lora: teacher-forced gate failed for {low}"
+    kept = [f for f in LORA_FAULTS if passes(fa[f], fg[f], fr[a_label])]
+    assert not kept, f"lora: the teacher-forced gate passes the planted " \
+        f"faults {kept}"
+    picks, _ = _forced_picks(params, cfg, prompts, res[b_label][True]["toks"],
+                             "int8", paged=True, prefill_chunk=None,
+                             lora=(lcfg, loras, LORA_AIDS))
+    c_agree = float((picks == np.asarray(res[b_label][True]["toks"])).mean())
+    log(f"[lora] (c) int8 given (b)'s history: picks (b)'s token at "
+        f"{c_agree:.4f} of positions (PR 7's int8 floor {KVMEM_MIN_AGREE}); "
+        f"free-running {1 - _differ(res[c_label][True]['toks'], res[b_label][True]['toks']):.4f}")
+    assert c_agree >= KVMEM_MIN_AGREE, f"lora: int8 agreement {c_agree}"
+    spent["b=0 and teacher-forced"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # residency: two slots for three adapters
+    eng = _lora_engine(params, cfg, lcfg, loras, max_live=2, paged=True)
+    with _plain_attention_forbidden():
+        _, toks, run = _drive(eng, prompts, NEW_TOKENS, aids=LORA_AIDS)
+    s = eng.stats()
+    _lora_drained("lora residency", eng)
+    assert s["adapter_evictions"] >= 1 and s["adapter_prefetches"] >= 3 \
+        and s["adapter_hits"] >= 1, s
+    assert run["launches"] == _b2_calls(eng)
+    res_toks = toks
+    with _plain_attention_forbidden():
+        cold = next(a for a in loras if not eng.adapter_pool.resident(a))
+        warm = next(a for a in loras if a != cold)
+        evicted = _lora_live_rows(eng, prompts,
+                                  [cold, None, warm, None] * 2)
+        H, gap = _decode_replay_check(eng)
+        eng.run()
+    _lora_drained("lora residency replay", eng)
+    assert evicted >= 1, "lora: the live rows made no eviction"
+    log(f"[lora] residency ((b) with 2 slots for 3 adapters): evictions "
+        f"{int(s['adapter_evictions'])}, prefetches "
+        f"{int(s['adapter_prefetches'])}, hits {int(s['adapter_hits'])}/"
+        f"{int(s['adapter_lookups'])}, deferrals "
+        f"{int(s['adapter_prefetch_deferrals'])}; tokens agree with (b)'s "
+        f"timed run at {1 - _differ(res_toks, res[b_label][True]['toks']):.4f}"
+        f"; after {evicted} more eviction(s) and re-commits, the H={H} "
+        f"graph captured before them replays the eager dispatch's tokens "
+        f"and row state (carried logits within {gap:.3e}); all refs 0, "
+        f"no pending slot, every block returned")
+    del eng
+    torch.cuda.empty_cache()
+    spent["residency"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    times, nbytes = _prefetch_ms(cfg, lcfg, loras)
+    pms = float(np.median(times)) * 1e3
+    log(f"[lora] one adapter ({nbytes / 1e6:.1f} MB bf16) host-to-commit "
+        f"(prefetch + drain, synchronised): {pms:.3f} ms median of "
+        f"{[round(t * 1e3, 3) for t in times]} = {nbytes / 1e6 / pms * 1e3:.0f}"
+        f" MB/s")
+
+    # every delta site on the card: rank 16, all seven targets
+    lcfg16 = LoraConfig(rank=16, alpha=32.0, targets=LORA_ALL)
+    loras16 = lora_adapters(cfg, lcfg16, 3, seed=3)
+    eng = _lora_engine(params, cfg, lcfg16, loras16, paged=True)
+    with _plain_attention_forbidden():
+        eng, toks, run = _drive(eng, prompts, NEW_TOKENS, aids=LORA_AIDS)
+    _check_run("lora rank 16", cfg, eng, toks, run)
+    _lora_drained("lora rank 16", eng)
+    prof = _iteration_profile(eng, cfg)
+    dms = _delta_ms(eng, cfg)
+    effect = _differ(toks, res[b_label][False]["toks"])
+    log(f"[lora] rank 16, all seven targets "
+        f"({lora_num_params(cfg, lcfg16) * 2 / 1e6:.1f} MB an adapter), (b):"
+        f" {prof['iter_ms']:.3f} ms per decode iteration, "
+        f"{prof['kernels']:.0f} kernels an iteration, adapter ops alone "
+        f"{dms:.3f} ms; tokens differ from the plain engine's at "
+        f"{effect:.3f}")
+    del eng, loras16
+    torch.cuda.empty_cache()
+    spent["prefetch and rank 16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # f32, 2 layers at 8B widths, all targets: the mixed batch against
+    # each adapter's solo run on merged weights
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params32 = llama_init(cfg32, seed=4, device="cuda")
+    loras32 = lora_adapters(cfg32, lcfg16, 3, seed=5)
+    eng = _lora_engine(params32, cfg32, lcfg16, loras32)
+    with _plain_attention_forbidden():
+        _, toks32, _ = _drive(eng, prompts, NEW_TOKENS, aids=LORA_AIDS)
+    _lora_drained("lora f32", eng)
+    del eng
+    report, worst = [], 0.0
+    for aid in list(loras32) + [None]:
+        rows = [i for i, a in enumerate(LORA_AIDS) if a == aid]
+        ps = [prompts[i] for i in rows]
+        p = params32 if aid is None else lora_merge(params32, loras32[aid],
+                                                    cfg32, lcfg16)
+        _, solo, _ = _serve(p, cfg32, ps, paged=False, depth=2)
+        ref = [toks32[i] for i in rows]
+        picks, gaps = _forced_picks(p, cfg32, ps, ref, None, paged=False,
+                                    prefill_chunk=None)
+        diff = [(int(i), int(j), float(gaps[i, j]))
+                for i, j in zip(*np.nonzero(picks != np.asarray(ref)))]
+        worst = max([worst] + [g for _, _, g in diff])
+        report.append(f"{aid}: solo {'equal' if solo == ref else 'differs'}"
+                      f", teacher-forced misses {diff}")
+        del p
+    del params32
+    torch.cuda.empty_cache()
+    log(f"[lora] f32, 2 layers at 8B widths, rank 16 on all seven targets: "
+        f"the mixed batch against each adapter's solo run on merged weights"
+        f" (plain engine): {'; '.join(report)}")
+    assert worst <= LORA_F32_GAP, f"lora f32: a pick differs by {worst}"
+    spent["f32"] = time.perf_counter() - t0
+    log("[lora] phase parts: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in spent.items()))
+    return res[a_label][True]["run"]["launches"]
+
+
+def lora_train_phase(smi, full):
+    """The adapter-only train step at the train phase's widths, batch
+    and depth (see the module docstring); ``full`` is the train phase's
+    step ms, tokens/s and peak memory. Returns the kernels' launches."""
+    from ray_tpu_torch import (LoraConfig, adamw, llama_loss, lora_init,
+                               make_lora_train_step)
+    from ray_tpu_torch.models.llama import llama_init
+    from ray_tpu_torch.models.training import _leaves
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+    from ray_tpu_torch.profile_train import BATCH, SEQ, flagship_config, \
+        train_batch
+
+    cfg = flagship_config()
+    lcfg = LoraConfig(rank=8, targets=("wq", "wv", "w_gate"))
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = make_lora_train_step(
+        lambda p, b: llama_loss(p, b, cfg), adamw(1e-2), cfg, lcfg)
+    base, lora, opt = init_fn(
+        llama_init(cfg, seed=0, device="cuda", dtype=torch.float32),
+        lora_init(cfg, lcfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(6)))
+    base0 = [x.clone() for x in _leaves(base)]
+    lora0 = [x.detach().clone() for x in _leaves(lora)]
+    batch = train_batch(cfg)
+    log(f"[lora-train] the train phase's config, batch and depth; "
+        f"LoraConfig(rank={lcfg.rank}, targets={lcfg.targets}) as "
+        f"tests/test_models.py trains it; adamw(1e-2); base f32, frozen")
+    with _plain_attention_forbidden():
+        lora, opt, m = step_fn(lora, opt, base, batch)
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        fak.fwd_launches = fak.dq_launches = fak.dkv_launches = 0
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            lora, opt, m = step_fn(lora, opt, base, batch)
+            losses.append(m["loss"].item())       # waits for the step
+            times.append(time.perf_counter() - t0)
+        launches = {"fwd": fak.fwd_launches, "dq": fak.dq_launches,
+                    "dkv": fak.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"lora-train: loss did not fall {losses}"
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(base), base0)), \
+        "lora-train: the base changed"
+    assert not any(x.requires_grad for x in _leaves(base))
+    moved = min((a.detach() - b).abs().max().item()
+                for a, b in zip(_leaves(lora), lora0))
+    assert moved > 0, "lora-train: an adapter leaf did not move"
+    L = cfg.n_layers
+    want = {"fwd": 2 * L * TRAIN_STEPS, "dq": L * TRAIN_STEPS,
+            "dkv": L * TRAIN_STEPS}
+    assert launches == want, f"lora-train: launches {launches} != {want}"
+    tok_s = BATCH * SEQ * TRAIN_STEPS / sum(times)
+    log(f"[lora-train] losses {[round(x, 4) for x in losses]}; base "
+        f"bit-unchanged; every adapter leaf moved (smallest max change "
+        f"{moved:.3e}); kernel launches in {TRAIN_STEPS} steps: forward "
+        f"{launches['fwd']}, dq {launches['dq']}, dk/dv {launches['dkv']} "
+        f"(as the full step)")
+    log(f"[lora-train] step {np.mean(times) * 1e3:.1f} ms mean (min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); {tok_s:.0f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB; the full step of "
+        f"the train phase: {full['step_ms']:.1f} ms, {full['tok_s']:.0f} "
+        f"tokens/s, {full['peak'] / 2**30:.2f} GiB; on {smi}")
+    del base, lora, opt, base0, lora0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _flash_pairs(Sq, Sk, causal):
     """Unmasked (q, k) pairs of one head: q row i sees kv columns
     <= i + Sk - Sq under the causal mask."""
@@ -1576,7 +2272,8 @@ def train_phase(smi):
         f"memory {peak / 2**30:.2f} GiB; on {smi}")
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"step_ms": np.mean(times) * 1e3, "tok_s": tok_s,
+                      "peak": peak}
 
 
 def parity_phase():
@@ -1613,13 +2310,19 @@ def parity_phase():
     log(line)
 
 
-def _kernel_entry(name, source, replaces, launches, res):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"],
-            "library_ms": res.get("library_ms")}
+def _kernel_entry(name, source, replaces, launches, res, by_path=None):
+    """One kernel's entry of the kernels line: ``launches`` on the main
+    path; ``by_path`` the launches of each path that runs the kernel at
+    the timed shape, the main path's included."""
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+           "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+           "bound_by": res["bound_by"],
+           "library_ms": res.get("library_ms")}
+    if by_path is not None:
+        out["launches_by_path"] = by_path
+    return out
 
 
 def main():
@@ -1640,13 +2343,15 @@ def main():
     launches, serve_rates = phase("serve", serve_phase, smi, cfg, params)
     phase("kvmem", kvmem_phase, smi, cfg, params)
     spec_launches = phase("spec", spec_phase, smi, cfg, params, serve_rates)
+    lora_launches = phase("lora", lora_phase, smi, cfg, params)
     # kvmem's swap watchers tie engines (and through them the weights)
     # in reference cycles: collect them before the train phase measures
     # its peak memory
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    tlaunches = phase("train", train_phase, smi)
+    tlaunches, full = phase("train", train_phase, smi)
+    llaunches = phase("lora-train", lora_train_phase, smi, full)
     phase("parity", parity_phase)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
@@ -1658,19 +2363,23 @@ def main():
         _kernel_entry("paged_attention",
                       "ray_tpu_torch/csrc/paged_attention.cu",
                       "ray_tpu/ops/paged_attention_kernel.py:104",
-                      launches, kres[("bf16", 1, D)]),
+                      launches, kres[("bf16", 1, D)],
+                      # the multi-LoRA path: engine (a)'s timed run
+                      {"serve": launches, "lora": lora_launches}),
         # the speculative path: engine (a)'s launches, the verify pass's
         # shape (S = 5) timed
         _kernel_entry("paged_attention (speculative round, S=5 verify)",
                       "ray_tpu_torch/csrc/paged_attention.cu",
                       "ray_tpu/ops/paged_attention_kernel.py:104",
                       spec_launches, kres[("bf16", 5, D)]),
-        _kernel_entry("flash_fwd", sm90_src, f"{flash_py}:130",
-                      tlaunches["fwd"], main_flash["fwd"]),
-        _kernel_entry("flash_bwd_dq", sm90_src, f"{flash_py}:192",
-                      tlaunches["dq"], main_flash["dq"]),
-        _kernel_entry("flash_bwd_dkv", sm90_src, f"{flash_py}:239",
-                      tlaunches["dkv"], main_flash["dkv"]),
+    ] + [
+        # the adapter-only train step runs the same kernels and shapes
+        _kernel_entry(name, sm90_src, f"{flash_py}:{line}", tlaunches[key],
+                      main_flash[key], {"train": tlaunches[key],
+                                        "lora-train": llaunches[key]})
+        for name, line, key in (("flash_fwd", 130, "fwd"),
+                                ("flash_bwd_dq", 192, "dq"),
+                                ("flash_bwd_dkv", 239, "dkv"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

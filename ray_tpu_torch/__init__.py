@@ -5,10 +5,12 @@ The port mirrors the JAX package's module paths (`models/llama.py`,
 `ops/attention.py`, `ops/flash_attention.py`, ...) and imports nothing
 of it. Today it serves Llama models through the `DecodeEngine` (a dense
 per-slot cache by default, or a paged block pool; an async run-ahead
-ring; on the card the decode loop replayed as CUDA graphs), with decode
+ring; on the card the decode loop replayed as CUDA graphs; many LoRA
+adapters in one batch), with decode
 attention on a hand-written Hopper kernel (`csrc/paged_attention.cu`),
 and trains them on one card through
-`make_train_step`, with attention forward and backward on hand-written
+`make_train_step` (adapters only: `make_lora_train_step`), with
+attention forward and backward on hand-written
 Hopper flash-attention kernels (`csrc/flash_attention.cu`). Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 
@@ -19,8 +21,11 @@ is compiled by `ray_tpu_torch._build` at its first launch.
 from ray_tpu_torch.models.engine import DecodeEngine
 from ray_tpu_torch.models.llama import (LlamaConfig, llama_forward,
                                         llama_loss)
+from ray_tpu_torch.models.lora import (LoraConfig, lora_init, lora_merge,
+                                       make_lora_train_step)
 from ray_tpu_torch.models.training import adamw, make_train_step
 from ray_tpu_torch.ops.attention import paged_attention
 
-__all__ = ["DecodeEngine", "LlamaConfig", "adamw", "llama_forward",
-           "llama_loss", "make_train_step", "paged_attention"]
+__all__ = ["DecodeEngine", "LlamaConfig", "LoraConfig", "adamw",
+           "llama_forward", "llama_loss", "lora_init", "lora_merge",
+           "make_lora_train_step", "make_train_step", "paged_attention"]

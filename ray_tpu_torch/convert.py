@@ -1,10 +1,12 @@
-"""Move a JAX-package Llama param tree into the port's tensors.
+"""Move a JAX-package Llama param tree, or a LoRA adapter tree, into
+the port's tensors.
 
 `ray_tpu.models.llama.llama_init` builds ``{"tok_embed", "layers":
-{name: [L, ...]}, "final_norm", "lm_head"}``; the port keeps the same
-keys and layouts. Pass the tree as numpy arrays (``jax.device_get`` or
-``np.asarray`` per leaf): this module imports no JAX, so tests hand the
-same numbers to both packages through it.
+{name: [L, ...]}, "final_norm", "lm_head"}`` and
+`ray_tpu.models.lora.lora_init` ``{"layers": {name: {"a", "b"}}}``; the
+port keeps the same keys and layouts. Pass the tree as numpy arrays
+(``jax.device_get`` or ``np.asarray`` per leaf): this module imports no
+JAX, so tests hand the same numbers to both packages through it.
 """
 
 from __future__ import annotations
@@ -38,3 +40,31 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, *,
         "final_norm": conv(tree["final_norm"]),
         "lm_head": conv(tree["lm_head"]),
     }
+
+
+def lora_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, lora_cfg, *,
+                    device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Numpy adapter tree ``{"layers": {name: {"a": [L, in, r], "b": [L,
+    r, out]}}}`` (`ray_tpu.models.lora.lora_init`'s layout) -> the
+    port's on ``device`` in ``dtype`` (default f32, the adapters' JAX
+    ``param_dtype``). Checks the targets and shapes against
+    ``lora_cfg``; copies, never aliases, the caller's arrays."""
+    from ray_tpu_torch.models.lora import lora_dims
+
+    device = resolve_device(device)
+    dtype = dtype or torch.float32
+    layers = tree.get("layers", tree)
+    out = {}
+    for name, (n_in, n_out) in lora_dims(cfg, lora_cfg).items():
+        want = {"a": (cfg.n_layers, n_in, lora_cfg.rank),
+                "b": (cfg.n_layers, lora_cfg.rank, n_out)}
+        if name not in layers:
+            raise ValueError(f"adapter tree has no target {name!r}")
+        out[name] = {}
+        for k, shape in want.items():
+            x = np.array(layers[name][k], np.float32)
+            if x.shape != shape:
+                raise ValueError(f"{name}.{k}: shape {x.shape}, want {shape}")
+            out[name][k] = torch.from_numpy(x).to(device=device, dtype=dtype)
+    return {"layers": out}

@@ -1,2 +1,3 @@
-"""Models of the PyTorch/CUDA port: Llama, cached generation, the paged
-DecodeEngine and the train step."""
+"""Models of the PyTorch/CUDA port: Llama, cached generation, the
+DecodeEngine (dense or paged, speculative, multi-LoRA with its adapter
+pool), LoRA and the train steps."""

@@ -81,9 +81,21 @@ at S = W+1 query rows (verify) and S = 2 / 1 (draft). Greedy rows emit
 solo greedy `generate`'s tokens whatever the draft proposes; sampled
 rows take one sampled token per round.
 
+Multi-LoRA serving (``lora=LoraConfig(...)``, ``max_live_adapters=``)
+serves many fine-tunes of the base model in one batch: each row adds its
+adapter's low-rank delta on the q/k/v/o and MLP projections
+(`generate._lora_delta`), gathered per row from the device stacks of
+`models/adapter_pool.py` through a [B] slot lane in `_din` (slot 0 is
+the all-zero null adapter, so base rows are exact). A cold adapter
+defers its request at the admission gate while its weights are copied
+to the device; the copy is committed into a slot IN PLACE, with no
+dispatch in flight, so the decode graphs stay valid. Adapter rows
+bypass the prefix cache. ``scheduler="adapter"`` groups admissions by
+residency. Speculative decoding and LoRA are exclusive, as in JAX.
+
 Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: multi-LoRA (A8), tensor parallelism (A9), fleet
-failover resume (A10) and the runtime sanitizer (A14).
+ROADMAP.md item: tensor parallelism (A9), fleet failover resume (A10)
+and the runtime sanitizer (A14).
 """
 
 from __future__ import annotations
@@ -100,10 +112,12 @@ from ray_tpu_torch.models.block_pool import BlockPool
 from ray_tpu_torch.models.engine_metrics import (EngineMetrics,
                                                  NullEngineMetrics)
 from ray_tpu_torch.models.engine_trace import resolve_tracer
+from ray_tpu_torch.models.adapter_pool import (ADAPTER_STATS_KEYS,
+                                               AdapterPool)
 from ray_tpu_torch.models.generate import (_check_sampling_knobs, _layer,
-                                           _layer_body, forward_cached_rows,
-                                           init_cache, key_words,
-                                           sample_rows)
+                                           _layer_body, _lora_layer,
+                                           forward_cached_rows, init_cache,
+                                           key_words, sample_rows)
 from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm
 from ray_tpu_torch.models.prefix_cache import PrefixCacheIndex, block_bytes
 from ray_tpu_torch.models.scheduler import (EngineDraining,
@@ -264,7 +278,8 @@ class _QuantPagedRows(_PagedRows):
 def _prefill_views(params: Params, prompts: torch.Tensor, cache,
                    last_logits: torch.Tensor, rows: torch.Tensor,
                    starts: torch.Tensor, last_idx: torch.Tensor,
-                   cfg: LlamaConfig) -> None:
+                   cfg: LlamaConfig, adapters: Optional[Params] = None,
+                   row_slot: Optional[torch.Tensor] = None) -> None:
     """N same-bucket chunks [N, Cb] run `forward_cached_rows` over the
     row views ``cache``, and each row's last-real-token logits land in
     ``last_logits[rows]``. Filler tokens past a chunk's true length
@@ -272,8 +287,10 @@ def _prefill_views(params: Params, prompts: torch.Tensor, cache,
     the next chunk or decode overwrites them; only the logits at
     ``last_idx`` are read. ``rows`` may repeat (power-of-two padding
     repeats the last row verbatim): duplicate scatters write identical
-    values."""
-    logits, _ = forward_cached_rows(params, prompts, cache, starts, cfg)
+    values. ``adapters`` / ``row_slot`` (the adapter pool's stacks and
+    this batch's per-chunk slot lane [N]) add the rows' LoRA deltas."""
+    logits, _ = forward_cached_rows(params, prompts, cache, starts, cfg,
+                                    adapters=adapters, row_slot=row_slot)
     n = prompts.shape[0]
     last_logits[rows.long()] = logits[torch.arange(n, device=logits.device),
                                       last_idx.long()]
@@ -283,14 +300,15 @@ def _prefill_views(params: Params, prompts: torch.Tensor, cache,
 def _prefill_rows(params: Params, prompts: torch.Tensor, cache,
                   last_logits: torch.Tensor, rows: torch.Tensor,
                   starts: torch.Tensor, last_idx: torch.Tensor,
-                  cfg: LlamaConfig) -> None:
+                  cfg: LlamaConfig, adapters: Optional[Params] = None,
+                  row_slot: Optional[torch.Tensor] = None) -> None:
     """Batched admission prefill into the dense cache, in place: row
     ``rows[n]`` of the cache takes chunk n at offset ``starts[n]`` (0
     cold, the copied prefix warm, the chunk frontier chunked)."""
     views = {"k": _DenseRows(cache["k"], rows),
              "v": _DenseRows(cache["v"], rows)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
-                   last_idx, cfg)
+                   last_idx, cfg, adapters, row_slot)
 
 
 @torch.no_grad()
@@ -301,7 +319,9 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
                         last_idx: torch.Tensor, cfg: LlamaConfig,
                         scale_k: Optional[torch.Tensor] = None,
                         scale_v: Optional[torch.Tensor] = None,
-                        qspec: Optional[KVQuantSpec] = None) -> None:
+                        qspec: Optional[KVQuantSpec] = None,
+                        adapters: Optional[Params] = None,
+                        row_slot: Optional[torch.Tensor] = None) -> None:
     """Batched admission prefill into the pool, in place, through the
     rows' block tables ``bt`` [N, MB]. A quantized pool (``qspec`` and
     the f32 scale slabs) runs the same math on the dequantized f32 view
@@ -314,7 +334,7 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
         views = {"k": _QuantPagedRows(pool_k, scale_k, bt, valid, qspec),
                  "v": _QuantPagedRows(pool_v, scale_v, bt, valid, qspec)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
-                   last_idx, cfg)
+                   last_idx, cfg, adapters, row_slot)
 
 
 @torch.no_grad()
@@ -359,7 +379,8 @@ def _prefix_copy_out(cache, pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 
 def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
-                       cfg: LlamaConfig, max_len: int, view_bt=None):
+                       cfg: LlamaConfig, max_len: int, view_bt=None,
+                       lora=None, lora_slots=None):
     """One decoder layer, S new tokens per row (S=1 in decode, S > 1 in
     a speculative round), each row writing its K/V at its own slots and
     attending its own prefix, per query causally. h: [B, S, d]; caches
@@ -370,7 +391,8 @@ def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
     p``, no copy — with ``kv_valid_len = max_len``; it computes the
     dense mask exactly (``slot <= q_slot`` and ``slot < max_len``).
     Without it, the plain `_cached_attention` runs, as in the JAX dense
-    path."""
+    path. ``lora`` / ``lora_slots``: this layer's adapter stacks and the
+    rows' slot lane (`_layer_body`)."""
     B = h.shape[0]
     bidx = torch.arange(B, device=h.device)[:, None]
     sl = slots.long()
@@ -392,44 +414,51 @@ def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
                                    kv_valid_len=max_len, impl="kernel")
 
     h, _, _ = _layer_body(h, layer, k_cache, v_cache, sl, write_kv, sl,
-                          max_len, cfg, attend=attend)
+                          max_len, cfg, attend=attend, lora=lora,
+                          lora_slots=lora_slots)
     return h
 
 
 def _spec_core(params: Params, toks: torch.Tensor, cache,
                starts: torch.Tensor, cfg: LlamaConfig, max_len: int,
-               view_bt=None) -> torch.Tensor:
+               view_bt=None, adapters: Optional[Params] = None,
+               row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Feed each row's chunk ``toks`` [B, S] at slots ``starts[b] +
     arange(S)`` of the dense cache (in place); returns the logits [B, S,
     vocab] f32. Decode is its S=1 case (`_decode_core`); a speculative
     round's draft steps and target verify are the rest. Dead/frozen rows
     compute discarded garbage at their own slots, which every mask
-    excludes until the slot's next write."""
+    excludes until the slot's next write. ``adapters`` / ``row_slot``
+    (the adapter pool's stacks and the [B] slot lane) add each row's
+    LoRA deltas."""
     S = toks.shape[1]
     slots = starts.long()[:, None] + torch.arange(
         S, device=toks.device)[None, :]
     h = params["tok_embed"][toks]
     for i in range(cfg.n_layers):
         h = _decode_layer_rows(h, _layer(params, i), cache["k"][i],
-                               cache["v"][i], slots, cfg, max_len, view_bt)
+                               cache["v"][i], slots, cfg, max_len, view_bt,
+                               _lora_layer(adapters, i), row_slot)
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(h, params["lm_head"], cfg)
 
 
 def _decode_core(params: Params, toks: torch.Tensor, cache,
                  row_len: torch.Tensor, cfg: LlamaConfig, max_len: int,
-                 view_bt=None) -> torch.Tensor:
+                 view_bt=None, adapters: Optional[Params] = None,
+                 row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step for ALL slots of the dense cache: row b's token
     ``toks[b]`` is written at slot ``row_len[b]`` and attends slots
     [0, row_len[b]]. Returns next-token logits [B, vocab] f32; the
     cache is updated in place."""
     return _spec_core(params, toks[:, None], cache, row_len, cfg, max_len,
-                      view_bt)[:, 0]
+                      view_bt, adapters, row_slot)[:, 0]
 
 
 def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, slots,
                              cfg: LlamaConfig, k_scale=None, v_scale=None,
-                             qspec: Optional[KVQuantSpec] = None):
+                             qspec: Optional[KVQuantSpec] = None,
+                             lora=None, lora_slots=None):
     """One decoder layer, S new tokens per row, against the pool: row
     b's new K/V land in physical blocks ``bt[b, slot // T]`` at offsets
     ``slot % T`` and its S queries attend back through the block table,
@@ -471,7 +500,8 @@ def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, slots,
                                v_scale=v_scale, impl=cfg.attn_impl)
 
     h, _, _ = _layer_body(h, layer, k_pages, v_pages, sl, write_kv, sl,
-                          span, cfg, attend=attend)
+                          span, cfg, attend=attend, lora=lora,
+                          lora_slots=lora_slots)
     return h
 
 
@@ -479,7 +509,9 @@ def _spec_core_paged(params: Params, toks: torch.Tensor,
                      pool_k: torch.Tensor, pool_v: torch.Tensor,
                      bt: torch.Tensor, starts: torch.Tensor,
                      cfg: LlamaConfig, scale_k=None, scale_v=None,
-                     qspec: Optional[KVQuantSpec] = None) -> torch.Tensor:
+                     qspec: Optional[KVQuantSpec] = None,
+                     adapters: Optional[Params] = None,
+                     row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`_spec_core` against the pool (block tables ``bt``): the chunk
     [B, S] at slots ``starts + arange(S)``, logits [B, S, vocab]; a
     quantized pool passes its scale slabs [L, NB, KV] too."""
@@ -492,7 +524,9 @@ def _spec_core_paged(params: Params, toks: torch.Tensor,
                   else (scale_k[i], scale_v[i]))
         h = _decode_layer_rows_paged(h, _layer(params, i), pool_k[i],
                                      pool_v[i], bt, slots, cfg, *scales,
-                                     qspec=qspec)
+                                     qspec=qspec,
+                                     lora=_lora_layer(adapters, i),
+                                     lora_slots=row_slot)
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(h, params["lm_head"], cfg)
 
@@ -501,11 +535,15 @@ def _decode_core_paged(params: Params, toks: torch.Tensor,
                        pool_k: torch.Tensor, pool_v: torch.Tensor,
                        bt: torch.Tensor, row_len: torch.Tensor,
                        cfg: LlamaConfig, scale_k=None, scale_v=None,
-                       qspec: Optional[KVQuantSpec] = None) -> torch.Tensor:
+                       qspec: Optional[KVQuantSpec] = None,
+                       adapters: Optional[Params] = None,
+                       row_slot: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """`_decode_core` against the pool: one token per row at slot
     ``row_len``, next-token logits [B, vocab]."""
     return _spec_core_paged(params, toks[:, None], pool_k, pool_v, bt,
-                            row_len, cfg, scale_k, scale_v, qspec)[:, 0]
+                            row_len, cfg, scale_k, scale_v, qspec,
+                            adapters, row_slot)[:, 0]
 
 
 def _decode_loop(step, last_logits, row_len, active, budget, tok_idx,
@@ -556,11 +594,14 @@ def _decode_multi(params: Params, cache, last_logits, row_len, active,
                   budget, tok_idx, row_keys, row_greedy, temperature: float,
                   cfg: LlamaConfig, horizon: int, greedy: bool,
                   top_k: Optional[int], top_p: Optional[float],
-                  eos_id: Optional[int], *, max_len: int, view_bt=None):
-    """The dense decode loop (`_decode_loop` over `_decode_core`)."""
+                  eos_id: Optional[int], *, max_len: int, view_bt=None,
+                  adapters: Optional[Params] = None,
+                  row_slot: Optional[torch.Tensor] = None):
+    """The dense decode loop (`_decode_loop` over `_decode_core`);
+    ``adapters`` / ``row_slot`` add each row's LoRA deltas."""
     return _decode_loop(
         lambda tok, rl: _decode_core(params, tok, cache, rl, cfg, max_len,
-                                     view_bt),
+                                     view_bt, adapters, row_slot),
         last_logits, row_len, active, budget, tok_idx, row_keys, row_greedy,
         temperature, horizon, greedy, top_k, top_p, eos_id, max_len)
 
@@ -572,13 +613,15 @@ def _decode_multi_paged(params: Params, pool_k, pool_v, bt, last_logits,
                         horizon: int, greedy: bool, top_k: Optional[int],
                         top_p: Optional[float], eos_id: Optional[int], *,
                         scale_k=None, scale_v=None,
-                        qspec: Optional[KVQuantSpec] = None):
+                        qspec: Optional[KVQuantSpec] = None,
+                        adapters: Optional[Params] = None,
+                        row_slot: Optional[torch.Tensor] = None):
     """The paged decode loop (`_decode_loop` over `_decode_core_paged`);
     the block table spans exactly max_len slots."""
     return _decode_loop(
         lambda tok, rl: _decode_core_paged(params, tok, pool_k, pool_v, bt,
                                            rl, cfg, scale_k, scale_v,
-                                           qspec),
+                                           qspec, adapters, row_slot),
         last_logits, row_len, active, budget, tok_idx, row_keys, row_greedy,
         temperature, horizon, greedy, top_k, top_p, eos_id,
         bt.shape[1] * pool_k.shape[2])
@@ -835,7 +878,7 @@ class _DecodeGraphs:
 class _Request:
     __slots__ = ("req_id", "prompt", "max_new_tokens", "tokens", "done",
                  "priority", "seq", "rng", "deadline", "shed", "resume",
-                 "greedy")
+                 "greedy", "adapter_id")
 
     def __init__(self, req_id: int, prompt: List[int],
                  max_new_tokens: int, priority: int = 0, seq: int = 0,
@@ -853,6 +896,7 @@ class _Request:
         self.shed = False           # retired past-deadline, no prefill run
         self.resume = False         # preempted; re-queued to recompute
         self.greedy = None          # per-request decode-mode override
+        self.adapter_id = None      # LoRA adapter (None = base model)
 
 
 class _PrefillState:
@@ -973,6 +1017,9 @@ class DecodeEngine:
     ``prefix_block``-token blocks sized by ``prefix_cache_bytes``;
     paged: the block pool itself) with ``scheduler="prefix"``;
     ``prefill_chunk`` tokens of prefill per row per step.
+
+    Multi-LoRA: ``lora=LoraConfig(...)`` with ``max_live_adapters``
+    device slots; `register_adapter`, then ``submit(adapter_id=)``.
     """
 
     def __init__(self, params: Params, cfg: LlamaConfig, *,
@@ -1052,7 +1099,11 @@ class DecodeEngine:
             if spec_window < 1:
                 raise ValueError("spec_window must be >= 1")
         if lora is not None:
-            raise _unported("multi-LoRA serving (lora=)", "A8")
+            if draft_params is not None:
+                raise ValueError(
+                    "lora= and draft_params= are mutually exclusive: the "
+                    "speculative draft/verify rounds do not carry per-row "
+                    "adapter deltas")
         if mesh is not None or tp is not None:
             raise _unported("tensor parallelism (mesh= / tp=)", "A9")
         if sanitize:
@@ -1160,20 +1211,42 @@ class DecodeEngine:
         self.spec_metrics: Optional[SpecMetrics] = None
         if self.spec_enabled:
             self._init_draft_plane(enable_metrics)
+        # The multi-LoRA plane (`models/adapter_pool.py`): device stacks
+        # of up to max_live_adapters adapters, a [B] slot lane mapping
+        # each row to its adapter (0 = base only), and the slot
+        # reference taken at the ADMISSION GATE carried to the row bind
+        # in `_pending_slots`, so a later candidate's prefetch commit in
+        # the same round can never evict an adapter a decision was
+        # already made against.
+        self.adapter_pool: Optional[AdapterPool] = None
+        if lora is not None:
+            self.adapter_pool = AdapterPool(
+                cfg, lora, max_live_adapters=max_live_adapters,
+                device=self.device, metrics=self.metrics, trace=self.trace)
+            self.metrics.on_adapter_slots(max_live_adapters, 0, 0)
+            attach = getattr(self.scheduler, "attach_adapter_probe", None)
+            if attach is not None:
+                attach(self._adapter_probe)
+        self._row_slot = np.zeros((self.B,), np.int64)
+        self._pending_slots: Dict[int, int] = {}
+        self.adapter_deferrals = 0     # cold-adapter admission defers
         # The decode loop's inputs on the device, one int64 buffer, in
         # order: the chained row state (row_len, active, budget,
         # tok_idx, then a speculative engine's draft lanes d_lag and
         # d_tok; a dispatch writes it back, so a run-ahead dispatch
         # chains off it), row keys [B, 2], the greedy lane [B], a
-        # speculative round's per-row widths w_row [B] and, paged, the
-        # block tables [B, MB] (and the draft's). A dispatch stages its
-        # host part in ONE copy.
-        Bn, spec = self.B, self.spec_enabled
+        # speculative round's per-row widths w_row [B], a LoRA engine's
+        # adapter-slot lane [B] and, paged, the block tables [B, MB]
+        # (and the draft's). A dispatch stages its host part in ONE
+        # copy. The buffer and its views are never rebound: the decode
+        # graphs read them.
+        Bn, spec, use_lora = self.B, self.spec_enabled, lora is not None
         n_state = (6 if spec else 4) * Bn
         self._n_chain = n_state + 2 * Bn   # what a run-ahead keeps
         mb = self._mb if paged else 0
-        lanes = 2 if spec else 1
-        self._din = torch.zeros((self._n_chain + lanes * Bn * (1 + mb),),
+        n_lanes = 1 + spec + use_lora
+        n_bt = (1 + spec) if paged else 0
+        self._din = torch.zeros((self._n_chain + (n_lanes + n_bt * mb) * Bn,),
                                 dtype=torch.int64, device=self.device)
         self._d_state = self._din[:4 * Bn].view(4, Bn)
         self._d_spec = self._din[4 * Bn:n_state].view(2, Bn) if spec \
@@ -1181,8 +1254,11 @@ class DecodeEngine:
         self._d_keys = self._din[n_state:self._n_chain].view(Bn, 2)
         o = self._n_chain
         self._d_greedy = self._din[o:o + Bn]
-        self._d_wrow = self._din[o + Bn:o + 2 * Bn] if spec else None
-        o += lanes * Bn
+        o += Bn
+        self._d_wrow = self._din[o:o + Bn] if spec else None
+        o += spec * Bn
+        self._d_slot = self._din[o:o + Bn] if use_lora else None
+        o += use_lora * Bn
         self._d_bt = self._din[o:o + Bn * mb].view(Bn, mb) if paged \
             else None
         self._d_bt_d = self._din[o + Bn * mb:].view(Bn, mb) \
@@ -1369,12 +1445,24 @@ class DecodeEngine:
         overrides the engine-wide decode mode for this request.
         ``deadline_s`` is the admission SLO: a request still queued when
         it passes is SHED (finished with zero tokens, listed in
-        ``shed_ids``). ``resume_tokens`` (fleet failover) and
-        ``adapter_id`` (multi-LoRA) are not ported yet."""
+        ``shed_ids``). ``adapter_id`` routes the request through a
+        registered LoRA adapter (`register_adapter`): its rows decode
+        with that adapter's low-rank delta in the SAME batched program
+        as every other row; a cold adapter defers the request at the
+        admission gate while its weights are copied to the device.
+        None serves the base model, token-identical to an engine without
+        lora=. ``resume_tokens`` (fleet failover) is not ported yet."""
         if resume_tokens:
             raise _unported("fleet failover resume (resume_tokens=)", "A10")
         if adapter_id is not None:
-            raise _unported("multi-LoRA serving (adapter_id=)", "A8")
+            if self.adapter_pool is None:
+                raise ValueError(
+                    "adapter_id= needs an engine built with lora= "
+                    "(multi-LoRA serving)")
+            if not self.adapter_pool.registered(adapter_id):
+                raise KeyError(
+                    f"unknown adapter_id {adapter_id!r}: call "
+                    "register_adapter first")
         if self.draining:
             raise EngineDraining(
                 "engine is draining (begin_drain was called): it will "
@@ -1414,6 +1502,7 @@ class DecodeEngine:
                        priority=priority, seq=self._next_id, rng=key,
                        deadline=deadline)
         req.greedy = greedy
+        req.adapter_id = adapter_id
         if deadline is not None and self._clock() >= deadline:
             # Dead on arrival: shed before the bounded-queue check.
             self._next_id += 1
@@ -1452,6 +1541,39 @@ class DecodeEngine:
             self.trace.open("queue_wait", req.req_id)
         return req.req_id
 
+    # -- multi-LoRA adapter table ------------------------------------------
+
+    def register_adapter(self, adapter_id: str, lora_params: Params
+                         ) -> None:
+        """Admit a LoRA adapter's weights (a `lora_init`-shaped tree) to
+        the engine's host-side adapter table. The device is untouched
+        until traffic warms the adapter through the prefetch path."""
+        if self.adapter_pool is None:
+            raise ValueError(
+                "register_adapter needs an engine built with lora=")
+        self.adapter_pool.register(adapter_id, lora_params)
+
+    def unregister_adapter(self, adapter_id: str) -> bool:
+        """Drop an adapter (deferred until its last live row retires:
+        returns False then). Queued requests naming it fail at
+        admission, so callers drain them first."""
+        if self.adapter_pool is None:
+            return True
+        return self.adapter_pool.unregister(adapter_id)
+
+    def adapter_resident(self, adapter_id: str) -> bool:
+        """True when the adapter occupies a device slot now."""
+        return (self.adapter_pool is not None
+                and self.adapter_pool.resident(adapter_id))
+
+    def _adapter_probe(self, adapter_id: Optional[str]
+                       ) -> Tuple[bool, bool]:
+        """(resident, fetching) for the adapter-affinity scheduler."""
+        if adapter_id is None or self.adapter_pool is None:
+            return True, False
+        return (self.adapter_pool.resident(adapter_id),
+                self.adapter_pool.fetching(adapter_id))
+
     def pending(self) -> bool:
         return bool(len(self.scheduler)) or any(
             r is not None for r in self.row_req)
@@ -1482,48 +1604,7 @@ class DecodeEngine:
         if self._ring and (self.scheduler.admissions_pending()
                            or self._row_prefill):
             self._flush_pipeline(emitted)
-        budget = self.max_prefills_per_step or self.B
-        admissions: List[Tuple[int, _Request]] = []
-        begin = getattr(self.scheduler, "begin_admission_round", None)
-        if begin is not None:
-            begin()
-        deferred = False
-        for row in range(self.B):
-            if budget <= 0 or deferred:
-                break
-            if self.row_req[row] is not None:
-                continue
-            req = None
-            while len(self.scheduler):
-                cand = self.scheduler.pop()
-                if cand is None:
-                    deferred = True    # the prefix policy deferred all
-                    break
-                if cand.deadline is not None and \
-                        self._clock() >= cand.deadline and \
-                        not cand.resume:
-                    # Expired mid-queue: shed at the admission gate (a
-                    # preempted request was admitted once and is exempt).
-                    self._shed(cand)
-                    continue
-                if self.paged and not self._fits_now(cand):
-                    # Capacity, not order, is the constraint: stop
-                    # admitting and retry when retirements free blocks.
-                    self._requeue_front(cand)
-                    deferred = True
-                    break
-                req = cand
-                break
-            if req is None:
-                continue
-            admissions.append((row, req))
-            budget -= 1
-        if deferred and self.trace.enabled:
-            self.trace.instant("admission_defer", lane="events",
-                               args={"queued": len(self.scheduler)})
-        if admissions:
-            self._admit_rows(admissions)
-        self._advance_prefills()
+        self._admission_round()
 
         live = [b for b in range(self.B) if self.row_req[b] is not None]
         if not live:
@@ -1611,7 +1692,8 @@ class DecodeEngine:
         the row state (with a speculative engine's draft lanes) and keys
         for a primary dispatch, then the greedy lane, a speculative
         round's widths ``w_row`` (1s for a plain dispatch, which reads
-        none) and (paged) the block tables, snapshotted here, so
+        none), a LoRA engine's adapter-slot lane and (paged) the block
+        tables, snapshotted here, so
         host-side growth only reaches later dispatches. A run-ahead
         dispatch keeps the row state the previous dispatch left on the
         device. On the card the staging buffer is pinned and the copy
@@ -1632,6 +1714,8 @@ class DecodeEngine:
         if self.spec_enabled:
             parts.append(np.ones((B,), np.int64) if w_row is None
                          else w_row)
+        if self.adapter_pool is not None:
+            parts.append(self._row_slot)
         if self.paged:
             parts.append(self._bt)
             if self.spec_enabled:
@@ -1656,17 +1740,21 @@ class DecodeEngine:
         args = (self._last_logits, st[0], st[1] != 0, st[2], st[3],
                 self._d_keys, self._d_greedy != 0, self.temperature,
                 self.cfg, H, greedy, self.top_k, self.top_p, self.eos_id)
+        lora = {}
+        if self.adapter_pool is not None:
+            lora = dict(adapters=self.adapter_pool.stacks,
+                        row_slot=self._d_slot)
         if self.paged:
             out = _decode_multi_paged(self.params, self._pool_k,
                                       self._pool_v,
                                       self._d_bt.to(torch.int32), *args,
                                       scale_k=self._scale_k,
                                       scale_v=self._scale_v,
-                                      qspec=self.kv_quant_spec)
+                                      qspec=self.kv_quant_spec, **lora)
         else:
             out = _decode_multi(self.params, self.cache, *args,
                                 max_len=self.max_len,
-                                view_bt=self._view_bt)
+                                view_bt=self._view_bt, **lora)
         toks, last_logits, row_len, active, budget, tok_idx = out
         self._last_logits.copy_(last_logits)
         st.copy_(torch.stack([row_len, active.to(st.dtype), budget,
@@ -1977,8 +2065,11 @@ class DecodeEngine:
         ``kv_quant_enabled``. The speculative plane: ``spec_*``
         (dispatches, per-row rounds, proposed / accepted / wasted draft
         tokens, the lifetime acceptance rate, ``window_effective`` =
-        proposed / rounds, draft seedings). Every key is published, 0
-        where its feature is off."""
+        proposed / rounds, draft seedings). The multi-LoRA plane:
+        ``adapter_enabled``, ``adapter_prefetch_deferrals`` and the
+        adapter pool's ``adapter_*`` keys (registered, slots, resident,
+        pinned, lookups, hits, hit rate, prefetches, evictions). Every
+        key is published, 0 where its feature is off."""
         def _ratio(num: float, den: float) -> float:
             return num / den if den else 0.0
 
@@ -2075,6 +2166,12 @@ class DecodeEngine:
         if self.spec_enabled and self.paged:
             out["spec_kv_pool_blocks_in_use"] = float(
                 self.kv_pool_d.blocks_in_use)
+        # The multi-LoRA plane: identically 0.0 with no adapter pool.
+        out["adapter_enabled"] = (1.0 if self.adapter_pool is not None
+                                  else 0.0)
+        out["adapter_prefetch_deferrals"] = float(self.adapter_deferrals)
+        out.update(self.adapter_pool.stats() if self.adapter_pool is not None
+                   else dict.fromkeys(ADAPTER_STATS_KEYS, 0.0))
         return out
 
     # -- internals ---------------------------------------------------------
@@ -2119,6 +2216,75 @@ class DecodeEngine:
         key = tuple(prompt[:T]) if len(prompt) > T else None
         return len(ids) * T, key, pending
 
+    def _admission_round(self) -> None:
+        """One round of the admission gate (`step`, after its flush):
+        commit landed adapter prefetches, pop queued requests into free
+        rows (shedding expired ones, deferring on pool capacity or on a
+        cold adapter, whose prefetch starts here), bind and prefill the
+        admitted rows, and advance every chunked prefill by one chunk."""
+        budget = self.max_prefills_per_step or self.B
+        admissions: List[Tuple[int, _Request]] = []
+        begin = getattr(self.scheduler, "begin_admission_round", None)
+        if begin is not None:
+            begin()
+        # Commit landed adapter prefetches before gating, only with the
+        # ring empty (`step` flushes it whenever admissions are pending):
+        # as in JAX, no in-flight dispatch reads a slot being rewritten.
+        if self.adapter_pool is not None and not self._ring:
+            self.adapter_pool.drain_prefetches()
+        deferred = False
+        for row in range(self.B):
+            if budget <= 0 or deferred:
+                break
+            if self.row_req[row] is not None:
+                continue
+            req = None
+            while len(self.scheduler):
+                cand = self.scheduler.pop()
+                if cand is None:
+                    deferred = True    # the prefix policy deferred all
+                    break
+                if cand.deadline is not None and \
+                        self._clock() >= cand.deadline and \
+                        not cand.resume:
+                    # Expired mid-queue: shed at the admission gate (a
+                    # preempted request was admitted once and is exempt).
+                    self._shed(cand)
+                    continue
+                if self.paged and not self._fits_now(cand):
+                    # Capacity, not order, is the constraint: stop
+                    # admitting and retry when retirements free blocks.
+                    self._requeue_front(cand)
+                    deferred = True
+                    break
+                if cand.adapter_id is not None:
+                    # Adapter residency gate: acquire the slot HERE
+                    # (refcount taken) so nothing admitted later this
+                    # round can evict it; a cold adapter starts its
+                    # prefetch and the request waits at the queue front
+                    # instead of stalling the step.
+                    slot = self.adapter_pool.alloc(cand.adapter_id)
+                    if slot is None:
+                        self.adapter_pool.prefetch(cand.adapter_id)
+                        self._requeue_front(cand)
+                        self.adapter_deferrals += 1
+                        self.metrics.on_adapter_defer()
+                        deferred = True
+                        break
+                    self._pending_slots[cand.req_id] = slot
+                req = cand
+                break
+            if req is None:
+                continue
+            admissions.append((row, req))
+            budget -= 1
+        if deferred and self.trace.enabled:
+            self.trace.instant("admission_defer", lane="events",
+                               args={"queued": len(self.scheduler)})
+        if admissions:
+            self._admit_rows(admissions)
+        self._advance_prefills()
+
     def _admit_rows(self, admissions: List[Tuple[int, _Request]]) -> None:
         """Bind this step's admissions to their rows and queue their
         prefills (run by `_advance_prefills` this step). With the prefix
@@ -2143,7 +2309,11 @@ class DecodeEngine:
                 self.trace.instant("admit", req.req_id, {"row": row})
             start = 0
             nodes: list = []
-            if self._prefix is not None:
+            # Adapter rows BYPASS the prefix trie: their K/V depends on
+            # the adapter's deltas, so a block produced under adapter X
+            # must never be matched by, or registered for, a request
+            # under another adapter or the base model.
+            if self._prefix is not None and req.adapter_id is None:
                 ids, _ = self._prefix.match(req.prompt)
                 self.prefix_lookups += 1
                 if ids:
@@ -2206,6 +2376,7 @@ class DecodeEngine:
                 if not self._swap_in_row(row, req, swap):
                     # The gate's estimate went stale: requeue.
                     self._swapped[req.req_id] = swap
+                    self._drop_pending_slot(req)
                     self._requeue_front(req)
                 else:
                     # The swap never carries the draft plane: re-seed it
@@ -2220,7 +2391,8 @@ class DecodeEngine:
             shared: List[int] = []
             cow_src: Optional[int] = None
             nodes: list = []
-            if self._prefix is not None:
+            # Adapter rows bypass the trie (see `_admit_rows`).
+            if self._prefix is not None and req.adapter_id is None:
                 ids, _ = self._prefix.match(req.prompt, allow_full=True)
                 self.prefix_lookups += 1
                 if ids and len(ids) * T == len(req.prompt):
@@ -2237,6 +2409,7 @@ class DecodeEngine:
             new_ids = self._pool_alloc(n_total - len(shared))
             if new_ids is None:
                 self.kv_pool.decref(shared)
+                self._drop_pending_slot(req)
                 if self.trace.enabled:
                     self.trace.open("queue_wait", req.req_id)
                 self._requeue_front(req)
@@ -2246,7 +2419,7 @@ class DecodeEngine:
                 self.kv_block_cows += 1
                 self.metrics.on_kv_cow()
             chain = shared + new_ids
-            if self._prefix is not None:
+            if self._prefix is not None and req.adapter_id is None:
                 hit = bool(shared) or cow_src is not None
                 if hit:
                     self.prefix_hits += 1
@@ -2343,6 +2516,7 @@ class DecodeEngine:
         self._row_keys[row] = self._req_key(req)
         self._row_greedy[row] = (self.greedy if req.greedy is None
                                  else bool(req.greedy))
+        self._row_slot[row] = self._pending_slots.pop(req.req_id, 0)
         if self.paged:
             self._row_blocks[row] = list(chain)
             self._bt[row, :] = 0
@@ -2353,6 +2527,24 @@ class DecodeEngine:
     def _requeue_front(self, req: _Request) -> None:
         self.scheduler.push_front(req)
         self.metrics.observe_queue_depth(len(self.scheduler))
+
+    def _drop_pending_slot(self, req: _Request) -> None:
+        """Return the adapter-slot reference the admission gate took for
+        a request requeued AFTER the gate (stale capacity estimate,
+        swap-in failure): it re-allocs at the gate next round, so the
+        pending reference must go or the slot leaks a count and can
+        never evict."""
+        slot = self._pending_slots.pop(req.req_id, 0)
+        if slot:
+            self.adapter_pool.decref(slot)
+
+    def _release_row_slot(self, row: int) -> None:
+        """Drop a retiring or preempted row's adapter-slot reference; a
+        refcount-0 slot stays RESIDENT (LRU), so the next same-adapter
+        request is a hit. The gate re-allocs at re-admission."""
+        if self._row_slot[row]:
+            self.adapter_pool.decref(int(self._row_slot[row]))
+            self._row_slot[row] = 0
 
     def _pool_alloc(self, n: int) -> Optional[List[int]]:
         """n fresh blocks, evicting cold committed prefix blocks LRU
@@ -2470,6 +2662,7 @@ class DecodeEngine:
             self.swap_out_bytes += swap.nbytes
             self.metrics.on_swap_out(swap.nbytes)
         self._release_row_blocks(row)
+        self._release_row_slot(row)
         self.row_req[row] = None
         self.row_len[row] = 0
         self.row_budget[row] = 0
@@ -2564,7 +2757,8 @@ class DecodeEngine:
                 need = -(-(len(req.prompt) + len(req.tokens)) // T)
         else:
             need = -(-len(req.prompt) // T)
-            if self._prefix is not None:
+            # Adapter rows take no prefix credit: they bypass the trie.
+            if self._prefix is not None and req.adapter_id is None:
                 ids, _ = self._prefix.match(req.prompt, peek=True,
                                             allow_full=True)
                 if ids and len(ids) * T == len(req.prompt):
@@ -2625,16 +2819,22 @@ class DecodeEngine:
             last_idx[n:] = last_idx[n - 1]
             args = (self._dev(rows), self._dev(starts), self._dev(last_idx),
                     self.cfg)
+            # The chunks' adapter-slot lane, gathered from the engine's
+            # [B] lane (filler rows repeat the last real row's slot).
+            lora = {}
+            if self.adapter_pool is not None:
+                lora = dict(adapters=self.adapter_pool.stacks,
+                            row_slot=self._dev(self._row_slot[rows]))
             if self.paged:
                 _prefill_rows_paged(
                     self.params, self._dev(prompts), self._pool_k,
                     self._pool_v, self._last_logits,
                     self._dev(self._bt[rows]), *args,
                     scale_k=self._scale_k, scale_v=self._scale_v,
-                    qspec=self.kv_quant_spec)
+                    qspec=self.kv_quant_spec, **lora)
             else:
                 _prefill_rows(self.params, self._dev(prompts), self.cache,
-                              self._last_logits, *args)
+                              self._last_logits, *args, **lora)
             self.prefill_dispatches += 1
             padded = n_pad * Cb - real
             self.prefill_real_tokens += real
@@ -2772,6 +2972,7 @@ class DecodeEngine:
                     # The blocks return to the pool NOW, so admission
                     # capacity tracks finished tokens, not live slots.
                     self._release_row_blocks(b)
+                self._release_row_slot(b)
             else:
                 self.row_len[b] += count
                 if entry.spec:

@@ -6,10 +6,12 @@ tokens, steps, occupancy), decode dispatches and device->host syncs,
 prefill padding and chunked-prefill stalls, the async decode pipeline
 (flushes, overrun, effective depth, host lag), the prefix cache
 (lookups, hits, reused tokens, evictions), the paged KV pool
-(occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes)
-and speculative decoding (rounds, proposed and accepted draft tokens,
-acceptance rate). The tensor-parallel, handoff and multi-LoRA planes
-come with those engine features (ROADMAP.md Queue A).
+(occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes),
+speculative decoding (rounds, proposed and accepted draft tokens,
+acceptance rate) and multi-LoRA serving (adapter lookups, hits,
+prefetches, evictions, deferrals and slot residency). The
+tensor-parallel and handoff planes come with those engine features
+(ROADMAP.md Queue A).
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -148,6 +150,16 @@ class EngineMetrics:
         self.spec_rounds = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # The multi-LoRA plane: a lookup is one admission-gate slot
+        # acquisition attempt, a hit means the adapter was resident.
+        self.adapter_lookups = 0
+        self.adapter_hits = 0
+        self.adapter_prefetches = 0
+        self.adapter_evictions = 0
+        self.adapter_deferrals = 0
+        self.adapter_slots = 0
+        self.adapter_slots_resident = 0
+        self.adapter_slots_pinned = 0
 
         tag = {"engine": self.engine_id}
         keys = ("engine",)
@@ -289,6 +301,36 @@ class EngineMetrics:
         self._m_spec_rate = gauge(
             "llm_engine_spec_acceptance_rate",
             "Cumulative accepted / proposed (0..1; 0 with spec off)")
+        self._m_adapter_lookups = counter(
+            "llm_engine_adapter_lookups_total",
+            "Adapter-slot acquisition attempts at the admission gate")
+        self._m_adapter_hits = counter(
+            "llm_engine_adapter_hits_total",
+            "Slot acquisitions that found the adapter already "
+            "resident on the device")
+        self._m_adapter_prefetches = counter(
+            "llm_engine_adapter_prefetches_total",
+            "Async host->device adapter weight transfers started for "
+            "cold adapters")
+        self._m_adapter_evictions = counter(
+            "llm_engine_adapter_evictions_total",
+            "Refcount-0 resident adapters evicted LRU-first to free "
+            "a slot for a committing prefetch")
+        self._m_adapter_deferrals = counter(
+            "llm_engine_adapter_prefetch_deferrals_total",
+            "Admissions requeued because their adapter was cold and "
+            "its prefetch had not committed yet")
+        self._m_adapter_slots = gauge(
+            "llm_engine_adapter_slots",
+            "Adapter slots in the device-resident stacks (null slot "
+            "0 excluded)")
+        self._m_adapter_resident = gauge(
+            "llm_engine_adapter_slots_resident",
+            "Slots currently holding a committed adapter")
+        self._m_adapter_pinned = gauge(
+            "llm_engine_adapter_slots_pinned",
+            "Resident slots pinned by >= 1 live row (ineligible for "
+            "eviction)")
 
     # -- lifecycle hooks (called by DecodeEngine) --------------------------
 
@@ -494,6 +536,42 @@ class EngineMetrics:
         if self.spec_proposed:
             self._m_spec_rate.set(self.spec_accepted / self.spec_proposed)
 
+    def on_adapter_lookup(self, hit: bool) -> None:
+        """One adapter-slot acquisition attempt at the admission gate
+        (AdapterPool.alloc for a non-None adapter_id)."""
+        self.adapter_lookups += 1
+        self._m_adapter_lookups.inc()
+        if hit:
+            self.adapter_hits += 1
+            self._m_adapter_hits.inc()
+
+    def on_adapter_prefetch(self, n: int = 1) -> None:
+        if n > 0:
+            self.adapter_prefetches += n
+            self._m_adapter_prefetches.inc(n)
+
+    def on_adapter_evict(self, n: int = 1) -> None:
+        if n > 0:
+            self.adapter_evictions += n
+            self._m_adapter_evictions.inc(n)
+
+    def on_adapter_defer(self, n: int = 1) -> None:
+        """An admission was requeued waiting on its adapter's prefetch
+        instead of stalling the step."""
+        if n > 0:
+            self.adapter_deferrals += n
+            self._m_adapter_deferrals.inc(n)
+
+    def on_adapter_slots(self, total: int, resident: int,
+                         pinned: int) -> None:
+        """Gauge update after a pool state change (commit/evict)."""
+        self.adapter_slots = total
+        self.adapter_slots_resident = resident
+        self.adapter_slots_pinned = pinned
+        self._m_adapter_slots.set(total)
+        self._m_adapter_resident.set(resident)
+        self._m_adapter_pinned.set(pinned)
+
     def observe_queue_depth(self, depth: int) -> None:
         """Gauge update outside a step (e.g. right after submit)."""
         self.queue_depth = depth
@@ -559,6 +637,16 @@ class EngineMetrics:
             "spec_accepted": self.spec_accepted,
             "spec_acceptance_rate": _ratio(self.spec_accepted,
                                            self.spec_proposed),
+            "adapter_lookups": self.adapter_lookups,
+            "adapter_hits": self.adapter_hits,
+            "adapter_hit_rate": _ratio(self.adapter_hits,
+                                       self.adapter_lookups),
+            "adapter_prefetches": self.adapter_prefetches,
+            "adapter_evictions": self.adapter_evictions,
+            "adapter_prefetch_deferrals": self.adapter_deferrals,
+            "adapter_slots": self.adapter_slots,
+            "adapter_slots_resident": self.adapter_slots_resident,
+            "adapter_slots_pinned": self.adapter_slots_pinned,
         }
         self.queue_wait_s.fields("queue_wait_s", out)
         self.ttft_s.fields("ttft_s", out)
@@ -618,6 +706,16 @@ class NullEngineMetrics:
     def on_prefill_stall(self, n=1): pass
 
     def on_spec_round(self, rounds, proposed, accepted): pass
+
+    def on_adapter_lookup(self, hit): pass
+
+    def on_adapter_prefetch(self, n=1): pass
+
+    def on_adapter_evict(self, n=1): pass
+
+    def on_adapter_defer(self, n=1): pass
+
+    def on_adapter_slots(self, total, resident, pinned): pass
 
     def observe_queue_depth(self, depth): pass
 

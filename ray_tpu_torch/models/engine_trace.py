@@ -43,6 +43,10 @@ Span catalogue (name / lane / meaning):
 - ``spec_verify`` (engine ``drain`` lane): the host's acceptance
   accounting of one drained speculative block (args: window, rounds,
   proposed, accepted).
+- ``adapter_prefetch`` / ``adapter_evict`` (engine ``events`` lane,
+  instants): the adapter pool started a cold adapter's host-to-device
+  copy / evicted a refcount-0 resident for a committing one (args:
+  adapter_id).
 
 Speculative spans ride the ENGINE lanes: one round serves the whole
 batch, so a per-request span would break the per-request contiguity

@@ -74,9 +74,22 @@ def _cached_attention(q, k_cache, v_cache, q_slots, kv_valid_len,
     return out.to(q.dtype)
 
 
+def _lora_delta(x, ab, slots, dt):
+    """Per-row gathered low-rank delta: x [B, S, n_in] through the
+    row-selected adapter factors a [A, n_in, r] / b [A, r, n_out] (b
+    pre-scaled by alpha/rank at pool registration) -> [B, S, n_out] in
+    ``dt``. The gathered factors are cast to ``dt``, then ``(x @ a) @
+    b`` per row, in the JAX op order. Slot 0 holds the all-zero null
+    adapter, so base-only rows get an exactly-zero delta from the same
+    ops."""
+    a = ab["a"][slots].to(dt)                     # [B, n_in, r]
+    b = ab["b"][slots].to(dt)                     # [B, r, n_out]
+    return torch.bmm(torch.bmm(x, a), b)
+
+
 def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
                 q_slots, kv_valid_len, cfg: LlamaConfig, slot_live=None,
-                attend=None):
+                attend=None, lora=None, lora_slots=None):
     """The decoder-layer math shared by ALL cached decode paths:
     rmsnorm → q/k/v projections → RoPE → cache write → causal cached
     attention → attn residual → gated MLP residual.
@@ -87,11 +100,31 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
     v_cache)`` always, and optionally ``attend(q, k_cache, v_cache) ->
     o`` when the storage is not a dense [B, max_len] cache row (the
     paged engine passes `ops.attention.paged_attention`, and the dense
-    engine the same kernel over a block-table view of its cache)."""
+    engine the same kernel over a block-table view of its cache).
+
+    Multi-LoRA: ``lora`` (optional) is ONE layer's slice of the adapter
+    pool's stacks ({name: {"a": [A, n_in, r], "b": [A, r, n_out]}}) and
+    ``lora_slots`` [B] maps each row to its adapter slot; every
+    projection named in the stacks gains a per-row `_lora_delta` on top
+    of the shared base matmul (q/k/v before RoPE, wo on the flattened
+    attention output, w_gate/w_up on x, w_down on ``silu(gate) * up``).
+    With lora=None the body runs exactly the ops it ran before adapters
+    existed."""
+    dt = cfg.dtype
     x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", x, layer["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, layer["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, layer["wv"])
+    if lora is not None:
+        if "wq" in lora:
+            q = q + _lora_delta(x, lora["wq"], lora_slots,
+                                dt).reshape(q.shape)
+        if "wk" in lora:
+            k = k + _lora_delta(x, lora["wk"], lora_slots,
+                                dt).reshape(k.shape)
+        if "wv" in lora:
+            v = v + _lora_delta(x, lora["wv"], lora_slots,
+                                dt).reshape(v.shape)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     k_cache, v_cache = write_kv(k_cache, v_cache, k, v)
@@ -100,18 +133,42 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
     else:
         o = _cached_attention(q, k_cache, v_cache, q_slots, kv_valid_len,
                               cfg, slot_live=slot_live)
-    h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"])
+    attn_out = torch.einsum("bshk,hkd->bsd", o, layer["wo"])
+    if lora is not None and "wo" in lora:
+        o_flat = o.reshape(o.shape[0], o.shape[1], -1)
+        attn_out = attn_out + _lora_delta(o_flat, lora["wo"], lora_slots,
+                                          dt)
+    h = h + attn_out
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
     gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"])
     up = torch.einsum("bsd,df->bsf", x, layer["w_up"])
-    h = h + torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                         layer["w_down"])
+    if lora is not None:
+        if "w_gate" in lora:
+            gate = gate + _lora_delta(x, lora["w_gate"], lora_slots, dt)
+        if "w_up" in lora:
+            up = up + _lora_delta(x, lora["w_up"], lora_slots, dt)
+    act = F.silu(gate) * up
+    mlp_out = torch.einsum("bsf,fd->bsd", act, layer["w_down"])
+    if lora is not None and "w_down" in lora:
+        mlp_out = mlp_out + _lora_delta(act, lora["w_down"], lora_slots, dt)
+    h = h + mlp_out
     return h, k_cache, v_cache
 
 
 def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's slice of the stacked weights."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _lora_layer(adapters: Optional[Params], i: int) -> Optional[Params]:
+    """Layer i's slice of the adapter pool's stacks ({name: {"a": [L, A,
+    n_in, r], "b": [L, A, r, n_out]}}), or None without adapters. The
+    slices are views: a decode graph captured over them reads the
+    stacks' storage, which the pool only ever writes in place."""
+    if adapters is None:
+        return None
+    return {name: {"a": ab["a"][i], "b": ab["b"][i]}
+            for name, ab in adapters.items()}
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
@@ -148,7 +205,9 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
 
 
 def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
-                        starts: torch.Tensor, cfg: LlamaConfig
+                        starts: torch.Tensor, cfg: LlamaConfig, *,
+                        adapters: Optional[Params] = None,
+                        row_slot: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Cache]:
     """Run a token chunk [B, S] with a PER-ROW cache offset: row b's
     tokens land at cache slots ``starts[b] + i`` and attend that row's
@@ -160,7 +219,12 @@ def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
     tensor works as is, and the paged engine passes a per-layer view of
     its block pool, so only one layer's rows are ever materialized.
     Write-before-attend: the chunk's K/V are written before it attends,
-    and slots at or beyond the chunk are excluded by the causal mask."""
+    and slots at or beyond the chunk are excluded by the causal mask.
+
+    Multi-LoRA: ``adapters`` is the adapter pool's full stack tree
+    ({name: {"a": [L, A, n_in, r], "b": [L, A, r, n_out]}}) and
+    ``row_slot`` [B] maps each row to its adapter slot (0 = base only);
+    both None run the plain layers."""
     B, S = tokens.shape
     h = params["tok_embed"][tokens]
     slot_ids = starts.long()[:, None] + torch.arange(
@@ -175,7 +239,9 @@ def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
     for i in range(cfg.n_layers):
         k_c, v_c = cache["k"][i], cache["v"][i]
         h, k_c, v_c = _layer_body(h, _layer(params, i), k_c, v_c, slot_ids,
-                                  write_kv, slot_ids, k_c.shape[1], cfg)
+                                  write_kv, slot_ids, k_c.shape[1], cfg,
+                                  lora=_lora_layer(adapters, i),
+                                  lora_slots=row_slot)
         cache["k"][i] = k_c
         cache["v"][i] = v_c
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -1,9 +1,8 @@
 """Request-scheduler policies for the continuous-batching DecodeEngine.
 
 Own copy of `ray_tpu/models/scheduler.py` (the port imports nothing of
-the JAX package): the base policy, FIFO, priority and the prefix-
-affinity policy. The adapter-affinity policy waits for the multi-LoRA
-engine it serves (ROADMAP.md Queue A, A8).
+the JAX package): the base policy, FIFO, priority, the prefix-affinity
+policy and the adapter-affinity policy of the multi-LoRA engine.
 
 The policy picks which QUEUED request gets the next freed decode slot,
 plus the two admission-control knobs every production LLM server grows:
@@ -227,13 +226,75 @@ class PrefixAffinityPolicy(FIFOPolicy):
         return None
 
 
+class AdapterAffinityPolicy(FIFOPolicy):
+    """FIFO order, made multi-LoRA aware: cold-adapter requests wait on
+    their PREFETCH instead of stalling the admission round.
+
+    The engine (built with `lora=`) attaches a probe via
+    `attach_adapter_probe`: ``probe(adapter_id) -> (resident,
+    fetching)``, a pure host lookup in the AdapterPool's ledger. `pop`
+    scans the queue in FIFO order and SKIPS, for this admission round
+    only, any request whose adapter is not resident yet:
+
+    - its adapter's prefetch is IN FLIGHT: once `drain_prefetches`
+      commits it (at most a few steps), the request admits warm;
+    - a same-adapter request was already popped cold this round: the
+      first leads (the engine's gate starts its prefetch and requeues
+      it), the rest wait for that one transfer.
+
+    `pop` returns None when every queued request is deferred. Base-model
+    and resident-adapter requests always admit, and a deferred adapter's
+    prefetch commits after finitely many steps. Without a probe the
+    policy is plain FIFO. Like every policy it reorders admission
+    only."""
+
+    name = "adapter"
+
+    def __init__(self):
+        super().__init__()
+        self._probe = None
+        self._round_cold: set = set()   # adapter ids popped cold this round
+        self.deferrals = 0   # pops skipped to wait for a warm slot
+
+    def attach_adapter_probe(self, probe) -> None:
+        self._probe = probe
+
+    def begin_admission_round(self) -> None:
+        self._round_cold = set()
+
+    def pop(self):
+        if self._probe is None:
+            return super().pop()
+        for i, req in enumerate(self._q):
+            aid = getattr(req, "adapter_id", None)
+            if aid is None or getattr(req, "resume", False):
+                # Base-model rows gather the null slot; a preempted row
+                # is owed its restart (its re-admission re-runs the
+                # engine's adapter gate anyway).
+                del self._q[i]
+                return req
+            resident, fetching = self._probe(aid)
+            if resident:
+                del self._q[i]
+                return req
+            if fetching or aid in self._round_cold:
+                self.deferrals += 1
+                continue                 # warm next round: defer
+            self._round_cold.add(aid)    # cold leader for its adapter
+            del self._q[i]
+            return req
+        return None
+
+
 _POLICIES = {"fifo": FIFOPolicy, "priority": PriorityPolicy,
-             "prefix": PrefixAffinityPolicy}
+             "prefix": PrefixAffinityPolicy,
+             "adapter": AdapterAffinityPolicy}
 
 
 def make_policy(spec) -> SchedulerPolicy:
     """Resolve a policy spec: an instance passes through, a name
-    ("fifo" | "priority" | "prefix") constructs the built-in."""
+    ("fifo" | "priority" | "prefix" | "adapter") constructs the
+    built-in."""
     if isinstance(spec, SchedulerPolicy):
         return spec
     try:
@@ -246,4 +307,4 @@ def make_policy(spec) -> SchedulerPolicy:
 
 __all__ = ["EngineOverloaded", "EngineDraining", "SubmitTimeout",
            "SchedulerPolicy", "FIFOPolicy", "PriorityPolicy",
-           "PrefixAffinityPolicy", "make_policy"]
+           "PrefixAffinityPolicy", "AdapterAffinityPolicy", "make_policy"]

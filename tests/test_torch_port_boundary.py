@@ -140,7 +140,7 @@ class _Req:
         self.req_id, self.seq, self.priority = i, i, priority
 
 
-@pytest.mark.parametrize("policy", ["fifo", "priority", "prefix"])
+@pytest.mark.parametrize("policy", ["fifo", "priority", "prefix", "adapter"])
 def test_scheduler_copy_orders_like_original(policy):
     prio = [3, 0, 3, 1, 0, 2]
     orders = []
@@ -160,6 +160,8 @@ def test_scheduler_copy_orders_like_original(policy):
 
 def test_scheduler_copy_rejects_unknown_policy():
     with pytest.raises(ValueError, match="unknown scheduler policy"):
-        tsched.make_policy("adapter")
+        tsched.make_policy("nope")
     assert isinstance(tsched.make_policy(tsched.FIFOPolicy()),
                       tsched.FIFOPolicy)
+    assert isinstance(tsched.make_policy("adapter"),
+                      tsched.AdapterAffinityPolicy)

@@ -159,8 +159,7 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"lora": "lora"}, {"tp": 2},
-    {"mesh": "mesh"}, {"sanitize": True}],
+    {"tp": 2}, {"mesh": "mesh"}, {"sanitize": True}],
     ids=lambda k: next(iter(k)))
 def test_out_of_slice_knobs_raise(weights, knob):
     _, tp = weights
