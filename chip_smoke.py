@@ -130,22 +130,38 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
- 10. train   — bench.py:flagship_config()'s widths at full depth (only
-               remat_policy changed, to "full") train on batch 8 x 2048
-               tokens with f32 master weights and adamw(3e-4,
-               weight_decay=0.0): one warm-up step and 5 timed steps. The
+ 10. train   — bench.py:flagship_config() at full depth, its remat
+               policy "save:ffn_gate+ffn_up+ffn_down" included, trains
+               on batch 8 x 2048 tokens with f32 master weights and
+               adamw(3e-4, weight_decay=0.0) through the one-card
+               make_train_step: one warm-up step and 5 timed steps. The
                loss must fall, the kernels' launch counts must equal
                2 x layers x steps (forward and its recompute under remat)
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
- 11. lora-train — the train phase's config, batch and depth, adapters
+ 11. sharded-train — the same model, batch and optimizer the way
+               bench.py builds its step: a world of one NCCL rank (TCP
+               store on 127.0.0.1), create_mesh({"dp": 1}),
+               llama_param_specs and make_sharded_train_step; one warm-up
+               and 5 timed steps under bench.py's policy, then one
+               warm-up and 3 timed steps each under "save_dots" and
+               "full". Each run's first loss must be bit-equal to the
+               train phase's and its grad norm within 1e-6 relative, the
+               loss must fall, the kernels launch as in the train phase
+               and the plain attention never runs. Prints step ms,
+               tokens/s, MFU and peak memory per policy. Then, at 2
+               layers: two steps, save_pytree of params and AdamW state,
+               a third step; restored into fresh tensors, the third step
+               again must give a bit-equal loss and bit-equal leaves.
+               Prints the bytes written and the save and restore times.
+ 12. lora-train — the train phase's config, batch and depth, adapters
                only: LoraConfig(rank=8, targets=(wq, wv, w_gate)),
                adamw(1e-2), one warm-up and 5 timed steps. The loss must
                fall, the base stay bit-unchanged, every adapter leaf move
                and the kernels launch as in the full step. Prints step
                ms, tokens/s and peak memory beside the full step's.
- 12. parity  — one training step's loss, grad norm and gradients at the
+ 13. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
@@ -2222,13 +2238,14 @@ def train_phase(smi):
                                              train_batch)
 
     cfg = flagship_config()
-    log(f"[train] bench.py:flagship_config() widths at full depth: vocab "
+    assert cfg.remat_policy == BENCH_REMAT_POLICY
+    log(f"[train] bench.py:flagship_config() at full depth: vocab "
         f"{cfg.vocab_size}, dim {cfg.dim}, {cfg.n_layers} layers, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ffn {cfg.ffn_dim} "
-        f"({cfg.num_params() / 1e6:.1f} M params); bf16 activations, f32 "
-        f"master weights; batch {BATCH} x {SEQ} tokens; adamw(3e-4, "
-        f"weight_decay=0.0); changed: remat_policy {BENCH_REMAT_POLICY!r} "
-        f"-> 'full' (only full remat is ported, ROADMAP A11b)")
+        f"({cfg.num_params() / 1e6:.1f} M params), remat_policy "
+        f"{cfg.remat_policy!r}; bf16 activations, f32 master weights; "
+        f"batch {BATCH} x {SEQ} tokens; adamw(3e-4, weight_decay=0.0); "
+        f"make_train_step")
     torch.cuda.reset_peak_memory_stats()
     params, opt_state, step_fn = build_trainer(cfg)
     batch = train_batch(cfg)
@@ -2273,7 +2290,160 @@ def train_phase(smi):
     del params, opt_state, step_fn
     torch.cuda.empty_cache()
     return launches, {"step_ms": np.mean(times) * 1e3, "tok_s": tok_s,
-                      "peak": peak}
+                      "peak": peak, "loss0": losses[0], "norm0": norms[0]}
+
+
+SHARDED_RUNS = (("save:ffn_gate+ffn_up+ffn_down", 5), ("save_dots", 3),
+                ("full", 3))
+NORM_RTOL = 1e-6      # the one-rank all-reduce and norm against the train
+                      # phase's: the same gradients, summed as one group
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_run(smi, mesh, policy, steps, full):
+    """One policy through make_sharded_train_step: a warm-up step held
+    to the train phase's first loss and norm, then ``steps`` timed
+    steps. Returns the kernels' launches in the timed steps."""
+    from ray_tpu_torch.models.llama import llama_flops_per_token
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+    from ray_tpu_torch.profile_train import (BATCH, SEQ,
+                                             build_sharded_trainer,
+                                             flagship_config, train_batch)
+
+    cfg = flagship_config(remat_policy=policy)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, step_fn = build_sharded_trainer(cfg, mesh)
+    batch = train_batch(cfg)
+    with _plain_attention_forbidden():
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
+        torch.cuda.synchronize()
+        fak.fwd_launches = fak.dq_launches = fak.dkv_launches = 0
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            losses.append(m["loss"].item())       # waits for the step
+            norms.append(m["grad_norm"].item())
+            times.append(time.perf_counter() - t0)
+        launches = {"fwd": fak.fwd_launches, "dq": fak.dq_launches,
+                    "dkv": fak.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    label = f"[sharded-train] {policy!r}"
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), \
+        (label, losses, norms)
+    assert losses[0] == full["loss0"], \
+        f"{label}: first loss {losses[0]!r} != the train phase's " \
+        f"{full['loss0']!r}"
+    assert abs(norms[0] - full["norm0"]) <= NORM_RTOL * full["norm0"], \
+        f"{label}: first grad norm {norms[0]!r} vs {full['norm0']!r}"
+    assert losses[-1] < losses[0], f"{label}: loss did not fall {losses}"
+    L = cfg.n_layers
+    want = {"fwd": 2 * L * steps, "dq": L * steps, "dkv": L * steps}
+    assert launches == want, f"{label}: launches {launches} != {want}"
+    tok_s = BATCH * SEQ * steps / sum(times)
+    mfu = tok_s * llama_flops_per_token(cfg, SEQ) / BF16_FLOPS_PER_S
+    log(f"{label}: losses {[round(x, 4) for x in losses]}; first loss "
+        f"bit-equal to the train phase's ({losses[0]!r}), grad norm "
+        f"{norms[0]!r} vs {full['norm0']!r}; launches in {steps} steps: "
+        f"forward {launches['fwd']}, dq {launches['dq']}, dk/dv "
+        f"{launches['dkv']}; plain attention never ran")
+    log(f"{label}: step {np.mean(times) * 1e3:.1f} ms mean (min "
+        f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}); {tok_s:.0f} "
+        f"tokens/s; MFU {mfu:.2%} of 989 TFLOP/s bf16; peak memory "
+        f"{peak / 2**30:.2f} GiB; on {smi}")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _resume_check(mesh):
+    """Two steps at 2 layers, a checkpoint of params and AdamW state,
+    a third step; then the third step again from fresh tensors restored
+    from the checkpoint, bit for bit."""
+    import os
+    import tempfile
+
+    from ray_tpu_torch import adamw
+    from ray_tpu_torch.models.llama import llama_param_specs
+    from ray_tpu_torch.models.training import _leaves, _tree_map
+    from ray_tpu_torch.profile_train import (build_sharded_trainer,
+                                             flagship_config, train_batch)
+    from ray_tpu_torch.train.array_checkpoint import (restore_pytree,
+                                                      save_pytree)
+
+    cfg = flagship_config(n_layers=2)
+    specs = llama_param_specs(cfg)
+    opt = adamw(3e-4, weight_decay=0.0)         # build_sharded_trainer's
+    state_specs = opt.state_specs(specs)
+    params, opt_state, step_fn = build_sharded_trainer(cfg, mesh)
+    batch = train_batch(cfg)
+    with _plain_attention_forbidden(), \
+            tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):
+            params, opt_state, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(params, f"{tmp}/params", mesh=mesh, specs=specs)
+        save_pytree(opt.state_tree(opt_state, params), f"{tmp}/opt",
+                    mesh=mesh, specs=state_specs)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(tmp) for f in fs)
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        want = [x.detach().clone() for x in _leaves(params)]
+        want_loss = m["loss"].item()
+        del params, opt_state
+        t0 = time.perf_counter()
+        fresh = _tree_map(lambda x: x.requires_grad_(True), restore_pytree(
+            specs, f"{tmp}/params", mesh=mesh, specs=specs))
+        fstate = opt.init(fresh)
+        opt.load_state_tree(fstate, fresh, restore_pytree(
+            state_specs, f"{tmp}/opt", mesh=mesh, specs=state_specs))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        fresh, fstate, m = step_fn(fresh, fstate, batch)
+        got_loss = m["loss"].item()
+    same = [torch.equal(a.detach(), b) for a, b in zip(_leaves(fresh), want)]
+    line = (f"[sharded-train] resume at 2 layers: third step's loss "
+            f"{got_loss!r} resumed vs {want_loss!r} uninterrupted; "
+            f"{sum(same)}/{len(same)} leaves bit-equal; checkpoint "
+            f"{nbytes} bytes (params + AdamW state), save {t_save:.3f} s, "
+            f"restore {t_restore:.3f} s")
+    assert got_loss == want_loss and all(same), line + " FAILED"
+    log(line)
+
+
+def sharded_train_phase(smi, full):
+    """bench.py's way into training (see the module docstring); ``full``
+    is the train phase's numbers. Returns the kernels' launches under
+    bench.py's policy."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+
+    info = initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = create_mesh({"dp": 1})
+        log(f"[sharded-train] world of {info.num_processes} NCCL rank "
+            f"({dist.get_backend()}); mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; "
+            f"make_sharded_train_step(llama_loss, adamw(3e-4, "
+            f"weight_decay=0.0), mesh, llama_param_specs(cfg)) as "
+            f"bench.py:137-147")
+        launches = {policy: _sharded_run(smi, mesh, policy, steps, full)
+                    for policy, steps in SHARDED_RUNS}
+        _resume_check(mesh)
+    finally:
+        dist.destroy_process_group()
+    return launches[SHARDED_RUNS[0][0]]
 
 
 def parity_phase():
@@ -2351,6 +2521,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     tlaunches, full = phase("train", train_phase, smi)
+    slaunches = phase("sharded-train", sharded_train_phase, smi, full)
     llaunches = phase("lora-train", lora_train_phase, smi, full)
     phase("parity", parity_phase)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
@@ -2373,9 +2544,11 @@ def main():
                       "ray_tpu/ops/paged_attention_kernel.py:104",
                       spec_launches, kres[("bf16", 5, D)]),
     ] + [
-        # the adapter-only train step runs the same kernels and shapes
+        # the sharded and the adapter-only train steps run the same
+        # kernels and shapes
         _kernel_entry(name, sm90_src, f"{flash_py}:{line}", tlaunches[key],
                       main_flash[key], {"train": tlaunches[key],
+                                        "sharded-train": slaunches[key],
                                         "lora-train": llaunches[key]})
         for name, line, key in (("flash_fwd", 130, "fwd"),
                                 ("flash_bwd_dq", 192, "dq"),

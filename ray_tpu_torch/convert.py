@@ -1,5 +1,5 @@
 """Move a JAX-package Llama param tree, or a LoRA adapter tree, into
-the port's tensors.
+the port's tensors, and the port's param tree back to numpy.
 
 `ray_tpu.models.llama.llama_init` builds ``{"tok_embed", "layers":
 {name: [L, ...]}, "final_norm", "lm_head"}`` and
@@ -68,3 +68,23 @@ def lora_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, lora_cfg, *,
                 raise ValueError(f"{name}.{k}: shape {x.shape}, want {shape}")
             out[name][k] = torch.from_numpy(x).to(device=device, dtype=dtype)
     return {"layers": out}
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's param tree -> the numpy tree `params_from_numpy` and
+    `ray_tpu.models.llama` take (host copies). Leaves keep their dtype
+    where numpy has it; bf16 ones widen to f32 exactly (a bf16 value's
+    bits are the high half of its f32's), since numpy has no bf16."""
+    def conv(x):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            bits = x.view(torch.int16).numpy().view(np.uint16)
+            return (bits.astype(np.uint32) << 16).view(np.float32)
+        return x.numpy().copy()
+
+    return {
+        "tok_embed": conv(params["tok_embed"]),
+        "layers": {k: conv(v) for k, v in params["layers"].items()},
+        "final_norm": conv(params["final_norm"]),
+        "lm_head": conv(params["lm_head"]),
+    }

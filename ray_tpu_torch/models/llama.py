@@ -19,23 +19,30 @@ bf16 weights).
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention
 
 Params = Dict[str, Any]
 
-# checkpoint_name tags of the JAX package's remat_policy="save:...": each
-# marks one dot output in _decoder_layer. The port validates them and
-# implements remat_policy="full" only (ROADMAP A11b).
+# checkpoint_name tags of remat_policy="save:...": each marks one output
+# in _decoder_layer, as jax.ad_checkpoint.checkpoint_name does there.
 REMAT_SAVE_NAMES = frozenset(
     {"qkv", "attn_out", "wo_out", "ffn_gate", "ffn_up", "ffn_down"})
+# remat_policy="save_dots" (jax's dots_with_no_batch_dims_saveable): the
+# projections' products. The attention is no dot (B1 and its plain
+# version have batch dims), so it is recomputed.
+_DOT_NAMES = ("qkv", "wo_out", "ffn_gate", "ffn_up", "ffn_down")
 _ATTN_IMPLS = ("auto", "kernel", "reference", "ring", "ulysses")
 
 
@@ -65,9 +72,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16   # activations (and serving weights)
     remat: bool = True
     # Per-layer checkpoint policy of the JAX package: "full", "save_dots"
-    # or "save:<name>+<name>+..." (names in REMAT_SAVE_NAMES). The port
-    # runs "full" (torch.utils.checkpoint per layer); the others raise
-    # NotImplementedError when used (ROADMAP A11b).
+    # or "save:<name>+<name>+..." (names in REMAT_SAVE_NAMES); see
+    # `_remat_context`.
     remat_policy: str = "full"
     # Attention: "auto" launches the hand-written kernels on CUDA tensors
     # and runs the plain versions on CPU tensors; "kernel" and "reference"
@@ -152,19 +158,20 @@ def resolve_device(device) -> torch.device:
 
 
 def _layer_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
-    """name -> (per-layer shape, fan_in of the contraction or None for
-    a norm scale)."""
+    """name -> (per-layer shape, logical axes, fan_in of the contraction
+    or None for a norm scale)."""
     d, hd = cfg.dim, cfg.head_dim
     return {
-        "wq": ((d, cfg.n_heads, hd), d),
-        "wk": ((d, cfg.n_kv_heads, hd), d),
-        "wv": ((d, cfg.n_kv_heads, hd), d),
-        "wo": ((cfg.n_heads, hd, d), cfg.n_heads * hd),
-        "w_gate": ((d, cfg.ffn_dim), d),
-        "w_up": ((d, cfg.ffn_dim), d),
-        "w_down": ((cfg.ffn_dim, d), cfg.ffn_dim),
-        "attn_norm": ((d,), None),
-        "mlp_norm": ((d,), None),
+        "wq": ((d, cfg.n_heads, hd), ("embed", "heads", "head_dim"), d),
+        "wk": ((d, cfg.n_kv_heads, hd), ("embed", "kv", "head_dim"), d),
+        "wv": ((d, cfg.n_kv_heads, hd), ("embed", "kv", "head_dim"), d),
+        "wo": ((cfg.n_heads, hd, d), ("heads", "head_dim", "embed"),
+               cfg.n_heads * hd),
+        "w_gate": ((d, cfg.ffn_dim), ("embed", "mlp"), d),
+        "w_up": ((d, cfg.ffn_dim), ("embed", "mlp"), d),
+        "w_down": ((cfg.ffn_dim, d), ("mlp", "embed"), cfg.ffn_dim),
+        "attn_norm": ((d,), ("embed",), None),
+        "mlp_norm": ((d,), ("embed",), None),
     }
 
 
@@ -189,7 +196,7 @@ def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
         return x.mul_(std).to(dtype)
 
     layers = {}
-    for name, (shape, fan_in) in _layer_shapes(cfg).items():
+    for name, (shape, _, fan_in) in _layer_shapes(cfg).items():
         if fan_in is None:
             layers[name] = torch.ones((cfg.n_layers,) + shape, dtype=dtype,
                                       device=device)
@@ -204,6 +211,32 @@ def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
         "final_norm": torch.ones((cfg.dim,), dtype=dtype, device=device),
         "lm_head": normal((cfg.dim, cfg.vocab_size), cfg.dim ** -0.5),
     }
+
+
+def llama_logical_specs(cfg: LlamaConfig) -> Params:
+    """Tree of logical-axis tuples matching llama_init's tree."""
+    layer_specs = {name: ("layers",) + logical
+                   for name, (_, logical, _f) in _layer_shapes(cfg).items()}
+    return {
+        "tok_embed": ("vocab", "embed"),
+        "layers": layer_specs,
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def llama_param_specs(cfg: LlamaConfig, rules=None) -> Params:
+    """Tree of partition specs (tuples of mesh-axis names, see
+    `parallel.sharding.logical_to_mesh`) for the param tree under the
+    given rules (default `DEFAULT_RULES`)."""
+    from ray_tpu_torch.parallel.sharding import logical_to_mesh
+
+    def specs(tree):
+        if isinstance(tree, dict):
+            return {k: specs(v) for k, v in tree.items()}
+        return logical_to_mesh(tree, rules)
+
+    return specs(llama_logical_specs(cfg))
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -237,26 +270,123 @@ def _attention_call(q, k, v, cfg: LlamaConfig):
     out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     causal=True, impl=cfg.attn_impl,
                     block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
-    return out.transpose(1, 2)
+    with _named("attn_out"):
+        return out.transpose(1, 2)
+
+
+_CHECKPOINT_NAME = contextvars.ContextVar("checkpoint_name", default=None)
+_KEPT = contextvars.ContextVar("remat_kept", default=None)
+_PRODUCT_OPS = frozenset({torch.ops.aten.mm.default,
+                          torch.ops.aten.bmm.default})
+
+
+@dataclasses.dataclass
+class _Kept:
+    """One layer checkpoint's kept products: its forward appends them
+    (``replay`` False), its recompute takes them back in order."""
+
+    names: frozenset
+    values: collections.deque
+    replay: bool
+
+
+class _KeepProducts(TorchDispatchMode):
+    """Inside a named block that the policy saves: the forward keeps the
+    output of each matrix product (torch.einsum lowers to mm or bmm),
+    and the recompute returns it instead of running the product again.
+    Every other op runs both times, so autograd saves the same tensors in
+    the same order, as the checkpoint requires."""
+
+    def __init__(self, kept: _Kept):
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _PRODUCT_OPS:
+            return func(*args, **(kwargs or {}))
+        if self.kept.replay:
+            return self.kept.values.popleft()
+        out = func(*args, **(kwargs or {}))
+        self.kept.values.append(out.detach())
+        return out
+
+
+@contextlib.contextmanager
+def _named(name: str):
+    """`jax.ad_checkpoint.checkpoint_name` for the ops of the block: they
+    carry ``name`` while they dispatch, and inside a layer checkpoint
+    whose policy saves it (`_remat_context`) its products are kept."""
+    token = _CHECKPOINT_NAME.set(name)
+    kept = _KEPT.get()
+    try:
+        with (_KeepProducts(kept) if kept is not None and name in kept.names
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+@contextlib.contextmanager
+def _keeping(kept: _Kept):
+    token = _KEPT.set(kept)
+    try:
+        yield
+    finally:
+        _KEPT.reset(token)
+
+
+def _remat_context(cfg: LlamaConfig):
+    """The ``context_fn`` of each layer's checkpoint, or None under
+    "full" (only the layer's input is kept).
+
+    Under "save_dots" and "save:<names>" the layer's forward keeps the
+    products of the saved names and its recompute reruns everything
+    else, taking those back (`_KeepProducts`): JAX's policy over the
+    same names. The values, and so the gradients, are those of "full";
+    the weights' bf16 casts are recomputed, never kept. Two names keep
+    nothing, as JAX keeps no residual for them: attn_out is remade for
+    free, since B1 runs again in every policy for its lse (no named
+    value), and ffn_down's product feeds only the residual sum, which no
+    backward reads. The recompute stops at the last tensor the backward
+    needs (torch's early stop), which comes before that product, so no
+    policy reruns it either. Only the saved names' blocks dispatch
+    through Python; the rest of the layer runs as under "full"."""
+    if cfg.remat_policy == "full":
+        return None
+    names = frozenset(_DOT_NAMES if cfg.remat_policy == "save_dots"
+                      else _parse_save_names(cfg.remat_policy)) \
+        - {"attn_out", "ffn_down"}
+
+    def context_fn():
+        values = collections.deque()
+        return (_keeping(_Kept(names, values, replay=False)),
+                _keeping(_Kept(names, values, replay=True)))
+
+    return context_fn
 
 
 def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
                    cfg: LlamaConfig) -> torch.Tensor:
     dt = cfg.dtype
     x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", x, layer["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, layer["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, layer["wv"].to(dt))
+    with _named("qkv"):
+        q = torch.einsum("bsd,dhk->bshk", x, layer["wq"].to(dt))
+        k = torch.einsum("bsd,dhk->bshk", x, layer["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, layer["wv"].to(dt))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     o = _attention_call(q, k, v, cfg)
-    h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
+    with _named("wo_out"):
+        h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
 
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
-    gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(dt))
-    up = torch.einsum("bsd,df->bsf", x, layer["w_up"].to(dt))
-    return h + torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                            layer["w_down"].to(dt))
+    with _named("ffn_gate"):
+        gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(dt))
+    with _named("ffn_up"):
+        up = torch.einsum("bsd,df->bsf", x, layer["w_up"].to(dt))
+    act = F.silu(gate) * up
+    with _named("ffn_down"):
+        return h + torch.einsum("bsf,fd->bsd", act, layer["w_down"].to(dt))
 
 
 def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -265,12 +395,9 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     dtype) — the backbone without the vocab projection.
 
     With ``cfg.remat`` each layer runs under a non-reentrant
-    `torch.utils.checkpoint`: only its input is kept, and the backward
-    recomputes the layer (JAX's ``jax.checkpoint``, policy "full")."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported "
-            "(selective saving is ROADMAP A11b)")
+    `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` per layer), with
+    ``cfg.remat_policy`` deciding what the forward keeps
+    (`_remat_context`)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -282,10 +409,12 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                  params["layers"].items()}
     layer_fn = functools.partial(_decoder_layer, positions=positions,
                                  cfg=cfg)
+    context_fn = _remat_context(cfg) if cfg.remat else None
+    kw = {} if context_fn is None else {"context_fn": context_fn}
     for i in range(cfg.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
         if cfg.remat:
-            h = checkpoint(layer_fn, h, layer, use_reentrant=False)
+            h = checkpoint(layer_fn, h, layer, use_reentrant=False, **kw)
         else:
             h = layer_fn(h, layer)
     return _rmsnorm(h, params["final_norm"], cfg.norm_eps)

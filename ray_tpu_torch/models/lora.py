@@ -72,7 +72,8 @@ def lora_dims(cfg: LlamaConfig, lora_cfg: LoraConfig
               ) -> Dict[str, Tuple[int, int]]:
     """target name -> (n_in, n_out) of its flattened weight."""
     shapes = _layer_shapes(cfg)
-    return {name: _in_out_split(*shapes[name]) for name in lora_cfg.targets}
+    return {name: _in_out_split(shapes[name][0], shapes[name][2])
+            for name in lora_cfg.targets}
 
 
 @torch.no_grad()

@@ -1,20 +1,23 @@
 """Where the training time goes: profile one train step on the card.
 
     python3 -m ray_tpu_torch.profile_train [--layers N] [--steps N]
+        [--remat-policy POLICY]
 
 Builds the JAX package's flagship training configuration
 (`bench.py:flagship_config()`: vocab 32000, dim 1536, 16 layers, 12/12
-heads, ffn 4096, bf16 activations) with f32 master weights from
-``llama_init(seed=0, dtype=torch.float32)``, on a fixed seeded batch of
-8 x 2048 tokens, with ``adamw(3e-4, weight_decay=0.0)`` as bench.py's
-training measurement uses. One change: ``remat_policy="full"`` where
-bench.py saves the three FFN products, since the port runs full remat
-only (ROADMAP A11b); the numbers are the same. Takes one warm-up step,
-then profiles ``--steps`` steps under `torch.profiler` with CUDA
-activity and prints the device time summed by kernel family (the three
-flash-attention kernels, matrix products, the optimizer, the rest), the
-top kernels, the device-busy share of the wall time and the card's name
-and power limit. Needs one CUDA card.
+heads, ffn 4096, bf16 activations, ``remat_policy`` bench.py's
+"save:ffn_gate+ffn_up+ffn_down" unless ``--remat-policy`` names
+another) with f32 master weights from ``llama_init(seed=0,
+dtype=torch.float32)``, on a fixed seeded batch of 8 x 2048 tokens, and
+trains it as bench.py's training measurement does: `create_mesh({"dp":
+1})` over a world of one NCCL rank, ``llama_param_specs`` and
+`make_sharded_train_step` with ``adamw(3e-4, weight_decay=0.0)``.
+Takes one warm-up step, then profiles ``--steps`` steps under
+`torch.profiler` with CUDA activity and prints the device time summed by
+kernel family (the three flash-attention kernels, matrix products, the
+optimizer, collectives, the rest), the top kernels, the device-busy
+share of the wall time and the card's name and power limit. Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ BENCH_REMAT_POLICY = "save:ffn_gate+ffn_up+ffn_down"  # bench.py's choice
 
 
 def flagship_config(**kw):
-    """bench.py:flagship_config()'s widths, with remat_policy="full"."""
+    """bench.py:flagship_config(), its remat policy included."""
     from ray_tpu_torch.models.llama import LlamaConfig
 
     fields = dict(vocab_size=32000, dim=1536, n_layers=16, n_heads=12,
                   n_kv_heads=12, ffn_dim=4096, max_seq_len=2048, remat=True,
-                  remat_policy="full", attn_impl="kernel",
+                  remat_policy=BENCH_REMAT_POLICY, attn_impl="kernel",
                   flash_block_q=1024, flash_block_k=1024)
     fields.update(kw)
     return LlamaConfig(**fields)
@@ -50,7 +53,8 @@ def train_batch(cfg, seed: int = 1):
 
 
 def build_trainer(cfg):
-    """(params, opt_state, step_fn) at f32 master weights on the card."""
+    """(params, opt_state, step_fn) of the one-card `make_train_step` at
+    f32 master weights on the card."""
     from ray_tpu_torch import adamw, llama_loss, make_train_step
     from ray_tpu_torch.models.llama import llama_init
 
@@ -58,6 +62,21 @@ def build_trainer(cfg):
     init_fn, step_fn = make_train_step(
         lambda p, b: llama_loss(p, b, cfg), adamw(3e-4, weight_decay=0.0))
     params, opt_state = init_fn(params)
+    return params, opt_state, step_fn
+
+
+def build_sharded_trainer(cfg, mesh):
+    """(params, opt_state, step_fn) as bench.py builds its step
+    (`bench.py:137-147`): `make_sharded_train_step` over ``mesh`` with
+    `llama_param_specs`, from f32 master weights."""
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+
+    init_fn, step_fn = make_sharded_train_step(
+        lambda p, b: llama_loss(p, b, cfg), adamw(3e-4, weight_decay=0.0),
+        mesh, llama_param_specs(cfg))
+    params, opt_state = init_fn(
+        llama_init(cfg, seed=0, device="cuda", dtype=torch.float32))
     return params, opt_state, step_fn
 
 
@@ -80,6 +99,8 @@ def _family(name: str) -> str:
         return "matrix products (cuBLAS)"
     if "multi_tensor_apply" in n or "adam" in n:
         return "optimizer (multi-tensor)"
+    if "nccl" in n:
+        return "collectives (NCCL)"
     if "cross_entropy" in n or "softmax" in n or "reduce" in n \
             or "norm" in n:
         return "reductions / softmax / norms"
@@ -92,14 +113,21 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=16)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--remat-policy", default=BENCH_REMAT_POLICY)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = flagship_config(n_layers=args.layers)
-    params, opt_state, step_fn = build_trainer(cfg)
+    cfg = flagship_config(n_layers=args.layers,
+                          remat_policy=args.remat_policy)
+    initialize_distributed()
+    params, opt_state, step_fn = build_sharded_trainer(
+        cfg, create_mesh({"dp": 1}))
     batch = train_batch(cfg)
     params, opt_state, m = step_fn(params, opt_state, batch)  # warm-up
     torch.cuda.synchronize()
@@ -123,7 +151,8 @@ def main() -> None:
         us, n = fams.get(f, (0.0, 0))
         fams[f] = (us + e.self_device_time_total, n + e.count)
     print(f"[profile] train step, {cfg.n_layers} layers, batch {BATCH} x "
-          f"{SEQ}: {args.steps} steps, wall {wall:.3f} s "
+          f"{SEQ}, remat_policy {cfg.remat_policy!r}, make_sharded_train_step"
+          f" on {{'dp': 1}}: {args.steps} steps, wall {wall:.3f} s "
           f"({wall / args.steps * 1e3:.1f} ms/step under the profiler), "
           f"device busy {total_us / 1e6:.3f} s ({total_us / 1e6 / wall:.1%}"
           f" of wall); loss {m['loss'].item():.4f}; {card()}")
@@ -134,6 +163,9 @@ def main() -> None:
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   top: {e.self_device_time_total / 1e3:9.2f} ms "
               f"x{e.count:6d}  {e.key[:90]}")
+    print(f"[profile] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -79,6 +79,9 @@ def test_import_builds_and_probes_nothing():
         "import sys, torch, ray_tpu_torch\n"
         "from ray_tpu_torch import _build\n"
         "import ray_tpu_torch.models.engine, ray_tpu_torch.convert\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.train.array_checkpoint\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group was opened'\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')"
         " for m in sys.modules), 'jax/ray_tpu imported'\n"
         "assert not _build._libs, 'a kernel library was loaded'\n"

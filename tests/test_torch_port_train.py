@@ -199,17 +199,14 @@ def test_config_validation_matches_jax(kw):
         tllama.LlamaConfig(**kw)
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True, remat_policy="save_dots"),
-                                dict(remat=True,
-                                     remat_policy="save:ffn_gate+ffn_up"),
-                                dict(attn_impl="ring"),
+@pytest.mark.parametrize("kw", [dict(attn_impl="ring"),
                                 dict(attn_impl="ulysses")])
 def test_unported_options_raise_not_implemented(kw):
     """Valid JAX options the port does not run yet name their ROADMAP
     item instead of computing something else."""
     cfg = tllama.LlamaConfig.nano(**kw)
     params = tllama.llama_init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[12]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tllama.llama_forward(params, torch.zeros(1, 4, dtype=torch.long),
                              cfg)
 
