@@ -120,7 +120,29 @@ Phases, each of which must pass:
                within a 1e-3 logit gap). Prints tokens/s beside plain, ms
                and kernels per iteration, the adapter ops' ms, TTFT p50
                and the host-to-commit time of one adapter.
-  9. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+  9. fleet   — the serving fleet on the serve phase's model and traffic,
+               every replica a paged bf16 engine of the serve phase's
+               construction, all on one copy of the weights: (a) a
+               2-replica LLMFleet (router pow2_affinity); (b) the same
+               with FaultInjector killing replica r0 after its second
+               step; (c) disaggregated, 1 prefill-class + 1 decode-class
+               replica, on bf16 and int8 pools; (d) on the small phase's
+               f32 model, colocated, failover and disaggregated fleets.
+               Gates: every request gets its 32 tokens, B2 launches
+               n_layers x the decode iterations of every engine built,
+               every replica's blocks come back, the plain attention
+               never runs; (b) no token lost, >= 1 request recovered,
+               the tokens streamed before the kill kept verbatim; (c)
+               every handoff by swap (bytes in == bytes out > 0), the
+               decode replica prefills no prompt token, the first
+               handoff's pages, scale rows and logits byte for byte at
+               export and after the swap-in, each request's first token
+               the argmax of its carried logits; (d) each fleet's tokens
+               == solo generate. Prints tokens/s, TTFT p50 and TPOT mean
+               beside the serve phase's paged engine, (b)'s agreement
+               with (a) and the time from the kill to the last recovered
+               request's first new token, (c)'s bytes and ms per handoff.
+ 10. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
                edge cases (bf16 cases run the wgmma kernels, c_f32 the
@@ -130,7 +152,7 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
- 10. train   — bench.py:flagship_config() at full depth, its remat
+ 11. train   — bench.py:flagship_config() at full depth, its remat
                policy "save:ffn_gate+ffn_up+ffn_down" included, trains
                on batch 8 x 2048 tokens with f32 master weights and
                adamw(3e-4, weight_decay=0.0) through the one-card
@@ -140,7 +162,7 @@ Phases, each of which must pass:
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
- 11. sharded-train — the same model, batch and optimizer the way
+ 12. sharded-train — the same model, batch and optimizer the way
                bench.py builds its step: a world of one NCCL rank (TCP
                store on 127.0.0.1), create_mesh({"dp": 1}),
                llama_param_specs and make_sharded_train_step; one warm-up
@@ -155,13 +177,13 @@ Phases, each of which must pass:
                a third step; restored into fresh tensors, the third step
                again must give a bit-equal loss and bit-equal leaves.
                Prints the bytes written and the save and restore times.
- 12. lora-train — the train phase's config, batch and depth, adapters
+ 13. lora-train — the train phase's config, batch and depth, adapters
                only: LoraConfig(rank=8, targets=(wq, wv, w_gate)),
                adamw(1e-2), one warm-up and 5 timed steps. The loss must
                fall, the base stay bit-unchanged, every adapter leaf move
                and the kernels launch as in the full step. Prints step
                ms, tokens/s and peak memory beside the full step's.
- 13. parity  — one training step's loss, grad norm and gradients at the
+ 14. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
@@ -432,8 +454,12 @@ def kernel_phase():
     return results
 
 
-def small_phase():
-    from ray_tpu_torch import DecodeEngine, LlamaConfig
+def small_model():
+    """The small phase's 2-layer f32 model on the card, its 6 seeded
+    prompts and their 15 greedy tokens of solo `generate` (whose
+    attention is the plain `_cached_attention`): (cfg, params, prompts,
+    solo)."""
+    from ray_tpu_torch import LlamaConfig
     from ray_tpu_torch.models.generate import generate
     from ray_tpu_torch.models.llama import llama_init
 
@@ -447,6 +473,14 @@ def small_phase():
     solo = [generate(params, torch.tensor([p], device="cuda"), cfg,
                      max_new_tokens=15)[0, len(p):].tolist()
             for p in prompts]
+    return cfg, params, prompts, solo
+
+
+def small_phase():
+    from ray_tpu_torch import DecodeEngine
+    from ray_tpu_torch.models.llama import llama_init
+
+    cfg, params, prompts, solo = small_model()
     dcfg = dataclasses.replace(cfg, n_layers=1)
     drafts = {"none": {}, "1-layer draft": dict(
         draft_params=llama_init(dcfg, seed=2, device="cuda"),
@@ -644,7 +678,7 @@ def llama3_8b():
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    params = llama_init(cfg, seed=0, device="cuda")
+    params = llama_init(cfg, seed=0, device="cuda", dtype=cfg.dtype)
     torch.cuda.synchronize()
     log(f"[serve] Llama-3-8B ({cfg.num_params() / 1e9:.2f} B params, bf16)"
         f" initialised on the card in {time.perf_counter() - t0:.1f} s")
@@ -704,6 +738,13 @@ def serve_phase(smi, cfg, params):
         spans = [r["span_rate"] for r, _ in timed]
         s = timed[0][1]
         rates[label] = steady[0]
+        if label == "paged, depth 2":
+            # what the fleet phase prints its replicas' numbers beside
+            paged_run = {"steady": steady[0],
+                         "tokens_s": N_REQUESTS * NEW_TOKENS
+                         / timed[0][0]["wall"],
+                         "ttft_p50": timed[0][0]["ttft_p50"],
+                         "tpot_mean": s["tpot_s_mean"]}
         log(f"[serve] {label}: steady decode "
             + " / ".join(f"{x:.1f}" for x in steady)
             + " tokens/s (blocks after the first, card clock; trace span "
@@ -738,7 +779,7 @@ def serve_phase(smi, cfg, params):
         f"later tokens)")
     del eng_r
     torch.cuda.empty_cache()
-    return main_launches, rates
+    return main_launches, rates, paged_run
 
 
 # The kvmem phase: 16 requests in 2 groups of 8, each group sharing a
@@ -1328,7 +1369,7 @@ def spec_phase(smi, cfg, params, serve_rates):
     prompts = serve_prompts(cfg.vocab_size)
     dcfg = llama32_1b()
     t0 = time.perf_counter()
-    dparams = llama_init(dcfg, seed=1, device="cuda")
+    dparams = llama_init(dcfg, seed=1, device="cuda", dtype=dcfg.dtype)
     torch.cuda.synchronize()
     log(f"[spec] Llama-3.2-1B draft ({dcfg.num_params() / 1e9:.2f} B params"
         f" with an untied lm_head, bf16) initialised in "
@@ -2004,6 +2045,357 @@ def lora_phase(smi, cfg, params):
     return res[a_label][True]["run"]["launches"]
 
 
+# The fleet phase: every replica a paged engine of the serve phase's
+# construction (8 slots, 32-token blocks, max_len 2048, depth 2).
+FLEET_ENGINE = dict(batch_slots=8, max_len=2048, kv_block_tokens=32,
+                    paged=True, pipeline_depth=2, greedy=True)
+FLEET_KILL_STEP = 2             # replica r0 dies after its second step
+
+
+class _Built(list):
+    """An engine factory for `LLMFleet` that keeps every engine it
+    builds (the dead replica's too), so a run's B2 calls can be summed
+    over all of them."""
+
+    def __init__(self, params, cfg, **kw):
+        super().__init__()
+        self.params, self.cfg, self.kw = params, cfg, kw
+
+    def __call__(self, name):
+        from ray_tpu_torch import DecodeEngine
+
+        self.append(DecodeEngine(self.params, self.cfg, engine_id=name,
+                                 **self.kw))
+        return self[-1]
+
+
+def _fleet_run(fleet, prompts, new_tokens, inj=None):
+    """Submit every prompt to the fleet, then step it until nothing is
+    pending, counting B2's launches and timing each request's first
+    token on the host clock (from the last submit). With a fault
+    injector, also note the step its kill fired, the fleet requests the
+    dead replica held, the tokens each had streamed by then, and each
+    one's first token after it. Returns the fleet ids, the tokens and
+    the run's counts and times."""
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
+
+    fids = [fleet.submit(p, new_tokens) for p in prompts]
+    first, streamed, kill = {}, {f: [] for f in fids}, {}
+    torch.cuda.synchronize()
+    pak.launches = 0
+    t0 = time.perf_counter()
+    while fleet.pending():
+        held = {rep.name: set(rep.rid_to_fid.values())
+                for rep in fleet.replicas}
+        fired = len(inj.fired) if inj is not None else 0
+        emitted = fleet.step()
+        now = time.perf_counter() - t0
+        if inj is not None and len(inj.fired) > fired:
+            name = inj.fired[-1][0]
+            kill = {"t": now, "fids": held[name],
+                    "before": {f: list(streamed[f]) for f in held[name]},
+                    "first_after": {}}
+        for f, toks in emitted.items():
+            first.setdefault(f, now)
+            if kill and f in kill["fids"] and toks:
+                kill["first_after"].setdefault(f, now)
+            streamed[f].extend(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pak.launches
+    out = fleet.run()
+    toks = [out[f] for f in fids]
+    assert all(streamed[f] == out[f] for f in fids), \
+        "fleet: the streamed tokens differ from the results"
+    return fids, toks, {"launches": launches, "wall": wall,
+                        "tokens_s": sum(map(len, toks)) / wall,
+                        "ttft_p50": float(np.median(
+                            [first[f] for f in fids])),
+                        "kill": kill}
+
+
+def _tpot_sums(engines):
+    """(sum, count) of the engines' TPOT observations. An engine stamps
+    a token when it drains it, so this is exact per request; a fleet's
+    host loop sees one replica's tokens only when the fleet step, and so
+    the other replicas' steps, end."""
+    stats = [e.stats() for e in engines]
+    return (sum(s["tpot_s_mean"] * s["tpot_s_count"] for s in stats),
+            sum(s["tpot_s_count"] for s in stats))
+
+
+def _tpot_mean(engines, before=(0.0, 0)):
+    """The engines' mean time per output token since ``before`` (a
+    `_tpot_sums` snapshot): the engine metric the serve phase prints."""
+    total, n = _tpot_sums(engines)
+    return (total - before[0]) / (n - before[1])
+
+
+def _check_fleet(label, cfg, built, toks, run, new_tokens, fleet,
+                 replayed=True):
+    """Every request has its full budget, B2 ran n_layers per decode
+    iteration of every engine built and nothing else, decode graphs were
+    replayed (unless ``replayed`` is False: a short run may capture each
+    horizon's graph once and never replay it) and every replica's blocks
+    came back."""
+    assert all(len(t) == new_tokens for t in toks), \
+        f"{label}: {[len(t) for t in toks]} tokens"
+    assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
+    want = sum(_b2_calls(e) for e in built)
+    assert run["launches"] == want, \
+        f"{label}: kernel launches {run['launches']} != {want}"
+    assert not replayed or sum(e.stats()["decode_graph_replays"]
+                               for e in built) > 0, \
+        f"{label}: no decode graph replayed"
+    for rep in fleet.replicas:
+        assert rep.engine.kv_pool.blocks_in_use == 0, \
+            f"{label} {rep.name}: {rep.engine.kv_pool.blocks_in_use} " \
+            "blocks still in use"
+
+
+def _watch_handoffs(fleet):
+    """Wrap the split fleet's prefill engine's `export_request` and its
+    decode engine's `_swap_in_row`: record each handoff's bytes, its
+    export's host ms (gather, copy to pinned memory and the wait for it)
+    and its swap-in's card ms, and the argmax of the carried logits per
+    fleet request. The first handoff is held byte for byte: the payload
+    equals the prefill pool's blocks (pages and scale rows) and the
+    row's logits, and the decode engine's new chain and row logits
+    equal the payload after the swap-in."""
+    from ray_tpu_torch.ops.kv_quant import raw
+
+    rec = {"bytes": [], "export_ms": [], "import_ms": [], "argmax": {}}
+    by_class = {r.replica_class: r for r in fleet.replicas}
+    pre_rep, dec = by_class["prefill"], by_class["decode"].engine
+    pre = pre_rep.engine
+    export, swap_in = pre.export_request, dec._swap_in_row
+
+    def blocks(eng, ids):
+        idx = torch.tensor(ids, dtype=torch.long, device=eng.device)
+        return [raw(t).index_select(1, idx).cpu()
+                for t in eng._pool_tensors()]
+
+    def watched_export(rid):
+        row = next(b for b, r in enumerate(pre.row_req)
+                   if r is not None and r.req_id == rid)
+        first = "sent" not in rec
+        if first:
+            sent = blocks(pre, list(pre._row_blocks[row]))
+            logits = pre._last_logits[row].cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = export(rid)
+        rec["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        kv = h["kv"]
+        parts = [kv["k"], kv["v"]] + ([kv["sk"], kv["sv"]]
+                                      if kv["sk"] is not None else [])
+        rec["bytes"].append(sum(x.nbytes for x in parts)
+                            + kv["logits"].nbytes)
+        rec["argmax"][pre_rep.rid_to_fid[rid]] = int(kv["logits"].argmax())
+        if first:
+            n = kv["n_blocks"]
+            assert all(torch.equal(a, x[:, :n])
+                       for a, x in zip(sent, parts)), \
+                "handoff: the payload differs from the prefill pool's blocks"
+            assert torch.equal(logits, kv["logits"]), \
+                "handoff: the payload's logits differ from the row's"
+            rec.update(sent=sent, logits=logits, prompt=h["prompt"],
+                       blocks=n)
+        return h
+
+    def watched_swap_in(row, req, state):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ok = swap_in(row, req, state)
+        end.record()
+        end.synchronize()
+        if ok and req.handoff:
+            rec["import_ms"].append(start.elapsed_time(end))
+            if req.prompt == rec.get("prompt") and "back" not in rec:
+                back = blocks(dec, dec._row_blocks[row])
+                assert all(torch.equal(a, b)
+                           for a, b in zip(rec["sent"], back)), \
+                    "handoff: the decode chain's bytes differ from the " \
+                    "prefill pool's"
+                assert torch.equal(dec._last_logits[row].cpu(),
+                                   rec["logits"]), \
+                    "handoff: the decode row's logits differ"
+                rec["back"] = True
+        return ok
+
+    pre.export_request, dec._swap_in_row = watched_export, watched_swap_in
+    return rec
+
+
+def _fleet_exact(cfg, params, prompts, solo):
+    """(d): on the small f32 model, a colocated, a failover and a split
+    fleet of paged engines each emit exactly solo `generate`'s greedy
+    tokens (plain attention)."""
+    from ray_tpu_torch import FaultInjector, LLMFleet
+
+    kw = dict(batch_slots=4, max_len=128, kv_block_tokens=16, paged=True)
+    for label in ("colocated", "failover", "disaggregated"):
+        built = _Built(params, cfg, **kw)
+        inj = (FaultInjector(schedule={"exact-r0": [(1, "kill")]})
+               if label == "failover" else None)
+        fleet = (LLMFleet(built, disaggregated=True, prefill_replicas=1,
+                          decode_replicas=1, fleet_id="exact")
+                 if label == "disaggregated" else
+                 LLMFleet(built, initial_replicas=2, fleet_id="exact",
+                          fault_injector=inj))
+        with _plain_attention_forbidden():
+            _, toks, run = _fleet_run(fleet, prompts, 15, inj)
+        _check_fleet(f"fleet exact {label}", cfg, built, toks, run, 15,
+                     fleet, replayed=False)
+        assert toks == solo, f"fleet exact {label}: tokens != solo generate"
+        assert inj is None or (inj.fired and fleet.requests_recovered >= 1)
+        assert label != "disaggregated" or \
+            fleet.handoffs == len(prompts) > 0
+    log(f"[fleet] (d) f32 2-layer model: colocated, failover (r0 killed at "
+        f"its step 1) and disaggregated fleets == solo generate (plain "
+        f"attention) on {len(prompts)} requests x 15 tokens")
+
+
+def _warm_passes(fleet, params, cfg, prompts):
+    """The same traffic again on ``fleet`` (2 replicas, graphs captured
+    by its first pass) and, twice, on a 1-replica fleet of the same
+    construction, the second pass warm: {replicas: run}. No gate beyond
+    every request's budget: routing, and so the rows a GEMM batches, may
+    differ from the first pass."""
+    from ray_tpu_torch import LLMFleet
+
+    one = LLMFleet(_Built(params, cfg, **FLEET_ENGINE),
+                   initial_replicas=1, fleet_id="fleet-one")
+    out = {}
+    with _plain_attention_forbidden():
+        for n, f, passes in ((2, fleet, 1), (1, one, 2)):
+            engines = [r.engine for r in f.replicas]
+            for _ in range(passes):
+                before = _tpot_sums(engines)
+                _, toks, out[n] = _fleet_run(f, prompts, NEW_TOKENS)
+                assert all(len(t) == NEW_TOKENS for t in toks)
+            out[n]["tpot_mean"] = _tpot_mean(engines, before)
+    del one
+    return out
+
+
+def fleet_phase(smi, cfg, params, paged_run):
+    """The serving fleet over port engines on Llama-3-8B (see the module
+    docstring); returns fleet (a)'s B2 launches."""
+    from ray_tpu_torch import FaultInjector, LLMFleet
+
+    prompts = serve_prompts(cfg.vocab_size)
+    log(f"[fleet] the serve traffic ({N_REQUESTS} requests, {NEW_TOKENS} "
+        f"new tokens, greedy); every replica a paged bf16 engine with 8 "
+        f"slots, 32-token blocks, max_len 2048, pipeline depth 2, all on "
+        f"one copy of the weights")
+    out = {}
+    for label in ("colocated", "failover"):
+        built = _Built(params, cfg, **FLEET_ENGINE)
+        inj = (FaultInjector(schedule={
+            f"fleet-{label}-r0": [(FLEET_KILL_STEP, "kill")]})
+            if label == "failover" else None)
+        fleet = LLMFleet(built, initial_replicas=2, router="pow2_affinity",
+                         fleet_id=f"fleet-{label}", fault_injector=inj)
+        with _plain_attention_forbidden():
+            fids, toks, run = _fleet_run(fleet, prompts, NEW_TOKENS, inj)
+        _check_fleet(f"fleet {label}", cfg, built, toks, run, NEW_TOKENS,
+                     fleet)
+        s = fleet.stats()
+        run["tpot_mean"] = _tpot_mean(built)
+        out[label] = (toks, run, s)
+        if label == "colocated":
+            warm = _warm_passes(fleet, params, cfg, prompts)
+        if inj is not None:
+            kill = run["kill"]
+            assert inj.fired == [(f"fleet-{label}-r0", FLEET_KILL_STEP,
+                                  "kill")], inj.fired
+            assert s["tokens_lost_to_failure"] == 0.0
+            assert s["requests_recovered"] >= 1.0 and kill["fids"]
+            for f in kill["fids"]:
+                got = toks[fids.index(f)]
+                assert got[:len(kill["before"][f])] == kill["before"][f], \
+                    f"failover: request {f} lost the tokens it had emitted"
+            recover_s = max(kill["first_after"][f] for f in kill["fids"]) \
+                - kill["t"]
+        del fleet, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    toks_a, run_a, s_a = out["colocated"]
+    toks_b, run_b, s_b = out["failover"]
+    log(f"[fleet] (a) colocated, 2 replicas, router pow2_affinity: "
+        f"{run_a['tokens_s']:.1f} tokens/s end to end (wall "
+        f"{run_a['wall']:.3f} s), TTFT p50 {run_a['ttft_p50']:.4f} s, TPOT "
+        f"mean {run_a['tpot_mean'] * 1e3:.2f} ms; B2 launches "
+        f"{run_a['launches']} = {cfg.n_layers} layers x the replicas' "
+        f"decode iterations; routed {int(s_a['requests_routed'])} (pow2 wins "
+        f"{int(s_a['router_pow2_wins'])}); beside the serve phase's single "
+        f"paged engine: {paged_run['tokens_s']:.1f} tokens/s end to end "
+        f"({paged_run['steady']:.1f} steady), TTFT p50 "
+        f"{paged_run['ttft_p50']:.4f} s, TPOT mean "
+        f"{paged_run['tpot_mean'] * 1e3:.2f} ms; on {smi}")
+    log(f"[fleet] (a) warm, the same traffic again on engines whose graphs "
+        f"are captured: 2 replicas {warm[2]['tokens_s']:.1f} tokens/s end to"
+        f" end, TTFT p50 {warm[2]['ttft_p50']:.4f} s, TPOT mean "
+        f"{warm[2]['tpot_mean'] * 1e3:.2f} ms; 1 replica "
+        f"{warm[1]['tokens_s']:.1f} tokens/s, TTFT p50 "
+        f"{warm[1]['ttft_p50']:.4f} s, TPOT mean "
+        f"{warm[1]['tpot_mean'] * 1e3:.2f} ms")
+    agree = sum(x == y for a, b in zip(toks_a, toks_b) for x, y in zip(a, b))
+    log(f"[fleet] (b) failover: r0 killed at its step {FLEET_KILL_STEP} "
+        f"holding {len(run_b['kill']['fids'])} requests; recovered "
+        f"{int(s_b['requests_recovered'])}, retries {int(s_b['retries'])}, "
+        f"tokens lost {int(s_b['tokens_lost_to_failure'])}; kill to the "
+        f"last recovered request's first new token {recover_s:.3f} s; "
+        f"greedy tokens agreeing with (a) {agree}/{N_REQUESTS * NEW_TOKENS}"
+        f" = {agree / (N_REQUESTS * NEW_TOKENS):.3f} (bf16 recompute can "
+        f"flip near ties); {run_b['tokens_s']:.1f} tokens/s end to end, "
+        f"B2 launches {run_b['launches']}")
+    for quant in (None, "int8"):
+        label = quant or "bf16"
+        built = _Built(params, cfg, **dict(FLEET_ENGINE, kv_quant=quant))
+        fleet = LLMFleet(built, disaggregated=True, prefill_replicas=1,
+                         decode_replicas=1, fleet_id=f"fleet-split-{label}")
+        rec = _watch_handoffs(fleet)
+        with _plain_attention_forbidden():
+            fids, toks, run = _fleet_run(fleet, prompts, NEW_TOKENS)
+        _check_fleet(f"fleet split {label}", cfg, built, toks, run,
+                     NEW_TOKENS, fleet)
+        s = fleet.stats()
+        dec = [e for e in built if not e.prefill_only]
+        assert s["handoffs"] == N_REQUESTS == len(rec["bytes"])
+        assert s["handoff_in_bytes"] == s["handoff_out_bytes"] \
+            == sum(rec["bytes"]) > 0, "a handoff went by recompute"
+        assert all(e.stats()["prefill_real_tokens"] == 0 for e in dec), \
+            "the decode replica prefilled prompt tokens"
+        assert rec.get("back"), "the first handoff was never swapped in"
+        for f, t in zip(fids, toks):
+            assert t[0] == rec["argmax"][f], \
+                f"split {label}: request {f}'s first token is not the " \
+                "argmax of its carried logits"
+        mb = np.mean(rec["bytes"]) / 1e6
+        ems, ims = np.mean(rec["export_ms"]), np.mean(rec["import_ms"])
+        log(f"[fleet] (c) disaggregated {label}: 1 prefill + 1 decode "
+            f"replica, {N_REQUESTS} handoffs by swap, "
+            f"{mb:.2f} MB a handoff ({min(rec['bytes']) / 1e6:.2f}-"
+            f"{max(rec['bytes']) / 1e6:.2f}; pages, scale rows and logits; "
+            f"first: {rec['blocks']} blocks, byte for byte both ways); "
+            f"export {ems:.2f} ms (host clock, {mb / ems:.2f} GB/s), "
+            f"swap-in {ims:.2f} ms (card, {mb / ims:.2f} GB/s); "
+            f"{run['tokens_s']:.1f} tokens/s end to end, TTFT p50 "
+            f"{run['ttft_p50']:.4f} s (submit to first token across the "
+            f"handoff), TPOT mean {_tpot_mean(dec) * 1e3:.2f} ms, beside "
+            f"(a)'s {run_a['ttft_p50']:.4f} s / "
+            f"{run_a['tpot_mean'] * 1e3:.2f} ms; on {smi}")
+        del fleet, built, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    _fleet_exact(*small_model())
+    return run_a["launches"]
+
+
 def lora_train_phase(smi, full):
     """The adapter-only train step at the train phase's widths, batch
     and depth (see the module docstring); ``full`` is the train phase's
@@ -2510,10 +2902,13 @@ def main():
     fres = phase("flash", flash_phase)
     phase("small", small_phase)
     cfg, params = phase("init", llama3_8b)
-    launches, serve_rates = phase("serve", serve_phase, smi, cfg, params)
+    launches, serve_rates, paged_run = phase("serve", serve_phase, smi, cfg,
+                                             params)
     phase("kvmem", kvmem_phase, smi, cfg, params)
     spec_launches = phase("spec", spec_phase, smi, cfg, params, serve_rates)
     lora_launches = phase("lora", lora_phase, smi, cfg, params)
+    fleet_launches = phase("fleet", fleet_phase, smi, cfg, params,
+                           paged_run)
     # kvmem's swap watchers tie engines (and through them the weights)
     # in reference cycles: collect them before the train phase measures
     # its peak memory
@@ -2535,8 +2930,10 @@ def main():
                       "ray_tpu_torch/csrc/paged_attention.cu",
                       "ray_tpu/ops/paged_attention_kernel.py:104",
                       launches, kres[("bf16", 1, D)],
-                      # the multi-LoRA path: engine (a)'s timed run
-                      {"serve": launches, "lora": lora_launches}),
+                      # the multi-LoRA path: engine (a)'s timed run; the
+                      # fleet: colocated fleet (a), both replicas
+                      {"serve": launches, "lora": lora_launches,
+                       "fleet": fleet_launches}),
         # the speculative path: engine (a)'s launches, the verify pass's
         # shape (S = 5) timed
         _kernel_entry("paged_attention (speculative round, S=5 verify)",

@@ -6,7 +6,9 @@ The port mirrors the JAX package's module paths (`models/llama.py`,
 of it. Today it serves Llama models through the `DecodeEngine` (a dense
 per-slot cache by default, or a paged block pool; an async run-ahead
 ring; on the card the decode loop replayed as CUDA graphs; many LoRA
-adapters in one batch), with decode
+adapters in one batch) and serves N engines as one system through
+`LLMFleet` (routing, autoscaling, health and deterministic failover,
+disaggregated prefill/decode with KV handoff), with decode
 attention on a hand-written Hopper kernel (`csrc/paged_attention.cu`),
 and trains them through `make_sharded_train_step` over a `DeviceMesh`
 of dcn/dp/fsdp axes (`ray_tpu_torch.parallel`; NCCL on the card, gloo on
@@ -22,6 +24,10 @@ is compiled by `ray_tpu_torch._build` at its first launch.
 """
 
 from ray_tpu_torch.models.engine import DecodeEngine
+from ray_tpu_torch.models.fault_injection import FaultInjector, InjectedFault
+from ray_tpu_torch.models.fleet import (FleetAutoscalingConfig, FleetError,
+                                        FleetHealthConfig, LLMFleet,
+                                        ReplicaUnavailable, RetriesExhausted)
 from ray_tpu_torch.models.llama import (LlamaConfig, llama_forward,
                                         llama_loss)
 from ray_tpu_torch.models.lora import (LoraConfig, lora_init, lora_merge,
@@ -30,7 +36,9 @@ from ray_tpu_torch.models.training import (adamw, make_sharded_train_step,
                                           make_train_step)
 from ray_tpu_torch.ops.attention import paged_attention
 
-__all__ = ["DecodeEngine", "LlamaConfig", "LoraConfig", "adamw",
-           "llama_forward", "llama_loss", "lora_init", "lora_merge",
-           "make_lora_train_step", "make_sharded_train_step",
-           "make_train_step", "paged_attention"]
+__all__ = ["DecodeEngine", "FaultInjector", "FleetAutoscalingConfig",
+           "FleetError", "FleetHealthConfig", "InjectedFault", "LLMFleet",
+           "LlamaConfig", "LoraConfig", "ReplicaUnavailable",
+           "RetriesExhausted", "adamw", "llama_forward", "llama_loss",
+           "lora_init", "lora_merge", "make_lora_train_step",
+           "make_sharded_train_step", "make_train_step", "paged_attention"]

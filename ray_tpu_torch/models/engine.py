@@ -93,9 +93,22 @@ dispatch in flight, so the decode graphs stay valid. Adapter rows
 bypass the prefix cache. ``scheduler="adapter"`` groups admissions by
 residency. Speculative decoding and LoRA are exclusive, as in JAX.
 
+The fleet surface (`models/fleet.py` serves N engines as one system):
+``submit(resume_tokens=)`` resumes a request that already emitted tokens
+on a replica that died (prompt + those tokens are re-prefilled, the
+budget and the sampling stream continue at their count); `halt`
+abandons the engine's work without completing it and keeps ``results``
+for the fleet to rebuild from; ``prefill_only`` parks each row whose
+prefill completed (`handoff_ready`) instead of decoding it, and
+`export_request` / `import_request` move such a request to another
+engine: a paged payload carries the row's pages (quantized bytes and
+scale rows verbatim) and its logits, which the importer scatters back
+through the swap path with no re-prefill; anything else re-prefills.
+Every engine registers weakly with `ray_tpu_torch.util.state.serving`.
+
 Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: tensor parallelism (A9), fleet failover resume (A10)
-and the runtime sanitizer (A14).
+ROADMAP.md item: tensor parallelism (A9) and the runtime sanitizer
+(A14).
 """
 
 from __future__ import annotations
@@ -117,11 +130,11 @@ from ray_tpu_torch.models.adapter_pool import (ADAPTER_STATS_KEYS,
 from ray_tpu_torch.models.generate import (_check_sampling_knobs, _layer,
                                            _layer_body, _lora_layer,
                                            forward_cached_rows, init_cache,
-                                           key_words, sample_rows)
+                                           key_data, key_words, sample_rows)
 from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm
 from ray_tpu_torch.models.prefix_cache import PrefixCacheIndex, block_bytes
 from ray_tpu_torch.models.scheduler import (EngineDraining,
-                                            EngineOverloaded,
+                                            EngineOverloaded, FIFOPolicy,
                                             SchedulerPolicy, SubmitTimeout,
                                             make_policy)
 from ray_tpu_torch.models.speculative import SpecMetrics, SpecStats
@@ -130,6 +143,7 @@ from ray_tpu_torch.ops.attention import paged_attention
 from ray_tpu_torch.ops.kv_quant import (KVQuantSpec, block_scale,
                                         dequantize, paged_quant_write,
                                         quantize, raw, resolve_kv_quant)
+from ray_tpu_torch.util.state.serving import register_engine
 
 Params = Dict[str, Any]
 
@@ -878,7 +892,7 @@ class _DecodeGraphs:
 class _Request:
     __slots__ = ("req_id", "prompt", "max_new_tokens", "tokens", "done",
                  "priority", "seq", "rng", "deadline", "shed", "resume",
-                 "greedy", "adapter_id")
+                 "greedy", "adapter_id", "handoff")
 
     def __init__(self, req_id: int, prompt: List[int],
                  max_new_tokens: int, priority: int = 0, seq: int = 0,
@@ -897,6 +911,7 @@ class _Request:
         self.resume = False         # preempted; re-queued to recompute
         self.greedy = None          # per-request decode-mode override
         self.adapter_id = None      # LoRA adapter (None = base model)
+        self.handoff = False        # imported from a prefill-class engine
 
 
 class _PrefillState:
@@ -1165,7 +1180,7 @@ class DecodeEngine:
             self.kv_bytes_per_token = float(2 * L * KV * D
                                             * cfg.dtype.itemsize)
             self.kv_bytes_per_block = 0.0
-            use_b2 = cfg.attn_impl == "kernel" or (
+            use_b2 = cfg.attn_impl in ("kernel", "flash") or (
                 cfg.attn_impl == "auto" and self.device.type == "cuda")
             span = self.max_len
             self._view_bt = None
@@ -1176,6 +1191,7 @@ class DecodeEngine:
                     self.B * (span // T), dtype=torch.int32,
                     device=self.device).view(self.B, span // T)
             self.cache = init_cache(cfg, self.B, span, device=self.device)
+            self.kv_pool = None
             self._pool_k = self._pool_v = None
             if prefix_cache:
                 bb = block_bytes(L, prefix_block, KV, D, cfg.dtype.itemsize)
@@ -1278,6 +1294,8 @@ class DecodeEngine:
         self.shed_ids: set = set()      # finished as past-deadline sheds
         self.requests_shed = 0
         self.draining = False
+        self.halted = False             # `halt`: work abandoned
+        self.tp_degree = 1              # tensor parallelism is A9
         self._row_prefill: Dict[int, _PrefillState] = {}
         # Plain-int accounting (reported with enable_metrics=False too).
         self.decode_dispatches = 0     # decode loops launched
@@ -1301,6 +1319,18 @@ class DecodeEngine:
         self.swap_outs = 0             # swap-mode spills to the host
         self.swap_in_bytes = 0         # host->device swap traffic
         self.swap_out_bytes = 0        # device->host swap traffic
+        # The disaggregated prefill/decode plane: the fleet sets
+        # `prefill_only` on prefill-class replicas, whose step() then
+        # parks each row whose prefill completed in `_handoff_ready`
+        # instead of decoding it, for `export_request`.
+        self.prefill_only = False
+        self.replica_class = None      # "prefill" / "decode" / None
+        self._handoff_ready: List[int] = []   # parked req ids, oldest first
+        self._handoff_ready_set: set = set()
+        self.handoffs_out = 0          # requests exported post-prefill
+        self.handoffs_in = 0           # requests imported for decode
+        self.handoff_out_bytes = 0     # KV + logits bytes staged to host
+        self.handoff_in_bytes = 0      # KV + logits bytes accepted
         # Async pipeline: dispatched-but-undrained decode steps, oldest
         # first.
         self._ring: collections.deque = collections.deque()
@@ -1310,6 +1340,8 @@ class DecodeEngine:
         self._pl_depth_n = 0
         self._start_t = clock()
         self.steps_total = 0
+        # Weak: the serving state API lists the engine while it lives.
+        register_engine(self)
 
     def _init_pool(self, kv_block_tokens: Optional[int], prefix_block: int,
                    kv_pool_bytes: Optional[int],
@@ -1430,7 +1462,7 @@ class DecodeEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt: List[int], max_new_tokens: int = 32,
-               priority: int = 0, rng: Optional[int] = None,
+               priority: int = 0, rng=None,
                deadline_s: Optional[float] = None,
                greedy: Optional[bool] = None,
                resume_tokens: Optional[List[int]] = None,
@@ -1440,8 +1472,10 @@ class DecodeEngine:
         ``priority`` (lower = sooner) orders the priority policy. A full
         bounded queue raises EngineOverloaded (on_full="reject") or
         drives the engine until a slot frees (on_full="block"). ``rng``
-        (an int seed) pins this request's sampling stream: its sampled
-        tokens then equal solo ``generate(..., rng=rng)``. ``greedy``
+        (an int seed, or a raw uint32[2] key such as the one a fleet
+        pins: `generate.key_data`) pins this request's sampling stream:
+        its sampled tokens then equal solo ``generate(..., rng=rng)``.
+        ``greedy``
         overrides the engine-wide decode mode for this request.
         ``deadline_s`` is the admission SLO: a request still queued when
         it passes is SHED (finished with zero tokens, listed in
@@ -1451,9 +1485,18 @@ class DecodeEngine:
         as every other row; a cold adapter defers the request at the
         admission gate while its weights are copied to the device.
         None serves the base model, token-identical to an engine without
-        lora=. ``resume_tokens`` (fleet failover) is not ported yet."""
-        if resume_tokens:
-            raise _unported("fleet failover resume (resume_tokens=)", "A10")
+        lora=.
+
+        ``resume_tokens`` is the fleet's failover path: tokens this
+        request ALREADY emitted on a replica that died. Admission
+        re-prefills prompt + resume_tokens (as a recompute preemption
+        does), the budget and the sampling-stream index start at
+        len(resume_tokens), and the final ``tokens`` list is
+        resume_tokens plus what is decoded here: the same stream as a
+        run that never failed, since a token's noise depends only on the
+        request's key and its index. Pass the original ``rng``. A
+        resumed request is exempt from deadline shedding, and its replay
+        is not registered in the prefix trie."""
         if adapter_id is not None:
             if self.adapter_pool is None:
                 raise ValueError(
@@ -1484,6 +1527,19 @@ class DecodeEngine:
                 f"exceeds engine max_len {self.max_len}: the verify chunk "
                 "writes up to spec_window slots past the last emitted "
                 "token, so speculative engines need that margin")
+        resume = None
+        if resume_tokens:
+            resume = [int(t) for t in resume_tokens]
+            if len(resume) >= max_new_tokens:
+                raise ValueError(
+                    f"resume_tokens ({len(resume)}) must be shorter than "
+                    f"max_new_tokens ({max_new_tokens}): a completed "
+                    "request has nothing to resume")
+            if deadline_s is not None:
+                raise ValueError(
+                    "resume_tokens and deadline_s are mutually exclusive: "
+                    "a resumed request was admitted once and is exempt "
+                    "from deadline shedding")
         if self.paged:
             # A request must fit the pool alone in the worst case (every
             # other row preempted) or it could never complete.
@@ -1497,7 +1553,7 @@ class DecodeEngine:
                     " raise kv_pool_bytes or shrink the request")
         deadline = (None if deadline_s is None
                     else self._clock() + deadline_s)
-        key = None if rng is None else key_words(int(rng))
+        key = None if rng is None else key_data(rng)
         req = _Request(self._next_id, prompt, max_new_tokens,
                        priority=priority, seq=self._next_id, rng=key,
                        deadline=deadline)
@@ -1528,6 +1584,16 @@ class DecodeEngine:
                         f"queue still full ({self.max_queue} queued "
                         f"requests) after blocking {self.block_timeout_s}s")
                 self.step()
+        if resume is not None:
+            # Continue, not restart: admission replays prompt + these
+            # tokens and the sampling stream picks up at len(resume).
+            req.tokens = resume
+            req.resume = True
+            if self.paged:
+                # the recompute swap-in path replays prompt + tokens
+                self._swapped[req.req_id] = _SwapState(
+                    None, 0, 0, len(resume), max_new_tokens - len(resume),
+                    None)
         self._next_id += 1
         self.scheduler.push(req)
         self.results[req.req_id] = req
@@ -1615,6 +1681,24 @@ class DecodeEngine:
         # hold an intermediate chunk's. They ride along frozen and take
         # their next chunk next step.
         decodable = [b for b in live if b not in self._row_prefill]
+        if self.prefill_only:
+            # Prefill-class replica: a row whose prefill completed holds
+            # its final last_logits at token index 0, a preemption at
+            # its first token. Park it for `export_request` instead of
+            # decoding: no decode dispatch runs here, so the ring stays
+            # empty and no parked row enters a decode graph.
+            for b in decodable:
+                rid = self.row_req[b].req_id
+                if rid not in self._handoff_ready_set:
+                    self._handoff_ready_set.add(rid)
+                    self._handoff_ready.append(rid)
+                    if self.trace.enabled:
+                        self.trace.instant(
+                            "handoff_ready", lane="events",
+                            args={"req": rid,
+                                  "prompt_tokens": int(self.row_len[b])})
+            self.metrics.on_step(len(live), len(self.scheduler), 0)
+            return emitted
         if len(decodable) < len(live):
             self.chunked_prefill_stalls += 1
             self.metrics.on_prefill_stall()
@@ -1999,6 +2083,61 @@ class DecodeEngine:
         self.begin_drain()
         return self.run()
 
+    def halt(self) -> None:
+        """Abandon this engine's work WITHOUT completing it: the fleet's
+        failure path, the opposite of drain. Discards the async ring (its
+        blocks are never replayed) and the prefill frontiers, releases
+        every live row's paged blocks (blocks the prefix trie shares
+        survive through the trie's own references) and every row's and
+        pending admission's adapter-slot reference, drops the handoff
+        lists, the swap ledger and the queue, and refuses new submits.
+        ``results`` (prompt, emitted tokens, priority) is KEPT: the
+        fleet rebuilds failover resubmissions from it. Idempotent; never
+        raises, since the engine may be arbitrarily broken."""
+        if self.halted:
+            return
+        self.halted = True
+        self.draining = True
+        if self.trace.enabled:
+            self.trace.instant(
+                "halt", lane="events",
+                args={"queued": len(self.scheduler),
+                      "live_rows": sum(r is not None for r in self.row_req),
+                      "inflight_steps": len(self._ring)})
+        self._ring.clear()
+        self._row_prefill.clear()
+        for row in range(self.B):
+            if self.paged:
+                try:
+                    self._release_row_blocks(row)
+                except Exception:    # never raise: the engine may be broken
+                    pass
+            if self._row_slot[row] and self.adapter_pool is not None:
+                try:
+                    self.adapter_pool.decref(int(self._row_slot[row]))
+                except Exception:
+                    pass
+            self._row_slot[row] = 0
+            self.row_req[row] = None
+            self.row_len[row] = 0
+            self.row_budget[row] = 0
+            self._tok_idx[row] = 0
+        if self.adapter_pool is not None:
+            for slot in self._pending_slots.values():
+                try:
+                    self.adapter_pool.decref(slot)
+                except Exception:
+                    pass
+        self._pending_slots.clear()
+        self._handoff_ready.clear()
+        self._handoff_ready_set.clear()
+        if self.paged:
+            self._swapped.clear()
+        # A fresh empty policy, not N pops: a deferring policy could
+        # return None forever once its probe's world is gone. The queued
+        # requests stay reachable through `results`.
+        self.scheduler = FIFOPolicy()
+
     def dump_trace(self, path: Optional[str] = None) -> List[dict]:
         """chrome://tracing export of the request-lifecycle spans."""
         return self.trace.dump(path, pid=self.engine_id)
@@ -2068,8 +2207,11 @@ class DecodeEngine:
         proposed / rounds, draft seedings). The multi-LoRA plane:
         ``adapter_enabled``, ``adapter_prefetch_deferrals`` and the
         adapter pool's ``adapter_*`` keys (registered, slots, resident,
-        pinned, lookups, hits, hit rate, prefetches, evictions). Every
-        key is published, 0 where its feature is off."""
+        pinned, lookups, hits, hit rate, prefetches, evictions). The
+        handoff plane: ``prefill_only``, ``handoffs_*``,
+        ``handoff_*_bytes``, ``requests_handoff_ready``; ``tp_degree``
+        is 1 (tensor parallelism is A9). Every key is published, 0 where
+        its feature is off."""
         def _ratio(num: float, den: float) -> float:
             return num / den if den else 0.0
 
@@ -2167,6 +2309,16 @@ class DecodeEngine:
             out["spec_kv_pool_blocks_in_use"] = float(
                 self.kv_pool_d.blocks_in_use)
         # The multi-LoRA plane: identically 0.0 with no adapter pool.
+        # The disaggregated-handoff plane: 0 on a colocated engine.
+        out.update({
+            "prefill_only": 1.0 if self.prefill_only else 0.0,
+            "handoffs_out": float(self.handoffs_out),
+            "handoffs_in": float(self.handoffs_in),
+            "handoff_out_bytes": float(self.handoff_out_bytes),
+            "handoff_in_bytes": float(self.handoff_in_bytes),
+            "requests_handoff_ready": float(len(self._handoff_ready)),
+            "tp_degree": float(self.tp_degree),
+        })
         out["adapter_enabled"] = (1.0 if self.adapter_pool is not None
                                   else 0.0)
         out["adapter_prefetch_deferrals"] = float(self.adapter_deferrals)
@@ -2307,6 +2459,19 @@ class DecodeEngine:
             if self.trace.enabled:
                 self.trace.close("queue_wait", req.req_id)
                 self.trace.instant("admit", req.req_id, {"row": row})
+            if req.resume and req.tokens:
+                # Fleet failover resume: re-prefill prompt + emitted
+                # tokens (the K/V the dead replica held) and continue at
+                # the saved token index. No trie traffic: emitted tokens
+                # are not a shareable prompt.
+                replay = list(req.prompt) + list(req.tokens)
+                self._bind_row(row, req, [], 0)
+                self.row_budget[row] = req.max_new_tokens - len(req.tokens)
+                self._tok_idx[row] = len(req.tokens)
+                self._row_prefill[row] = _PrefillState(req, 0, [],
+                                                       prompt=replay)
+                draft_seeds.append((row, replay))
+                continue
             start = 0
             nodes: list = []
             # Adapter rows BYPASS the prefix trie: their K/V depends on
@@ -2725,6 +2890,162 @@ class DecodeEngine:
                 {"mode": "swap", "bytes": swap.nbytes,
                  "blocks": swap.n_blocks})
         return True
+
+    # -- disaggregated prefill/decode handoff ------------------------------
+
+    def handoff_ready(self) -> List[int]:
+        """Request ids parked after their prefill on a prefill-only
+        engine, oldest first, each waiting for the fleet to
+        `export_request` it. Always empty on a colocated engine."""
+        return list(self._handoff_ready)
+
+    def _pool_shape(self) -> Tuple[int, int, int]:
+        """(L, KV, D) of the paged pool: what a handoff payload must
+        match to be scattered in verbatim."""
+        return tuple(int(self._pool_k.shape[i]) for i in (0, 3, 4))
+
+    def export_request(self, req_id: int) -> dict:
+        """Extract a request whose prefill completed: the engine half of
+        the disaggregated prefill->decode handoff.
+
+        The request must be bound to a live row that is NOT
+        mid-chunked-prefill, with the ring empty (a prefill-only engine
+        never dispatches decode, so its ring always is). A paged engine
+        gathers the row's blocks through `_swap_out_gather` (pages, a
+        quantized pool's raw bytes and scale rows, verbatim) with the
+        row's next-token logits, and waits for their copy to pinned host
+        memory; a dense engine exports no bytes and the importer
+        re-prefills. Either way the row's blocks and adapter pin are
+        released, and the request leaves this engine, ``results``
+        included.
+
+        The payload has the JAX package's keys: ``req_id``, ``prompt``,
+        ``max_new_tokens``, ``priority``, ``greedy``, ``rng``,
+        ``adapter_id``, ``tokens`` and ``kv`` (None, or ``k``, ``v``,
+        ``sk``, ``sv`` [host tensors], ``n_blocks``, ``row_len``,
+        ``tok_idx``, ``budget``, ``logits``, ``block_tokens``, ``quant``
+        and ``pool_shape``). Token identity holds because a completed
+        prefill IS a preemption at token index 0: the importer samples
+        the first token from the carried logits with the same key."""
+        row = next((b for b, r in enumerate(self.row_req)
+                    if r is not None and r.req_id == req_id), None)
+        if row is None:
+            raise RuntimeError(
+                f"export_request: request {req_id} is not bound to a row "
+                "(still queued, already finished, or unknown)")
+        if row in self._row_prefill:
+            raise RuntimeError(
+                f"export_request: request {req_id} is still mid-chunked-"
+                "prefill; export only after its frontier completes (see "
+                "handoff_ready())")
+        if self._ring:
+            raise RuntimeError(
+                "export_request needs a drained pipeline (in-flight decode "
+                "blocks still reference row state); export between steps")
+        req = self.row_req[row]
+        kv = None
+        nbytes = 0
+        if self.paged:
+            ids = self._row_blocks[row]
+            nbp = _pow2(max(1, len(ids)))
+            bids = np.zeros((nbp,), np.int64)
+            bids[:len(ids)] = ids
+            parts = _swap_out_gather(self._pool_tensors(), self._dev(bids))
+            blocks = [_host_async(x) for x in
+                      parts + [self._last_logits[row].clone()]]
+            for b in blocks:
+                if b.event is not None:
+                    b.event.synchronize()
+            host = [b.data for b in blocks]
+            k, v, lg = host[0], host[1], host[-1]
+            sk, sv = (host[2], host[3]) if len(host) == 5 else (None, None)
+            nbytes = sum(x.nbytes for x in host)
+            kv = {"k": k, "v": v, "sk": sk, "sv": sv,
+                  "n_blocks": len(ids),
+                  "row_len": int(self.row_len[row]),
+                  "tok_idx": int(self._tok_idx[row]),
+                  "budget": int(self.row_budget[row]),
+                  "logits": lg,
+                  "block_tokens": self.prefix_block,
+                  "quant": self.kv_quant,
+                  "pool_shape": self._pool_shape()}
+            self._release_row_blocks(row)
+        # the importer's admission gate re-pins on its own pool
+        self._release_row_slot(row)
+        handoff = {"req_id": req.req_id,
+                   "prompt": list(req.prompt),
+                   "max_new_tokens": req.max_new_tokens,
+                   "priority": req.priority,
+                   "greedy": req.greedy,
+                   "rng": req.rng,
+                   "adapter_id": req.adapter_id,
+                   "tokens": list(req.tokens),
+                   "kv": kv}
+        self.row_req[row] = None
+        self.row_len[row] = 0
+        self.row_budget[row] = 0
+        self._tok_idx[row] = 0
+        self._row_greedy[row] = bool(self.greedy)
+        self.results.pop(req.req_id, None)
+        if req.req_id in self._handoff_ready_set:
+            self._handoff_ready_set.discard(req.req_id)
+            self._handoff_ready.remove(req.req_id)
+        self.handoffs_out += 1
+        self.handoff_out_bytes += nbytes
+        self.metrics.on_handoff_out(req.req_id, nbytes)
+        if self.trace.enabled:
+            self.trace.span_since_mark(
+                "handoff_export", req.req_id,
+                {"bytes": nbytes,
+                 "blocks": 0 if kv is None else kv["n_blocks"],
+                 "tokens": len(req.tokens)})
+        return handoff
+
+    def import_request(self, handoff: dict) -> int:
+        """Admit a request exported from another engine: the decode half
+        of the handoff. It is submitted under THIS engine's queue
+        discipline (same key, greedy mode, priority, adapter). A payload
+        that fits this pool (paged, same block size, same quantization,
+        same (L, KV, D)) seeds the swap ledger, so admission scatters
+        its bytes back through `_swap_in_scatter` and the row decodes at
+        once, with no re-prefill; any other payload runs by recompute
+        (prompt + emitted tokens re-prefilled), slower but the same
+        tokens. Returns the request's id on this engine."""
+        kv = handoff.get("kv")
+        toks = handoff.get("tokens") or []
+        rid = self.submit(
+            handoff["prompt"], handoff["max_new_tokens"],
+            priority=handoff.get("priority", 0), rng=handoff.get("rng"),
+            greedy=handoff.get("greedy"), resume_tokens=toks or None,
+            adapter_id=handoff.get("adapter_id"))
+        req = self.results[rid]
+        req.handoff = True
+        compatible = (
+            kv is not None and self.paged
+            and kv["block_tokens"] == self.prefix_block
+            and kv["quant"] == self.kv_quant
+            and tuple(kv["pool_shape"]) == self._pool_shape())
+        nbytes = 0
+        if compatible:
+            # replaces the recompute entry a resume may have planted
+            parts = [kv["k"], kv["v"]]
+            if kv["sk"] is not None:
+                parts += [kv["sk"], kv["sv"]]
+            swap = _SwapState([_HostBlock(x, None) for x in parts],
+                              kv["n_blocks"], kv["row_len"], kv["tok_idx"],
+                              kv["budget"], _HostBlock(kv["logits"], None))
+            self._swapped[rid] = swap
+            req.resume = True
+            nbytes = swap.nbytes
+        self.handoffs_in += 1
+        self.handoff_in_bytes += nbytes
+        self.metrics.on_handoff_in(nbytes)
+        if self.trace.enabled:
+            self.trace.span_since_mark(
+                "handoff_import", rid,
+                {"bytes": nbytes,
+                 "mode": "swap" if compatible else "recompute"})
+        return rid
 
     def _release_row_blocks(self, row: int) -> None:
         """Drop the row's reference on its chain and point the table

@@ -8,10 +8,11 @@ prefill padding and chunked-prefill stalls, the async decode pipeline
 (lookups, hits, reused tokens, evictions), the paged KV pool
 (occupancy, zero-copy shares, copy-on-write, preemptions, swap bytes),
 speculative decoding (rounds, proposed and accepted draft tokens,
-acceptance rate) and multi-LoRA serving (adapter lookups, hits,
-prefetches, evictions, deferrals and slot residency). The
-tensor-parallel and handoff planes come with those engine features
-(ROADMAP.md Queue A).
+acceptance rate), multi-LoRA serving (adapter lookups, hits,
+prefetches, evictions, deferrals and slot residency) and the
+disaggregated prefill->decode handoff (requests and bytes each way).
+The tensor-parallel plane comes with that engine feature (ROADMAP.md
+Queue A9).
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -139,6 +140,10 @@ class EngineMetrics:
         self.preemptions = 0
         self.swap_in_bytes = 0
         self.swap_out_bytes = 0
+        self.handoffs_out = 0
+        self.handoffs_in = 0
+        self.handoff_out_bytes = 0
+        self.handoff_in_bytes = 0
         self.kv_pool_blocks_total = 0
         self.kv_pool_blocks_in_use = 0
         self.kv_pool_blocks_free = 0
@@ -262,6 +267,21 @@ class EngineMetrics:
         self._m_swap_in = counter(
             "llm_engine_swap_in_bytes_total",
             "Bytes restored host->device by preemption swap-ins")
+        self._m_handoffs_out = counter(
+            "llm_engine_handoffs_out_total",
+            "Requests exported post-prefill to a decode-class replica "
+            "(disaggregated fleet handoff)")
+        self._m_handoffs_in = counter(
+            "llm_engine_handoffs_in_total",
+            "Requests imported from a prefill-class replica for decode "
+            "(disaggregated fleet handoff)")
+        self._m_handoff_out = counter(
+            "llm_engine_handoff_out_bytes_total",
+            "KV + logits bytes staged device->host by handoff exports")
+        self._m_handoff_in = counter(
+            "llm_engine_handoff_in_bytes_total",
+            "KV + logits bytes accepted by handoff imports (swap "
+            "pre-seed; 0 for a recompute import)")
         self._m_kv_pool_total = gauge(
             "llm_engine_kv_pool_blocks",
             "KV pool size in blocks (null block excluded)")
@@ -487,6 +507,24 @@ class EngineMetrics:
             self.swap_in_bytes += nbytes
             self._m_swap_in.inc(nbytes)
 
+    def on_handoff_out(self, req_id: int, nbytes: int) -> None:
+        """A request left this engine mid-flight (prefill->decode
+        handoff): its per-request timing record goes with it, since the
+        importing engine owns TTFT/TPOT from here."""
+        self.handoffs_out += 1
+        self._m_handoffs_out.inc()
+        if nbytes > 0:
+            self.handoff_out_bytes += nbytes
+            self._m_handoff_out.inc(nbytes)
+        self._req.pop(req_id, None)
+
+    def on_handoff_in(self, nbytes: int) -> None:
+        self.handoffs_in += 1
+        self._m_handoffs_in.inc()
+        if nbytes > 0:
+            self.handoff_in_bytes += nbytes
+            self._m_handoff_in.inc(nbytes)
+
     def on_kv_pool(self, total: int, in_use: int, free: int,
                    bytes_per_token: float = 0.0) -> None:
         """Gauge update at step end: pool occupancy in blocks, plus the
@@ -621,6 +659,10 @@ class EngineMetrics:
             "preemptions": self.preemptions,
             "swap_in_bytes": self.swap_in_bytes,
             "swap_out_bytes": self.swap_out_bytes,
+            "handoffs_out": self.handoffs_out,
+            "handoffs_in": self.handoffs_in,
+            "handoff_out_bytes": self.handoff_out_bytes,
+            "handoff_in_bytes": self.handoff_in_bytes,
             "kv_pool_blocks_total": self.kv_pool_blocks_total,
             "kv_pool_blocks_in_use": self.kv_pool_blocks_in_use,
             "kv_pool_blocks_free": self.kv_pool_blocks_free,
@@ -698,6 +740,10 @@ class NullEngineMetrics:
     def on_swap_out(self, nbytes): pass
 
     def on_swap_in(self, nbytes): pass
+
+    def on_handoff_out(self, req_id, nbytes): pass
+
+    def on_handoff_in(self, nbytes): pass
 
     def on_kv_pool(self, total, in_use, free, bytes_per_token=0.0): pass
 

@@ -47,6 +47,19 @@ Span catalogue (name / lane / meaning):
   instants): the adapter pool started a cold adapter's host-to-device
   copy / evicted a refcount-0 resident for a committing one (args:
   adapter_id).
+- ``handoff_export`` / ``handoff_import`` (req): a request leaving a
+  prefill-class engine (args: bytes, blocks, tokens) / entering a
+  decode-class one (args: bytes, mode "swap" or "recompute").
+- ``handoff_ready`` (engine ``events`` lane, instant): a prefill-only
+  engine parked a row whose prefill completed (args: req,
+  prompt_tokens).
+- ``halt`` (engine ``events`` lane, instant): the fleet abandoned the
+  engine (args: queued, live_rows, inflight_steps).
+
+`models/fleet.py` records its own span ``route`` and instants
+(``replica_*``, ``breaker_open``, ``failover_scheduled``, ``failover``,
+``handoff``, ``handoff_placed``) through a tracer of this class, and its
+`dump_trace` stitches the replicas' traces in.
 
 Speculative spans ride the ENGINE lanes: one round serves the whole
 batch, so a per-request span would break the per-request contiguity

@@ -288,6 +288,20 @@ def key_words(seed: int) -> Tuple[int, int]:
     return seed & _M32, (seed >> 32) & _M32
 
 
+def key_data(rng) -> Tuple[int, int]:
+    """Any accepted form of a sampling key as its two 32-bit words: an
+    int is a 64-bit seed (`key_words`); a uint32[2] array or a pair of
+    ints is a raw key, taken word for word (the form the fleet pins per
+    request, the JAX package's ``_key_data``)."""
+    if isinstance(rng, (int, np.integer)):
+        return key_words(int(rng))
+    words = np.asarray(rng).reshape(-1)
+    if words.size != 2:
+        raise ValueError(f"a raw sampling key has 2 words, got "
+                         f"{words.size}")
+    return int(words[0]) & _M32, int(words[1]) & _M32
+
+
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """32-bit integer finalizer on int64 lanes holding [0, 2**32)
     (products stay below 2**63, so nothing overflows)."""
@@ -357,7 +371,7 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
              greedy: bool = True, eos_id: Optional[int] = None,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              prompt_live: Optional[torch.Tensor] = None,
-             rng: Optional[int] = None) -> torch.Tensor:
+             rng=None) -> torch.Tensor:
     """prompt [B, P] int (on the params' device) -> [B, P +
     max_new_tokens].
 
@@ -367,7 +381,8 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
     distribution restricted by `filter_logits`; token i of every row
     uses the noise of (``rng``, i) — see the module docstring — so a
     row's stream equals the serving engine's for a request submitted
-    with the same ``rng``.
+    with the same ``rng`` (an int seed or a raw uint32[2] key,
+    `key_data`).
 
     Ragged batches: LEFT-pad prompts to a common length and pass
     ``prompt_live`` [B, P] (True = real token). Pad slots are masked out
@@ -387,7 +402,7 @@ def generate(params: Params, prompt: torch.Tensor, cfg: LlamaConfig, *,
     logits, cache = forward_cached(params, prompt, cache, 0, cfg,
                                    positions=positions, slot_live=slot_live)
     last = logits[:, -1]
-    keys = torch.tensor([key_words(0 if rng is None else rng)] * B,
+    keys = torch.tensor([key_data(0 if rng is None else rng)] * B,
                         dtype=torch.int64, device=device)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     toks = []
@@ -415,7 +430,7 @@ def generate_stream(params: Params, prompt: torch.Tensor,
                     greedy: bool = True, top_k: Optional[int] = None,
                     top_p: Optional[float] = None,
                     prompt_live: Optional[torch.Tensor] = None,
-                    rng: Optional[int] = None):
+                    rng=None):
     """Decode as a Python generator yielding one [B] numpy token array
     per step — the token-streaming path (`generate` is the batch path).
     Stops early once every row has emitted eos. Ragged batches and
@@ -455,7 +470,7 @@ def _stream_inner(params, prompt, cfg, max_new_tokens, eos_id,
     logits, cache = _prefill_step(params, prompt, cache, cfg,
                                   positions=positions, slot_live=slot_live)
     last = logits[:, -1]
-    keys = torch.tensor([key_words(0 if rng is None else rng)] * B,
+    keys = torch.tensor([key_data(0 if rng is None else rng)] * B,
                         dtype=torch.int64, device=device)
     done = np.zeros((B,), bool)
     for step in range(max_new_tokens):

@@ -9,12 +9,12 @@ JAX package's layout — every per-layer weight stacked with a leading
 ``[n_layers]`` axis, `wq` ``[L, d, H, hd]``, `wo` ``[L, H, hd, d]`` — so
 the einsum strings carry over verbatim.
 
-Storage dtype: `llama_init` builds weights in ``cfg.dtype`` unless the
-caller asks for another one. Serving stores them in cfg.dtype (bf16)
-once; training keeps f32 master weights (``dtype=torch.float32``, the
-JAX ``param_dtype``), and `_decoder_layer` casts each one to cfg.dtype
-right before its einsum, as the JAX package does (a no-op on serving's
-bf16 weights).
+Storage dtype: `llama_init` builds weights in ``cfg.param_dtype`` (f32
+master weights by default, as the JAX package does) unless the caller
+asks for another one. Serving stores them in cfg.dtype (bf16) once
+(``dtype=cfg.dtype``); training keeps the master weights, and
+`_decoder_layer` casts each one to cfg.dtype right before its einsum, as
+the JAX package does (a no-op on serving's bf16 weights).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ REMAT_SAVE_NAMES = frozenset(
 # projections' products. The attention is no dot (B1 and its plain
 # version have batch dims), so it is recomputed.
 _DOT_NAMES = ("qkv", "wo_out", "ffn_gate", "ffn_up", "ffn_down")
-_ATTN_IMPLS = ("auto", "kernel", "reference", "ring", "ulysses")
+_ATTN_IMPLS = ("auto", "kernel", "flash", "reference", "ring", "ulysses")
 
 
 def _parse_save_names(policy: str) -> list:
@@ -70,15 +70,17 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16   # activations (and serving weights)
+    param_dtype: torch.dtype = torch.float32   # master weights (llama_init)
     remat: bool = True
     # Per-layer checkpoint policy of the JAX package: "full", "save_dots"
     # or "save:<name>+<name>+..." (names in REMAT_SAVE_NAMES); see
     # `_remat_context`.
     remat_policy: str = "full"
     # Attention: "auto" launches the hand-written kernels on CUDA tensors
-    # and runs the plain versions on CPU tensors; "kernel" and "reference"
-    # force one (ops.attention.attention / paged_attention). "ring" and
-    # "ulysses" wait for long context (ROADMAP A12).
+    # and runs the plain versions on CPU tensors; "kernel" (or "flash",
+    # the JAX package's name for it) and "reference" force one
+    # (ops.attention.attention / paged_attention). "ring" and "ulysses"
+    # wait for long context (ROADMAP A12).
     attn_impl: str = "auto"
     # The JAX flash kernel's tile sizes (None = kernel default). Validated
     # and passed on; the CUDA kernels use their own compile-time tiles.
@@ -179,15 +181,15 @@ def _layer_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda",
                dtype: Optional[torch.dtype] = None) -> Params:
     """Seeded random weights built on ``device`` in ``dtype`` (default
-    ``cfg.dtype``; training passes torch.float32 for f32 master
-    weights), with `ray_tpu.models.llama.llama_init`'s scales (normal *
-    fan_in**-0.5, embedding * 0.02, unit norms). The draws come from a
-    `torch.Generator`, so the values differ from the JAX init's; tests
-    share weights through `ray_tpu_torch.convert` instead. Stacked
-    weights are drawn one layer at a time, so the f32 scratch stays at
-    one layer's size."""
+    ``cfg.param_dtype``, the master weights training keeps; serving
+    passes ``cfg.dtype``), with `ray_tpu.models.llama.llama_init`'s
+    scales (normal * fan_in**-0.5, embedding * 0.02, unit norms). The
+    draws come from a `torch.Generator`, so the values differ from the
+    JAX init's; tests share weights through `ray_tpu_torch.convert`
+    instead. Stacked weights are drawn one layer at a time, so the f32
+    scratch stays at one layer's size."""
     device = resolve_device(device)
-    dtype = dtype or cfg.dtype
+    dtype = dtype or cfg.param_dtype
     g = torch.Generator(device=device).manual_seed(seed)
 
     def normal(shape, std):

@@ -71,11 +71,35 @@ class SchedulerPolicy:
     def __len__(self) -> int:
         raise NotImplementedError
 
+    def snapshot(self) -> List[int]:
+        """Queued request ids, in no particular order (introspection)."""
+        raise NotImplementedError
+
     def queued_requests(self) -> list:
         """The queued request OBJECTS, in no particular order: a
         read-only view for load probes (`pending_prefill_tokens`).
         Callers must not mutate the returned requests or the list."""
         raise NotImplementedError
+
+    def queued_state(self) -> List[dict]:
+        """Plain-dict view of the queue for the serving state API
+        (`ray_tpu_torch.util.state.serving.list_requests`): one entry
+        per queued request with the fields an operator reads, and the
+        request object itself under ``"request"``. Falls back to id-only
+        entries for a policy that implements `snapshot()` but not
+        `queued_requests()`. Read-only."""
+        try:
+            reqs = self.queued_requests()
+        except NotImplementedError:
+            return [{"req_id": rid} for rid in self.snapshot()]
+        return [{"req_id": r.req_id, "priority": r.priority,
+                 "prompt_tokens": len(r.prompt),
+                 "max_new_tokens": r.max_new_tokens,
+                 "deadline": r.deadline, "resume": r.resume,
+                 # imported from a prefill-class replica, waiting for
+                 # decode admission (disaggregated fleets)
+                 "handoff": bool(getattr(r, "handoff", False)),
+                 "request": r} for r in reqs]
 
     def horizon_hint(self, *, free_slots: int,
                      max_horizon: int) -> int:
@@ -141,6 +165,9 @@ class FIFOPolicy(SchedulerPolicy):
     def __len__(self) -> int:
         return len(self._q)
 
+    def snapshot(self) -> List[int]:
+        return [r.req_id for r in self._q]
+
     def queued_requests(self) -> list:
         return list(self._q)
 
@@ -164,6 +191,9 @@ class PriorityPolicy(SchedulerPolicy):
 
     def __len__(self) -> int:
         return len(self._heap)
+
+    def snapshot(self) -> List[int]:
+        return [r.req_id for _, _, r in self._heap]
 
     def queued_requests(self) -> list:
         return [r for _, _, r in self._heap]

@@ -5,7 +5,8 @@ Port of `ray_tpu/ops/attention.py`: `_repeat_kv`, `mha_reference`, the
 K/V) and `paged_attention` (decode over the paged pool). In both seams
 ``impl="auto"`` launches the hand-written Hopper kernels for CUDA
 tensors (`ops.flash_attention`, `ops.paged_attention_kernel`) and runs
-the plain version for CPU tensors; "kernel" and "reference" force one.
+the plain version for CPU tensors; "kernel" (or "flash", the JAX
+package's name for it) and "reference" force one.
 There is no fallback: on a CUDA tensor "auto" launches the kernel or
 raises. The JAX dispatch's `shard_map` branch under a mesh waits for
 tensor parallelism (ROADMAP A9).
@@ -20,7 +21,7 @@ import torch
 from ray_tpu_torch.ops.paged_attention_kernel import paged_attention_kernel
 
 _NEG_INF = -1e30
-_IMPLS = ("auto", "kernel", "reference")
+_IMPLS = ("auto", "kernel", "flash", "reference")
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -84,7 +85,8 @@ def attention(q: torch.Tensor,
               impl: str = "auto",
               block_q: Optional[int] = None,
               block_k: Optional[int] = None) -> torch.Tensor:
-    """Dispatch: impl in {'auto', 'kernel', 'reference'}. "kernel" is
+    """Dispatch: impl in {'auto', 'kernel', 'flash', 'reference'}.
+    "kernel" (alias "flash") is
     `ops.flash_attention.flash_attention` (the CUDA kernels on CUDA
     tensors, their plain versions on CPU tensors); "reference" is
     `mha_reference`. block_q/block_k are the JAX kernel's tile sizes:
@@ -94,10 +96,11 @@ def attention(q: torch.Tensor,
         if b is not None and b <= 0:
             raise ValueError(f"{nm} must be positive, got {b}")
     if impl not in _IMPLS:
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+        raise ValueError(f"impl must be auto|kernel|flash|reference, "
+                         f"got {impl!r}")
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "reference"
-    if impl == "kernel":
+    if impl in ("kernel", "flash"):
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
@@ -139,7 +142,8 @@ def paged_attention(q: torch.Tensor,
     Pallas kernel) writes 0. The engine never forms such a row (a
     query's own slot is always live)."""
     if impl not in _IMPLS:
-        raise ValueError(f"impl must be auto|kernel|reference, got {impl!r}")
+        raise ValueError(f"impl must be auto|kernel|flash|reference, "
+                         f"got {impl!r}")
     B, S, H, D = q.shape
     NB, T, KV, _ = k_pages.shape
     if H % KV:
@@ -148,7 +152,7 @@ def paged_attention(q: torch.Tensor,
         raise ValueError("k_scale and v_scale must be given together")
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "reference"
-    if impl == "kernel":
+    if impl in ("kernel", "flash"):
         return paged_attention_kernel(
             q, k_pages, v_pages, block_tables, q_slots,
             kv_valid_len=kv_valid_len, sm_scale=sm_scale,

@@ -72,7 +72,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = LlamaConfig.llama3_8b(attn_impl=args.impl)
-    params = llama_init(cfg, seed=0, device="cuda")
+    params = llama_init(cfg, seed=0, device="cuda", dtype=cfg.dtype)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                for n in rng.randint(64, 513, size=8)]

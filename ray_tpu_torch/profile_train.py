@@ -7,8 +7,8 @@ Builds the JAX package's flagship training configuration
 (`bench.py:flagship_config()`: vocab 32000, dim 1536, 16 layers, 12/12
 heads, ffn 4096, bf16 activations, ``remat_policy`` bench.py's
 "save:ffn_gate+ffn_up+ffn_down" unless ``--remat-policy`` names
-another) with f32 master weights from ``llama_init(seed=0,
-dtype=torch.float32)``, on a fixed seeded batch of 8 x 2048 tokens, and
+another) with f32 master weights (``param_dtype``) from
+``llama_init(seed=0)``, on a fixed seeded batch of 8 x 2048 tokens, and
 trains it as bench.py's training measurement does: `create_mesh({"dp":
 1})` over a world of one NCCL rank, ``llama_param_specs`` and
 `make_sharded_train_step` with ``adamw(3e-4, weight_decay=0.0)``.
@@ -34,12 +34,12 @@ BENCH_REMAT_POLICY = "save:ffn_gate+ffn_up+ffn_down"  # bench.py's choice
 
 
 def flagship_config(**kw):
-    """bench.py:flagship_config(), its remat policy included."""
+    """bench.py:flagship_config(), field for field."""
     from ray_tpu_torch.models.llama import LlamaConfig
 
     fields = dict(vocab_size=32000, dim=1536, n_layers=16, n_heads=12,
                   n_kv_heads=12, ffn_dim=4096, max_seq_len=2048, remat=True,
-                  remat_policy=BENCH_REMAT_POLICY, attn_impl="kernel",
+                  remat_policy=BENCH_REMAT_POLICY, attn_impl="flash",
                   flash_block_q=1024, flash_block_k=1024)
     fields.update(kw)
     return LlamaConfig(**fields)
@@ -58,7 +58,7 @@ def build_trainer(cfg):
     from ray_tpu_torch import adamw, llama_loss, make_train_step
     from ray_tpu_torch.models.llama import llama_init
 
-    params = llama_init(cfg, seed=0, device="cuda", dtype=torch.float32)
+    params = llama_init(cfg, seed=0, device="cuda")
     init_fn, step_fn = make_train_step(
         lambda p, b: llama_loss(p, b, cfg), adamw(3e-4, weight_decay=0.0))
     params, opt_state = init_fn(params)
@@ -75,8 +75,7 @@ def build_sharded_trainer(cfg, mesh):
     init_fn, step_fn = make_sharded_train_step(
         lambda p, b: llama_loss(p, b, cfg), adamw(3e-4, weight_decay=0.0),
         mesh, llama_param_specs(cfg))
-    params, opt_state = init_fn(
-        llama_init(cfg, seed=0, device="cuda", dtype=torch.float32))
+    params, opt_state = init_fn(llama_init(cfg, seed=0, device="cuda"))
     return params, opt_state, step_fn
 
 

@@ -3,8 +3,8 @@
 The port imports nothing of JAX or of the JAX package (an AST walk over
 every module and `chip_smoke.py`), importing it builds and probes
 nothing (a fresh interpreter), and its own copies of the block pool and
-the scheduler policies behave as the JAX package's originals on the
-same operation sequences.
+the scheduler policies (order and queued-state view) behave as the JAX
+package's originals on the same operation sequences.
 """
 
 import ast
@@ -56,6 +56,11 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_ray_tpu_import_in_port():
     sources = _port_sources()
     assert len(sources) > 10
+    rel = {os.path.relpath(p, ROOT) for p in sources}
+    # the fleet slice's own copies are in the walk
+    assert {"ray_tpu_torch/models/fleet.py",
+            "ray_tpu_torch/models/fault_injection.py",
+            "ray_tpu_torch/util/state/serving.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -79,6 +84,7 @@ def test_import_builds_and_probes_nothing():
         "import sys, torch, ray_tpu_torch\n"
         "from ray_tpu_torch import _build\n"
         "import ray_tpu_torch.models.engine, ray_tpu_torch.convert\n"
+        "import ray_tpu_torch.models.fleet, ray_tpu_torch.util.state.serving\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.train.array_checkpoint\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'a process group was opened'\n"
@@ -168,3 +174,23 @@ def test_scheduler_copy_rejects_unknown_policy():
                       tsched.FIFOPolicy)
     assert isinstance(tsched.make_policy("adapter"),
                       tsched.AdapterAffinityPolicy)
+
+
+@pytest.mark.parametrize("policy", ["fifo", "priority"])
+def test_scheduler_copy_queued_state_like_original(policy):
+    """`snapshot` and the state API's `queued_state` rows (the handoff
+    flag included) read the same from both packages' policies."""
+    rows = []
+    for mod in (tsched, jsched):
+        p = mod.make_policy(policy)
+        for i, pr in enumerate([2, 0, 1]):
+            r = _Req(i, pr)
+            r.prompt, r.max_new_tokens, r.deadline = [1] * (i + 1), 4, None
+            r.resume, r.handoff = i == 1, i == 2
+            p.push(r)
+        rows.append((sorted(p.snapshot()),
+                     sorted((tuple((k, v) for k, v in sorted(e.items())
+                                   if k != "request"))
+                            for e in p.queued_state())))
+    assert rows[0] == rows[1]
+    assert any(("handoff", True) in e for e in rows[0][1])

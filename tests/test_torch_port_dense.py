@@ -347,7 +347,7 @@ def test_graph_replay_tokens_equal_eager_on_card(cuda, paged):
     cfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                              n_heads=4, n_kv_heads=2, ffn_dim=512,
                              max_seq_len=256)
-    params = tllama.llama_init(cfg, seed=2, device=cuda)
+    params = tllama.llama_init(cfg, seed=2, device=cuda, dtype=cfg.dtype)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
                for n in (5, 17, 40, 9, 23, 31)]

@@ -180,5 +180,7 @@ def test_engine_argument_checks(weights):
                        paged=True, kv_block_tokens=T)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit([1] * 30, 8)
+    with pytest.raises(ValueError, match="resume_tokens"):
+        eng.submit([1, 2], 1, resume_tokens=[3])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.submit([1, 2], 4, resume_tokens=[3])
+        DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN, tp=2)

@@ -209,7 +209,7 @@ def test_attention_dispatch_agrees_with_reference(dispatch_case, impl):
 def test_attention_rejects_bad_arguments(bad):
     q = torch.zeros(1, 3 if bad == "heads" else 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
-    kw = {"impl": "flash"} if bad == "impl" else \
+    kw = {"impl": "pallas"} if bad == "impl" else \
         {bad: 0} if bad.startswith("block") else {"impl": "kernel"}
     with pytest.raises(ValueError):
         tattn.attention(q, k, k, **kw)

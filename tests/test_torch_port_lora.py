@@ -785,7 +785,7 @@ def _card_model(cuda, **kw):
     cfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                              n_heads=4, n_kv_heads=2, ffn_dim=512,
                              max_seq_len=256, **kw)
-    return cfg, tllama.llama_init(cfg, seed=3, device=cuda)
+    return cfg, tllama.llama_init(cfg, seed=3, device=cuda, dtype=cfg.dtype)
 
 
 def _card_adapter(cfg, lcfg, seed, cuda):

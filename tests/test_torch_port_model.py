@@ -68,8 +68,12 @@ def test_llama_init_shapes_and_dtype():
                                                     JCFG))
     got = jax.tree_util.tree_map(lambda x: tuple(x.shape), p)
     assert got == jax.tree_util.tree_map(lambda x: tuple(x.shape), want)
-    assert all(x.dtype == torch.bfloat16
+    # master weights in param_dtype (f32), as the JAX llama_init
+    assert all(x.dtype == torch.float32
                for x in jax.tree_util.tree_leaves(p))
+    served = tllama.llama_init(cfg, seed=0, device="cpu", dtype=cfg.dtype)
+    assert all(x.dtype == torch.bfloat16
+               for x in jax.tree_util.tree_leaves(served))
     again = tllama.llama_init(cfg, seed=0, device="cpu")
     assert torch.equal(p["layers"]["wq"], again["layers"]["wq"])
 

@@ -590,7 +590,7 @@ def test_swap_under_run_ahead_on_card(cuda, kv_quant):
     cfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                              n_heads=4, n_kv_heads=2, ffn_dim=512,
                              max_seq_len=256)
-    params = tllama.llama_init(cfg, seed=3, device=cuda)
+    params = tllama.llama_init(cfg, seed=3, device=cuda, dtype=cfg.dtype)
     rng = np.random.RandomState(3)
     prompts = [rng.randint(1, cfg.vocab_size, size=n).tolist()
                for n in (20, 33, 17, 40)]

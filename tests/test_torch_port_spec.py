@@ -731,7 +731,8 @@ def _card_model(cuda, seed, **kw):
     cfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                              n_heads=4, n_kv_heads=2, ffn_dim=512,
                              max_seq_len=256, **kw)
-    return cfg, tllama.llama_init(cfg, seed=seed, device=cuda)
+    return cfg, tllama.llama_init(cfg, seed=seed, device=cuda,
+                                  dtype=cfg.dtype)
 
 
 @pytest.mark.gpu
@@ -746,7 +747,7 @@ def test_spec_graph_replay_matches_eager(cuda, paged):
     dcfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=1,
                               n_heads=4, n_kv_heads=2, ffn_dim=512,
                               max_seq_len=256)
-    dparams = tllama.llama_init(dcfg, seed=4, device=cuda)
+    dparams = tllama.llama_init(dcfg, seed=4, device=cuda, dtype=dcfg.dtype)
     rng = np.random.RandomState(3)
     prompts = [rng.randint(1, 512, size=n).tolist() for n in (9, 30, 17, 5)]
     budgets = [20, 12, 25, 16]

@@ -221,16 +221,22 @@ def test_flops_per_token_matches_jax(name):
 
 
 def test_master_weight_dtype():
-    """llama_init and params_from_numpy store cfg.dtype by default and
-    f32 master weights when training asks for them."""
+    """llama_init stores cfg.param_dtype by default (f32 master weights,
+    as the JAX llama_init does; bf16 when the config asks), and
+    params_from_numpy cfg.dtype (serving); an explicit dtype wins."""
     cfg = tllama.LlamaConfig.nano(dtype=torch.bfloat16)
-    for dtype, want in ((None, torch.bfloat16),
-                        (torch.float32, torch.float32)):
+    tree = numpy_params(jllama.LlamaConfig.nano())
+    for dtype, init_want, conv_want in (
+            (None, torch.float32, torch.bfloat16),
+            (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+            (torch.float32, torch.float32, torch.float32)):
         p = tllama.llama_init(cfg, seed=0, device="cpu", dtype=dtype)
-        q = params_from_numpy(numpy_params(jllama.LlamaConfig.nano()), cfg,
-                              device="cpu", dtype=dtype)
-        assert {x.dtype for x in ttrain._leaves(p)} == {want}
-        assert {x.dtype for x in ttrain._leaves(q)} == {want}
+        q = params_from_numpy(tree, cfg, device="cpu", dtype=dtype)
+        assert {x.dtype for x in ttrain._leaves(p)} == {init_want}
+        assert {x.dtype for x in ttrain._leaves(q)} == {conv_want}
+    half = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    assert {x.dtype for x in ttrain._leaves(tllama.llama_init(
+        half, seed=0, device="cpu"))} == {torch.bfloat16}
     loss = tllama.llama_loss(p, {"tokens": torch.zeros(1, 9,
                                                        dtype=torch.long)},
                              cfg)
@@ -298,3 +304,81 @@ def test_bf16_nll_grads_match_jax():
                                rtol=1e-2, atol=1e-6)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw),
                                rtol=1e-2, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The reference's configs build in the port (ROADMAP C5)
+# ---------------------------------------------------------------------------
+
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+           jnp.float16: torch.float16}
+# nano widths: the bench configs' every other field is kept
+_NANO_WIDTHS = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                    n_kv_heads=4, ffn_dim=128, max_seq_len=64)
+
+
+def _port_config(jcfg):
+    """The port config with every field of the JAX one, dtypes mapped;
+    ``ring_axis`` (the sp axis name) comes with long context (A12) and
+    must be at its default."""
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg)}
+    port_fields = {f.name for f in dataclasses.fields(tllama.LlamaConfig)}
+    assert set(fields) - port_fields == {"ring_axis"}
+    assert fields.pop("ring_axis") == jllama.LlamaConfig().ring_axis
+    for k, v in fields.items():
+        if not isinstance(v, (bool, int, float, str, type(None))):
+            fields[k] = _DTYPES[jnp.dtype(v).type]
+    return tllama.LlamaConfig(**fields)
+
+
+@pytest.mark.parametrize("name", ["flagship_config", "large_config"])
+def test_bench_configs_build_and_train(name):
+    """bench.py's two training configs build as port configs field for
+    field (attn_impl="flash"; large's bf16 param_dtype) and, cut to nano
+    widths, take a make_train_step step from llama_init's master weights
+    in param_dtype."""
+    import bench
+
+    jcfg = getattr(bench, name)()
+    tcfg = _port_config(jcfg)
+    assert tcfg.attn_impl == "flash" == jcfg.attn_impl
+    assert tcfg.param_dtype == _DTYPES[jnp.dtype(jcfg.param_dtype).type]
+    small = dataclasses.replace(tcfg, **_NANO_WIDTHS)
+    params = tllama.llama_init(small, seed=0, device="cpu")
+    assert {x.dtype for x in ttrain._leaves(params)} == {small.param_dtype}
+    init_fn, step_fn = ttrain.make_train_step(
+        lambda p, b: tllama.llama_loss(p, b, small),
+        ttrain.adamw(1e-3, weight_decay=0.0), device="cpu")
+    params, opt = init_fn(params)
+    tokens = torch.from_numpy(_tokens(small, (2, 17), seed=4)).long()
+    params, opt, m = step_fn(params, opt, {"tokens": tokens})
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert {x.dtype for x in ttrain._leaves(params)} == {small.param_dtype}
+
+
+def test_flash_spelling_equals_kernel(nano_weights):
+    """attn_impl="flash" (the JAX package's name) runs what "kernel"
+    runs: the same forward, bit for bit, through `attention`, and the
+    same kernel wrapper through the paged `paged_attention` seam."""
+    from ray_tpu_torch.ops import attention as tattn
+
+    tree = nano_weights[0]
+    tokens = torch.from_numpy(_tokens(jllama.LlamaConfig.nano(), (2, 24),
+                                      seed=5)).long()
+    outs = []
+    for impl in ("flash", "kernel"):
+        cfg = tllama.LlamaConfig.nano(attn_impl=impl)
+        outs.append(tllama.llama_forward(
+            params_from_numpy(tree, cfg, device="cpu"), tokens, cfg))
+    assert torch.equal(outs[0], outs[1])
+    # the paged seam routes both spellings to B2's wrapper, which takes
+    # CUDA tensors only (CPU tensors take impl="reference")
+    q = torch.zeros(2, 1, 4, 64)
+    pages = torch.zeros(5, 4, 2, 64)
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    slots = torch.tensor([[5], [7]], dtype=torch.int32)
+    for impl in ("flash", "kernel"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tattn.paged_attention(q, pages, pages, bt, slots,
+                                  kv_valid_len=8, impl=impl)

@@ -76,6 +76,46 @@ def nest_tree(flat):
     return out
 
 
+class FakeClock:
+    """A deterministic clock that tests advance by hand, injected as an
+    engine's, fleet's or autoscaler's ``clock``."""
+
+    def __init__(self, start: float = 0.0):
+        self.t = float(start)
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        assert dt >= 0, "monotonic clocks do not rewind"
+        self.t += dt
+
+
+def fleet_factory(engine_cls, params, cfg, **kw):
+    """A fleet's ``engine_factory``: replica ``name`` becomes an
+    ``engine_cls(params, cfg, engine_id=name, ...)`` with 2 slots and
+    max_len 32 unless ``kw`` says otherwise."""
+    kw.setdefault("batch_slots", 2)
+    kw.setdefault("max_len", 32)
+
+    def make(name):
+        return engine_cls(params, cfg, engine_id=name, **kw)
+    return make
+
+
+def drive_fleet(fleet, max_steps=400):
+    """Step ``fleet`` until nothing is pending: (each step's emissions
+    {fid: tokens}, each step's ``replica_health()``)."""
+    steps, health = [], []
+    for _ in range(max_steps):
+        if not fleet.pending():
+            break
+        steps.append({f: list(t) for f, t in fleet.step().items()})
+        health.append(fleet.replica_health())
+    assert not fleet.pending(), f"fleet did not drain in {max_steps} steps"
+    return steps, health
+
+
 def rank_main():
     """One rank of the world a job file describes; run as
     ``python -c "import torch_port_helpers as h; h.rank_main()" JOB RANK``.
