@@ -142,7 +142,37 @@ Phases, each of which must pass:
                beside the serve phase's paged engine, (b)'s agreement
                with (a) and the time from the kill to the last recovered
                request's first new token, (c)'s bytes and ms per handoff.
- 10. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
+ 10. tp      — tensor parallelism. (a) A world of one NCCL rank: the
+               serve phase's dense and paged depth-2 engines built with
+               tp=1, and the dense one with mesh=create_mesh({"tp": 1}),
+               must repeat the serve phase's tokens bit for bit, launch
+               B2 n_layers x decode iterations, replay their graphs and
+               report tp_degree 1; the 2-layer flagship's first step
+               through make_sharded_train_step over {"dp": 1, "tp": 1}
+               with the tp loss must give make_train_step's loss bit for
+               bit. (b) Two rank processes (this script with --tp-rank)
+               share the card in a gloo world over CUDA tensors (NCCL
+               refuses two ranks on one device), each holding half the
+               weights and its own pool: the small phase's f32 model,
+               dense and paged at tp=2, == solo generate; Llama-3-8B
+               paged bf16 and int8 at tp=2 (B2 at H 16 / KV 4) on the
+               serve traffic: B2 launches n_layers x decode iterations,
+               every block back, teacher-forced agreement with the tp=1
+               engine's history >= 0.8 (the free-running agreement
+               beside), and a planted fault (TP_SERVE_FAULT) below it;
+               the flagship at 2 layers (B1/B3 at H = 6): one step's
+               loss and grad norm within TP_LOSS_RTOL / TP_NORM_RTOL of
+               the one-rank step's and rank 0's every gradient shard
+               within PARITY_MIN_COS cosine of its region of the
+               one-rank gradients, while each planted fault of
+               TP_TRAIN_FAULTS fails one of these. Prints per-rank
+               peak memory and times, which say nothing of tp's speed on
+               several cards (two processes share one card; gloo stages
+               through the host). (c) B2 at H 16 / KV 4 and H 8 / KV 2
+               (bf16, int8, S=1) and the flash kernels at the flagship's
+               H = 6 against their plain versions, timed beside their
+               bounds.
+ 11. flash   — the flash-attention kernels (forward with lse, dq, dk/dv)
                against their plain PyTorch versions at the flagship
                training shape, the Llama-3-8B shape (GQA) and ragged and
                edge cases (bf16 cases run the wgmma kernels, c_f32 the
@@ -152,7 +182,7 @@ Phases, each of which must pass:
                here only; the port never calls it), with each kernel's
                factor over SDPA (the forward's over SDPA's forward, dq's
                and dk/dv's over SDPA's whole backward).
- 11. train   — bench.py:flagship_config() at full depth, its remat
+ 12. train   — bench.py:flagship_config() at full depth, its remat
                policy "save:ffn_gate+ffn_up+ffn_down" included, trains
                on batch 8 x 2048 tokens with f32 master weights and
                adamw(3e-4, weight_decay=0.0) through the one-card
@@ -162,7 +192,7 @@ Phases, each of which must pass:
                and layers x steps (dq, dk/dv), and the plain attention
                must never run. Prints tokens/s, MFU, step time and peak
                memory beside the card's name and power limit.
- 12. sharded-train — the same model, batch and optimizer the way
+ 13. sharded-train — the same model, batch and optimizer the way
                bench.py builds its step: a world of one NCCL rank (TCP
                store on 127.0.0.1), create_mesh({"dp": 1}),
                llama_param_specs and make_sharded_train_step; one warm-up
@@ -177,13 +207,13 @@ Phases, each of which must pass:
                a third step; restored into fresh tensors, the third step
                again must give a bit-equal loss and bit-equal leaves.
                Prints the bytes written and the save and restore times.
- 13. lora-train — the train phase's config, batch and depth, adapters
+ 14. lora-train — the train phase's config, batch and depth, adapters
                only: LoraConfig(rank=8, targets=(wq, wv, w_gate)),
                adamw(1e-2), one warm-up and 5 timed steps. The loss must
                fall, the base stay bit-unchanged, every adapter leaf move
                and the kernels launch as in the full step. Prints step
                ms, tokens/s and peak memory beside the full step's.
- 14. parity  — one training step's loss, grad norm and gradients at the
+ 15. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
@@ -317,7 +347,7 @@ def _graph_ms(fn, calls=20, reps=20):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def _kernel_inputs(S, pool, copies, D=D):
+def _kernel_inputs(S, pool, copies, D=D, H=H, KV=KV):
     """`copies` independent input sets at the decode shapes (timing
     rotates through them so each launch finds its pages outside the
     50 MB L2). Row 0 has no live slot; the others' frontiers are ragged
@@ -354,7 +384,7 @@ def _kernel_inputs(S, pool, copies, D=D):
             torch.from_numpy(q_slots).to(dev), q_slots)
 
 
-def _bound_ms(q_slots, S, pool, D=D):
+def _bound_ms(q_slots, S, pool, D=D, H=H, KV=KV):
     """Least time for these inputs: each live K/V slot read once (per kv
     head), q and the scales and table entries of live blocks read once,
     out written once, over the memory rate; the 4*D flops per live slot
@@ -386,7 +416,10 @@ KERNEL_CASES = tuple((pool, S, 128) for pool in ("bf16", "int8", "fp8_e4m3")
     (pool, S, 64) for pool in ("bf16", "int8") for S in (1, 2))
 
 
-def kernel_phase():
+def kernel_phase(cases=KERNEL_CASES, H=H, KV=KV, phase="kernel"):
+    """B2 against its plain version at each case (pool, S, D) with H
+    query and KV kv heads (Llama-3-8B's by default; a tp rank's in the
+    tp phase)."""
     from ray_tpu_torch.ops import paged_attention_kernel as pak
     from ray_tpu_torch.ops.attention import paged_attention
 
@@ -394,13 +427,13 @@ def kernel_phase():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per, splits = pak.split_plan(MB, T, B, KV, sms)
     blocks = splits * KV * B
-    log(f"[kernel] split plan at B={B}, KV={KV}, MB={MB}, T={T} on {sms} "
-        f"SMs: {per} pages ({per * T} slots) per split, {splits} splits, "
-        f"{blocks} split blocks")
+    log(f"[{phase}] split plan at B={B}, H={H}, KV={KV}, MB={MB}, T={T} on "
+        f"{sms} SMs: {per} pages ({per * T} slots) per split, {splits} "
+        f"splits, {blocks} split blocks")
     assert blocks > sms, f"{blocks} split blocks do not fill {sms} SMs"
     results = {}
-    for pool, S, Dh in KERNEL_CASES:
-        sets, bt, qs, qs_np = _kernel_inputs(S, pool, 4, Dh)
+    for pool, S, Dh in cases:
+        sets, bt, qs, qs_np = _kernel_inputs(S, pool, 4, Dh, H, KV)
         q, kp, vp, ks, vs = sets[0]
         kw = dict(kv_valid_len=span, k_scale=ks, v_scale=vs)
         out = paged_attention(q, kp, vp, bt, qs, impl="kernel", **kw)
@@ -421,7 +454,7 @@ def kernel_phase():
         ok = bool((err <= ATOL + RTOL * ref.abs()).all())
         smem, mma = pak.kernel_config(q.dtype, kp.dtype, (H // KV) * S,
                                       Dh, T)
-        line = (f"[kernel] pool={pool} S={S} D={Dh}: max_abs_err="
+        line = (f"[{phase}] pool={pool} S={S} D={Dh} H={H}/{KV}: max_abs_err="
                 f"{err.max().item():.3e} (atol {ATOL}, rtol {RTOL}); "
                 f"{'tensor-core' if mma else 'FMA'} split kernel, "
                 f"{smem} B dynamic shared memory per block")
@@ -439,7 +472,8 @@ def kernel_phase():
 
         res["ms"] = _graph_ms(lambda: run("kernel"))
         res["plain_ms"] = _time_ms(lambda: run("reference"), 5)
-        res["bound_ms"], res["bound_by"] = _bound_ms(qs_np, S, pool, Dh)
+        res["bound_ms"], res["bound_by"] = _bound_ms(qs_np, S, pool, Dh, H,
+                                                     KV)
         line += f"; kernel {res['ms']:.4f} ms on the card (CUDA graph)"
         if S == 1 and Dh == D:
             line += (f", {_time_ms(lambda: run('kernel'), 100):.4f} ms per"
@@ -517,15 +551,16 @@ SERVE_RUNS = (("dense, depth 2", False, 2), ("dense, depth 1", False, 1),
               ("paged, depth 2", True, 2), ("paged, depth 1", True, 1))
 
 
-def _serve(params, cfg, prompts, *, paged, depth, profile=False):
+def _serve(params, cfg, prompts, *, paged, depth, profile=False, **kw):
     """One engine serves the prompts from empty: every request submitted,
     then `step()` until nothing is pending. Returns the engine, the
-    tokens per request and the run's counts and times."""
+    tokens per request and the run's counts and times. ``kw``: more
+    engine arguments (the tp phase's ``tp=`` / ``mesh=``)."""
     from ray_tpu_torch import DecodeEngine
 
     eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
                        kv_block_tokens=32, greedy=True, trace=True,
-                       paged=paged, pipeline_depth=depth)
+                       paged=paged, pipeline_depth=depth, **kw)
     return _drive(eng, prompts, NEW_TOKENS, profile=profile)
 
 
@@ -744,7 +779,9 @@ def serve_phase(smi, cfg, params):
                          "tokens_s": N_REQUESTS * NEW_TOKENS
                          / timed[0][0]["wall"],
                          "ttft_p50": timed[0][0]["ttft_p50"],
-                         "tpot_mean": s["tpot_s_mean"]}
+                         "tpot_mean": s["tpot_s_mean"],
+                         # what the tp phase's tp=1 engines must repeat
+                         "tokens": tokens}
         log(f"[serve] {label}: steady decode "
             + " / ".join(f"{x:.1f}" for x in steady)
             + " tokens/s (blocks after the first, card clock; trace span "
@@ -952,7 +989,7 @@ def _admit_all(eng, rounds=16):
 
 
 def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
-                  width=1, prefill_chunk=KVMEM_CHUNK, lora=None):
+                  width=1, prefill_chunk=KVMEM_CHUNK, lora=None, **eng_kw):
     """The target's greedy choice at each position GIVEN `ref`'s own
     history, on a fresh non-spec engine's pool (``paged=False``: its
     dense cache, read through B2's block-table view): 8 rows at a time
@@ -967,7 +1004,9 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
     streams, one early difference does not reroute the rest of a
     stream. ``lora`` = (LoraConfig, {adapter id: tree}, per-prompt
     adapter ids) runs a LoRA engine, every adapter resident. Rows are
-    admitted through the engine's own gate (`_admit_all`)."""
+    admitted through the engine's own gate (`_admit_all`). ``eng_kw``:
+    more engine arguments (the tp phase's ``mesh=``: the rank's shards
+    and its tp group then run the steps)."""
     from ray_tpu_torch import DecodeEngine
     from ray_tpu_torch.models import engine as engine_mod
 
@@ -982,7 +1021,7 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
         eng = DecodeEngine(params, cfg, batch_slots=8, max_len=2048,
                            paged=paged, kv_block_tokens=32,
                            kv_quant=kv_quant, prefill_chunk=prefill_chunk,
-                           **lkw)
+                           **lkw, **eng_kw)
         if lora is not None:
             for a, lp in lora[1].items():
                 eng.register_adapter(a, lp)
@@ -1023,13 +1062,13 @@ def _forced_picks(params, cfg, prompts, ref, kv_quant, paged=True,
             with torch.no_grad():
                 if paged:
                     logits = engine_mod._spec_core_paged(
-                        params, toks, eng._pool_k, eng._pool_v, bt, row_len,
-                        cfg, eng._scale_k, eng._scale_v, eng.kv_quant_spec,
-                        **lora_kw)
+                        eng.params, toks, eng._pool_k, eng._pool_v, bt,
+                        row_len, cfg, eng._scale_k, eng._scale_v,
+                        eng.kv_quant_spec, tp=eng._tp, **lora_kw)
                 else:
                     logits = engine_mod._spec_core(
-                        params, toks, eng.cache, row_len, cfg, eng.max_len,
-                        eng._view_bt, **lora_kw)
+                        eng.params, toks, eng.cache, row_len, cfg,
+                        eng.max_len, eng._view_bt, tp=eng._tp, **lora_kw)
             for i in range(S):
                 record(logits[:, i], j + i + 1)
             row_len = row_len + live * S
@@ -2527,11 +2566,11 @@ def _time_flash(q, k, v, do, o, lse, scale, causal, gqa):
     return t
 
 
-def flash_phase():
+def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash"):
     from ray_tpu_torch.ops import flash_attention as fa
 
     results = {}
-    for name, B, H, Hkv, Sq, Sk, D, dts, causal in FLASH_CASES:
+    for name, B, H, Hkv, Sq, Sk, D, dts, causal in cases:
         dt = torch.bfloat16 if dts == "bf16" else torch.float32
         tol = FLASH_TOL[dts]
         g = torch.Generator(device="cuda").manual_seed(Sq + Sk + D)
@@ -2552,16 +2591,16 @@ def flash_phase():
                                ("dq", dq, rdq), ("dk", dk, rdk),
                                ("dv", dv, rdv)):
             got, want = got.float(), want.float()
-            assert torch.isfinite(got).all(), f"[flash] {name} {key}: inf/nan"
+            assert torch.isfinite(got).all(), f"[{phase}] {name} {key}: inf/nan"
             err = (got - want).abs()
             errs[key] = err.max().item()
             assert bool((err <= tol + tol * want.abs()).all()), \
-                f"[flash] {name} {key}: max_abs_err {errs[key]:.3e} FAILED"
+                f"[{phase}] {name} {key}: max_abs_err {errs[key]:.3e} FAILED"
         dead = Sq - Sk if causal else 0
         if dead > 0:
             assert bool((o[:, :, :dead] == 0).all()), f"{name}: dead o"
             assert bool((dq[:, :, :dead] == 0).all()), f"{name}: dead dq"
-        line = (f"[flash] {name}: B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} D={D} "
+        line = (f"[{phase}] {name}: B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} D={D} "
                 f"{dts} {'causal' if causal else 'non-causal'}: max_abs_err "
                 + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
                 + f" (atol = rtol = {tol})"
@@ -2570,7 +2609,7 @@ def flash_phase():
         res = {"fwd": {"max_abs_err": max(errs["o"], errs["lse"])},
                "dq": {"max_abs_err": errs["dq"]},
                "dkv": {"max_abs_err": max(errs["dk"], errs["dv"])}}
-        if name in FLASH_TIMED:
+        if name in timed:
             t = _time_flash(q, k, v, do, o, lse, scale, causal, H != Hkv)
             for kern, plain, lib in (("fwd", "plain_fwd", "sdpa_fwd"),
                                      ("dq", "plain_bwd", "sdpa_bwd"),
@@ -2580,12 +2619,12 @@ def flash_phase():
                 res[kern].update(ms=t[kern], plain_ms=t[plain],
                                  library_ms=t[lib], bound_ms=bound,
                                  bound_by=by)
-                line += (f"\n[flash]   {kern}: kernel {t[kern]:.4f} ms, "
+                line += (f"\n[{phase}]   {kern}: kernel {t[kern]:.4f} ms, "
                          f"bound {bound:.4f} ms ({by}, {bound / t[kern]:.1%}"
                          f" of bound), plain {t[plain]:.4f} ms, SDPA "
                          f"{t[lib]:.4f} ms, kernel / SDPA "
                          f"{t[kern] / t[lib]:.2f}x")
-            line += ("\n[flash]   (the plain backward and SDPA's backward "
+            line += (f"\n[{phase}]   (the plain backward and SDPA's backward "
                      "each compute dq, dk and dv in one call)")
         log(line)
         results[name] = res
@@ -2872,6 +2911,657 @@ def parity_phase():
     log(line)
 
 
+
+# The tp phase (tensor parallelism). (a) tp = 1 over a one-rank NCCL
+# world; (b) a two-rank gloo world sharing the one card, each rank a
+# process of its own holding half the weights and its own pool; (c) the
+# kernels at the ranks' shapes. TP_AGREE: the teacher-forced agreement a
+# tp = 2 engine must reach against the tp = 1 engine's history (its
+# bf16 partial sums are reduced in another order, so near ties flip).
+TP_RANKS = 2
+TP_AGREE = 0.8
+# The tp = 2 train step against the one-rank step (rank 0 holds each of
+# its gradient shards to the same region of the one-rank gradients with
+# PARITY_MIN_COS): the relative loss and grad-norm limits sit between the
+# sound readings (7.37e-6 / 2.43e-5 on an H100: only the order of the
+# bf16 partial sums changes) and the planted faults' below (loss 8.37e-5
+# with the partial sums unsummed, the only fault that moves it; norm
+# 4.10e-2 and more; min cosine 0.707 and less against the sound 0.9999).
+TP_LOSS_RTOL, TP_NORM_RTOL = 2.5e-5, 1e-3
+# Planted faults of the tp layer: the gates of (b) must reject each (the
+# train ones by loss, norm or a leaf's cosine; the serve one by TP_AGREE).
+TP_TRAIN_FAULTS = ("kv-unsummed", "onehot-every-rank", "g-dropped")
+TP_SERVE_FAULT = "wo-unsummed"
+# B2 at a tp rank's heads of Llama-3-8B: tp = 2 (16 / 4) and tp = 4
+# (8 / 2); the flash kernels at the flagship's 12 / 2 = 6 heads.
+TP_B2_HEADS = ((16, 4), (8, 2))
+TP_B2_CASES = tuple((pool, 1, 128) for pool in ("bf16", "int8"))
+TP_FLASH_CASE = ("tp_flagship_h6", 8, 6, 6, 2048, 2048, 128, "bf16", True)
+
+
+def _tp_world_one(smi, cfg, params, serve_tokens):
+    """(a): the serve phase's dense and paged depth-2 engines built with
+    tp=1, and the dense one with mesh=create_mesh({"tp": 1}), must repeat
+    the serve phase's tokens bit for bit, launch B2 n_layers x decode
+    iterations, replay their graphs and report tp_degree 1; a tp = 1
+    paged int8 engine's history is kept for (b). Then the 2-layer
+    flagship's first step through make_sharded_train_step over {"dp": 1,
+    "tp": 1} must give make_train_step's loss bit for bit. Returns the
+    histories (b) holds its engines to."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+    from ray_tpu_torch.parallel import (create_mesh, initialize_distributed,
+                                        tp_group)
+    from ray_tpu_torch.profile_train import (build_trainer, flagship_config,
+                                             train_batch)
+
+    prompts = serve_prompts(cfg.vocab_size)
+    info = initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = create_mesh({"tp": 1})
+        assert tp_group(mesh).size == 1
+        runs = (("dense, depth 2", False, {"tp": 1}),
+                ("paged, depth 2", True, {"tp": 1}),
+                ("dense, depth 2", False, {"mesh": mesh}))
+        for label, paged, kw in runs:
+            eng, toks, run = _serve(params, cfg, prompts, paged=paged,
+                                    depth=2, **kw)
+            s = _check_run(f"tp {label}", cfg, eng, toks, run)
+            knob = next(iter(kw))
+            assert s["tp_degree"] == 1.0, s["tp_degree"]
+            assert toks == serve_tokens[label], \
+                f"tp {label} ({knob}=): tokens differ from the serve phase"
+            log(f"[tp] (a) {label}, {knob}=1 on a world of "
+                f"{info.num_processes} NCCL rank: tokens bit-equal to the "
+                f"serve phase's; {run['launches']} B2 launches = "
+                f"{cfg.n_layers} x {eng.decode_iterations} iterations; "
+                f"{int(s['decode_graph_replays'])} graph replays; tp_degree "
+                f"{s['tp_degree']}; steady {run['steady']:.1f} tokens/s; "
+                f"on {smi}")
+            del eng
+            torch.cuda.empty_cache()
+        eng, int8, _ = _serve(params, cfg, prompts, paged=True, depth=2,
+                              kv_quant="int8")
+        del eng
+        torch.cuda.empty_cache()
+
+        tcfg = flagship_config(n_layers=2)
+        one = build_trainer(tcfg)
+        batch = train_batch(tcfg)
+        loss_one = one[2](one[0], one[1], batch)[2]["loss"].item()
+        del one
+        step_mesh = create_mesh({"dp": 1, "tp": 1})
+        tp = tp_group(step_mesh)
+        init_fn, step_fn = make_sharded_train_step(
+            lambda p, b: llama_loss(p, b, tcfg, tp=tp),
+            adamw(3e-4, weight_decay=0.0), step_mesh,
+            llama_param_specs(tcfg))
+        p, st = init_fn(llama_init(tcfg, seed=0, device="cuda"))
+        loss_sh = step_fn(p, st, batch)[2]["loss"].item()
+        del p, st
+        torch.cuda.empty_cache()
+        line = (f"[tp] (a) flagship at 2 layers, make_sharded_train_step "
+                f"over {{'dp': 1, 'tp': 1}} with the tp loss: first loss "
+                f"{loss_sh!r} vs make_train_step's {loss_one!r}")
+        assert loss_sh == loss_one, line + " FAILED"
+        log(line + ": bit-equal")
+    finally:
+        dist.destroy_process_group()
+    return {"bf16": serve_tokens["paged, depth 2"], "int8": int8}
+
+
+def _tp_fault(fault):
+    """A planted fault of the tp layer, patched in for a ``with`` block:
+    "kv-unsummed" cuts the replicated wk/wv to the rank's kv heads
+    without f, so their partial gradients are not summed over tp;
+    "onehot-every-rank" subtracts the target's one-hot in the
+    vocab-parallel cross-entropy's backward on every rank, also where the
+    rank does not hold the target's column (wrong lm_head columns);
+    "g-dropped" leaves the wo and w_down partial sums of the train step
+    unsummed; "wo-unsummed" leaves the serving layers' wo partial sums
+    unsummed (w_down's still summed)."""
+    from ray_tpu_torch.models import generate, llama
+    from ray_tpu_torch.parallel import tensor_parallel as tpm
+
+    if fault == "kv-unsummed":
+        def cut(w, tp, cfg, dim):
+            if not tpm.is_split(tp) or w.shape[dim] != cfg.n_kv_heads:
+                return w
+            kv = tpm.local_heads(cfg, None, tp.rank, tp.size)[1]
+            return w.index_select(dim, torch.tensor(kv, device=w.device))
+        return mock.patch.object(llama, "select_kv", cut)
+    if fault == "onehot-every-rank":
+        def backward(ctx, g):
+            p, idx, _ = ctx.saved_tensors
+            grad = p.clone()
+            grad[torch.arange(grad.shape[0], device=grad.device), idx] -= 1
+            return grad * g[:, None], None, None
+        return mock.patch.object(tpm._VocabCrossEntropy, "backward",
+                                 staticmethod(backward))
+    if fault == "g-dropped":
+        return mock.patch.object(llama, "reduce_from_tp", lambda x, tp: x)
+    assert fault == "wo-unsummed", fault
+    calls = [0]
+
+    def every_other(x, tp):              # wo's comes first in each layer
+        calls[0] += 1
+        return x if calls[0] % 2 else tpm.reduce_from_tp(x, tp)
+    return mock.patch.object(generate, "reduce_from_tp", every_other)
+
+
+def _tp_train_grads(tcfg, batch, mesh, tp):
+    """One make_sharded_train_step over the tp mesh from the seeded
+    flagship weights: (loss, grad norm, this rank's gradient shards, its
+    wq shard's shape, flash launches, ms). The gradients are read back
+    from AdamW's first moment (b1 x 0 + (1 - b1) x g after one step)."""
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+    from ray_tpu_torch.models.training import _leaves
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    opt = adamw(3e-4, weight_decay=0.0)
+    init_fn, step_fn = make_sharded_train_step(
+        lambda p, b: llama_loss(p, b, tcfg, tp=tp), opt, mesh,
+        llama_param_specs(tcfg))
+    params, state = init_fn(llama_init(tcfg, seed=0, device="cuda"))
+    fak.fwd_launches = fak.dq_launches = fak.dkv_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step_fn(params, state, batch)
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    moments = opt.state_tree(state, params)["exp_avg"]
+    grads = [g.detach() / (1 - opt.b1) for g in _leaves(moments)]
+    return (loss, norm, grads, list(params["layers"]["wq"].shape),
+            {"fwd": fak.fwd_launches, "dq": fak.dq_launches,
+             "dkv": fak.dkv_launches}, ms)
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict in `_leaves`'s sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _tp_train_gate(got, one, mesh, specs):
+    """(loss rel. error, norm rel. error, min cosine over the leaves and
+    the leaf it falls on) of a tp step ``got`` against the one-rank
+    step ``one`` = (loss, norm, full gradients), each gradient shard
+    against its region of the full gradient."""
+    from ray_tpu_torch.parallel.sharding import local_region
+
+    loss, norm, grads = got[:3]
+    cos = []
+    for (name, spec), g, full in zip(specs, grads, one[2]):
+        ref = full[local_region(full.shape, spec, mesh)]
+        cos.append((torch.nn.functional.cosine_similarity(
+            g.flatten().double(), ref.flatten().double(), dim=0).item(),
+            name))
+    worst = min(cos)
+    return (abs(loss - one[0]) / abs(one[0]),
+            abs(norm - one[1]) / abs(one[1]), worst[0], worst[1])
+
+
+def _tp_train_ok(gate):
+    return gate[0] <= TP_LOSS_RTOL and gate[1] <= TP_NORM_RTOL and \
+        gate[2] >= PARITY_MIN_COS
+
+
+def _agreement(a, b):
+    return float(np.mean([x == y for p, q in zip(a, b)
+                          for x, y in zip(p, q)]))
+
+
+def tp_rank_main(rank, job_path):
+    """One rank of (b), started by `tp_phase` as ``python3 chip_smoke.py
+    --tp-rank RANK JOB``: a gloo world of TP_RANKS processes on the one
+    card (gloo takes CUDA tensors for all_reduce and broadcast; NCCL
+    refuses two ranks on one device). Writes what it saw to the job's
+    ``out`` directory."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import DecodeEngine, llama_loss
+    from ray_tpu_torch.models.llama import (LlamaConfig, llama_init,
+                                            llama_param_specs)
+    from ray_tpu_torch.models.training import _leaves, _tree_map
+    from ray_tpu_torch.ops import paged_attention_kernel as pak
+    from ray_tpu_torch.parallel import create_mesh, tp_group
+    from ray_tpu_torch.profile_train import flagship_config, train_batch
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo",
+                            init_method=job["store"], world_size=TP_RANKS,
+                            rank=rank)
+    out = {"rank": rank}
+    try:
+        mesh = create_mesh({"tp": TP_RANKS})
+        tp = tp_group(mesh)
+        assert tp.size == TP_RANKS and not tp.capturable
+
+        # the small phase's f32 model, dense and paged == solo generate
+        scfg, sparams, sprompts, solo = small_model()
+        for paged in (False, True):
+            eng = DecodeEngine(sparams, scfg, batch_slots=4, max_len=128,
+                               kv_block_tokens=16, paged=paged, mesh=mesh)
+            ids = [eng.submit(p, 15) for p in sprompts]
+            got = eng.run()
+            assert [got[i] for i in ids] == solo, \
+                f"rank {rank}: small tp engine (paged={paged}) != solo"
+            assert eng.stats()["decode_graphs"] == 0
+        del sparams, eng
+        out["small"] = True
+
+        # Llama-3-8B, paged bf16 and int8, on the serve traffic
+        cfg = LlamaConfig.llama3_8b()
+        params = llama_init(cfg, seed=0, device="cuda", dtype=cfg.dtype)
+        prompts = serve_prompts(cfg.vocab_size)
+        out["serve"] = {}
+        for quant in ("bf16", "int8"):
+            kq = None if quant == "bf16" else quant
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng, toks, run = _serve(params, cfg, prompts, paged=True,
+                                    depth=2, kv_quant=kq, mesh=mesh)
+            wall = time.perf_counter() - t0
+            s = eng.stats()
+            want = cfg.n_layers * eng.decode_iterations
+            assert run["launches"] == want, (quant, run["launches"], want)
+            assert run["gets"] == eng.decode_dispatches
+            assert eng.kv_pool.blocks_in_use == 0, eng.kv_pool.blocks_in_use
+            assert s["tp_degree"] == TP_RANKS and s["decode_graphs"] == 0
+            assert all(len(t) == NEW_TOKENS for t in toks)
+            local = list(eng._pool_k.shape)
+            wq = list(eng.params["layers"]["wq"].shape)
+            del eng
+            torch.cuda.empty_cache()
+            ref = job["history"][quant]
+            picks, _ = _forced_picks(params, cfg, prompts, ref, kq,
+                                     prefill_chunk=None, mesh=mesh)
+            forced = float((picks == np.asarray(ref)).mean())
+            out["serve"][quant] = {
+                "tokens": toks, "launches": run["launches"],
+                "iterations": want // cfg.n_layers, "wall": wall,
+                "steady": run["steady"], "forced": forced,
+                "free": _agreement(toks, ref), "pool": local, "wq": wq,
+                "peak": torch.cuda.max_memory_allocated()}
+
+        # the planted serving fault against the same gate
+        with _tp_fault(TP_SERVE_FAULT):
+            picks, _ = _forced_picks(params, cfg, prompts,
+                                     job["history"]["bf16"], None,
+                                     prefill_chunk=None, mesh=mesh)
+        out["serve_fault"] = float(
+            (picks == np.asarray(job["history"]["bf16"])).mean())
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the flagship at 2 layers: one tp step against the one-rank
+        # step, sound and under each planted fault
+        tcfg = flagship_config(n_layers=2)
+        batch = train_batch(tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        sound = _tp_train_grads(tcfg, batch, mesh, tp)
+        loss, norm, _, wq, launches, ms = sound
+        out["train"] = {"loss": loss, "norm": norm, "ms": ms, "wq": wq,
+                        "launches": launches,
+                        "peak": torch.cuda.max_memory_allocated()}
+        faults = {}
+        for fault in TP_TRAIN_FAULTS:
+            with _tp_fault(fault):
+                faults[fault] = _tp_train_grads(tcfg, batch, mesh, tp)
+        if rank == 0:
+            # the one-rank gradients, with the one-rank step's loss and
+            # norm (`make_train_step`'s are llama_loss and the global norm)
+            p1 = _tree_map(lambda p: p.requires_grad_(True),
+                           llama_init(tcfg, seed=0, device="cuda"))
+            l1 = llama_loss(p1, batch, tcfg)
+            g1 = torch.autograd.grad(l1, _leaves(p1))
+            one = (l1.item(), torch.nn.utils.get_total_norm(g1).item(), g1)
+            specs = _named_leaves(llama_param_specs(tcfg))
+            out["train"]["one"] = [one[0], one[1]]
+            out["train"]["gate"] = _tp_train_gate(sound, one, mesh, specs)
+            out["train"]["faults"] = {
+                f: _tp_train_gate(got, one, mesh, specs)
+                for f, got in faults.items()}
+            del p1, g1, one
+        del sound, faults
+        torch.cuda.empty_cache()
+        out["pak_launches_total"] = pak.launches
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _tp_world_two(smi, history):
+    """(b): TP_RANKS rank processes on the one card; returns rank 0's
+    results after checking every rank's."""
+    import os
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"store": f"tcp://127.0.0.1:{_free_port()}",
+                       "out": tmp, "history": history}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+             job], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(TP_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, \
+                f"[tp] rank {r} exited {p.returncode}:\n{text[-6000:]}"
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    first = ranks[0]
+    for other in ranks[1:]:
+        for quant in ("bf16", "int8"):
+            assert other["serve"][quant]["tokens"] == \
+                first["serve"][quant]["tokens"], f"ranks differ ({quant})"
+        assert other["train"]["loss"] == first["train"]["loss"]
+    log(f"[tp] (b) {TP_RANKS} rank processes on one card in a gloo world "
+        f"(cpu:gloo,cuda:gloo) over CUDA tensors; the small f32 model, "
+        f"dense and paged at tp={TP_RANKS}: == solo generate on every rank;"
+        f" decode loops eager (gloo collectives cannot be captured)")
+    for quant in ("bf16", "int8"):
+        r = first["serve"][quant]
+        line = (f"[tp] (b) Llama-3-8B paged {quant} at tp={TP_RANKS}: pool "
+                f"per rank {r['pool']} (kv heads {r['pool'][3]} of 8), wq "
+                f"{r['wq']}; {r['launches']} B2 launches = 32 x "
+                f"{r['iterations']} iterations (H 16 / KV 4), every block "
+                f"back; teacher-forced agreement with the tp=1 engine's "
+                f"history {r['forced']:.4f} (>= {TP_AGREE}), free-running "
+                f"{r['free']:.4f}; serve wall {r['wall']:.2f} s, steady "
+                f"{r['steady']:.1f} tokens/s; peak memory per rank "
+                + ", ".join(f"{x['serve'][quant]['peak'] / 2**30:.2f}"
+                            for x in ranks)
+                + f" GiB; on {smi} (two processes share one card's time and "
+                "gloo stages every collective through the host: these "
+                "times say nothing of tp's speed on several cards)")
+        assert r["forced"] >= TP_AGREE, line + " FAILED"
+        log(line)
+    line = (f"[tp] (b) planted fault {TP_SERVE_FAULT} (paged bf16): "
+            f"teacher-forced agreement {first['serve_fault']:.4f} "
+            f"(rejected below {TP_AGREE})")
+    assert first["serve_fault"] < TP_AGREE, line + " NOT REJECTED"
+    log(line)
+    t = first["train"]
+    lo, no = t["one"]
+    le, ne, cos, leaf = t["gate"]
+    line = (f"[tp] (b) flagship at 2 layers, full width, tp={TP_RANKS} "
+            f"(wq per rank {t['wq']}; B1/B3 at H=6): one step's loss "
+            f"{t['loss']:.6f} vs the one-rank step's {lo:.6f} (relative "
+            f"{le:.3e} <= {TP_LOSS_RTOL}), grad norm {t['norm']:.6f} vs "
+            f"{no:.6f} ({ne:.3e} <= {TP_NORM_RTOL}), rank 0's gradient "
+            f"shards against their regions of the one-rank gradients: min "
+            f"cosine {cos:.6f} ({leaf}; >= {PARITY_MIN_COS}); kernel "
+            f"launches {t['launches']}; step {t['ms']:.1f} ms, peak memory "
+            "per rank "
+            + ", ".join(f"{x['train']['peak'] / 2**30:.2f}" for x in ranks)
+            + " GiB (two processes on one card, gloo: not a speed)")
+    assert _tp_train_ok(t["gate"]), line + " FAILED"
+    assert t["launches"] == {"fwd": 4, "dq": 2, "dkv": 2}, line + " FAILED"
+    log(line)
+    for fault, gate in t["faults"].items():
+        line = (f"[tp] (b) planted fault {fault}: loss {gate[0]:.3e}, norm "
+                f"{gate[1]:.3e}, min cosine {gate[2]:.6f} ({gate[3]})")
+        assert not _tp_train_ok(gate), line + " NOT REJECTED"
+        log(line + ": rejected")
+    return first
+
+
+def tp_phase(smi, cfg, holder, serve_tokens):
+    """The tp phase (see the module docstring). ``holder`` is a list
+    holding the only reference to the 8B weights, which (b) frees before
+    its ranks build theirs. Returns {"serve": B2 launches of rank 0's
+    bf16 run, "train": the flash kernels' launches of its step}; (c)'s
+    kernel cases are checked and printed."""
+    history = _tp_world_one(smi, cfg, holder[0], serve_tokens)
+    holder.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = _tp_world_two(smi, history)
+    for h, kv in TP_B2_HEADS:
+        kernel_phase(TP_B2_CASES, h, kv, phase="tp")
+    flash_phase([TP_FLASH_CASE], (TP_FLASH_CASE[0],), phase="tp")
+    return {"serve": first["serve"]["bf16"]["launches"],
+            "train": first["train"]["launches"]}
+
+
+# --tp-cards N: the serve traffic at tp = N over NCCL, one rank a card.
+# A rank that has not finished within TP_CARDS_LIMIT_S of its start is
+# killed; from its eager rerun on, each rank dumps its threads' stacks
+# every TP_CARDS_TRACE_S into its trace file, which the parent prints.
+TP_CARDS_LIMIT_S, TP_CARDS_TRACE_S = 240, 20
+
+
+def _first_tokens_profile(eng, prompts):
+    """Serve the prompts on ``eng``; the steps up to the last request's
+    first token run under torch.profiler. Returns that window's host
+    seconds and steps, the card's busy share in it, its NCCL kernels'
+    ms and its five costliest device ops (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    seen, steps = set(), 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while len(seen) < len(ids):
+            seen.update(eng.step())
+            steps += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    while eng.pending():
+        eng.step()
+    for i in ids:
+        eng.pop_result(i)
+    dev = [(e.self_device_time_total / 1e3, e.key)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for ms, _ in dev)
+    return {"wall": wall, "steps": steps, "busy": busy / 1e3 / wall,
+            "nccl_ms": sum(ms for ms, k in dev if "nccl" in k.lower()),
+            "top": [[round(ms, 3), k[:60]] for ms, k in sorted(dev)[-5:]]}
+
+
+def tp_card_rank_main(rank, job_path):
+    """One rank of ``--tp-cards``: card ``rank`` of an NCCL world. Each
+    layout serves the traffic on one tp engine three times (a warm-up
+    with the first-use captures, a timed run, a run whose first tokens
+    are profiled); rank 0 then serves it on a one-card engine (warm-up,
+    timed). Results go to ``rank<k>.json`` before the last part, the
+    paged engine served again with its loop forced eager. Each milestone
+    and eager step goes with its host time to ``rank<k>.progress``;
+    from the eager rerun until the process group is destroyed the
+    rank's stacks are dumped every TP_CARDS_TRACE_S to ``rank<k>.trace``.
+    """
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+
+    with open(job_path) as f:
+        job = json.load(f)
+    out = job["out"]
+    log_f = open(f"{out}/rank{rank}.progress", "w", buffering=1)
+
+    def mark(what):
+        log_f.write(f"{time.perf_counter():.3f} {what}\n")
+
+    torch.cuda.set_device(rank)
+    initialize_distributed(job["store"], job["tp"], rank)
+    mark("initialized")
+    cfg = LlamaConfig.llama3_8b()
+    params = llama_init(cfg, seed=0, device="cuda", dtype=cfg.dtype)
+    prompts = serve_prompts(cfg.vocab_size)
+    mesh = create_mesh({"tp": job["tp"]})
+    res, engines = {"rank": rank}, {}
+    for label, paged in (("dense", False), ("paged", True)):
+        eng, _, warm = _serve(params, cfg, prompts, paged=paged, depth=2,
+                              mesh=mesh)
+        iters = eng.decode_iterations
+        _, toks, run = _drive(eng, prompts, NEW_TOKENS)
+        s = eng.stats()
+        res[label] = {
+            "warm_ttft": warm["ttft_p50"], "ttft": run["ttft_p50"],
+            "steady": run["steady"], "wall": run["wall"],
+            "launches": run["launches"],
+            "want": cfg.n_layers * (eng.decode_iterations - iters),
+            "graphs": s["decode_graphs"],
+            "replays": s["decode_graph_replays"], "tokens": toks,
+            "peak": run["peak"],
+            "first": _first_tokens_profile(eng, prompts)}
+        engines[label] = eng
+        mark(f"{label} runs done")
+    dist.barrier()
+    if rank == 0:
+        for label, paged in (("dense", False), ("paged", True)):
+            one, _, warm = _serve(params, cfg, prompts, paged=paged,
+                                  depth=2)
+            _, toks, run = _drive(one, prompts, NEW_TOKENS)
+            res[label]["one"] = {"warm_ttft": warm["ttft_p50"],
+                                 "ttft": run["ttft_p50"],
+                                 "steady": run["steady"], "tokens": toks}
+            del one
+            torch.cuda.empty_cache()
+    dist.barrier()
+    mark("one-card runs done")
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    # the paged engine again, eager, each step logged; stacks dumped
+    # until the process group is gone
+    eng = engines["paged"]
+    eng._graphs = None
+    trace = open(f"{out}/rank{rank}.trace", "w")
+    faulthandler.dump_traceback_later(TP_CARDS_TRACE_S, repeat=True,
+                                      file=trace)
+    step = eng.step
+
+    def logged():
+        mark(f"step at {eng.decode_iterations} iterations")
+        got = step()
+        torch.cuda.synchronize()
+        return got
+
+    eng.step = logged
+    _, toks, _ = _drive(eng, prompts, NEW_TOKENS)
+    with open(f"{out}/rank{rank}.eager.json", "w") as f:
+        json.dump({"tokens": toks}, f)
+    mark("eager rerun done")
+    dist.barrier()
+    mark("barrier passed")
+    dist.destroy_process_group()
+    mark("process group destroyed")
+    faulthandler.cancel_dump_traceback_later()
+
+
+def tp_cards_main(n):
+    """``python3 chip_smoke.py --tp-cards N``: Llama-3-8B on the serve
+    traffic at tp = N over NCCL, one rank process a card, against a
+    one-card engine in the same call; prints each layout's TTFT p50 of
+    the warm-up and of the timed run, its steady rate, its first tokens'
+    profile, B2's launches and the eager rerun's outcome."""
+    import os
+    import sys
+    import tempfile
+
+    name, count, smi = device_phase()
+    if count < n:
+        raise SystemExit(f"--tp-cards {n} needs {n} cards, {count} seen")
+    build_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"store": f"tcp://127.0.0.1:{_free_port()}",
+                       "tp": n, "out": tmp}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-card-rank",
+             str(r), job], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(n)]
+        deadline, logs, hung = time.monotonic() + TP_CARDS_LIMIT_S, [], False
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1, deadline - time.monotonic()))[0].decode())
+            except subprocess.TimeoutExpired:
+                hung = True
+                p.kill()
+                logs.append(p.communicate()[0].decode())
+        for p in procs:
+            p.kill()
+            p.wait()
+
+        def read(r, ext):
+            path = os.path.join(tmp, f"rank{r}.{ext}")
+            return open(path).read() if os.path.exists(path) else None
+
+        ranks = [read(r, "json") for r in range(n)]
+        r0 = json.loads(ranks[0]) if ranks[0] else None
+        for label in ("dense", "paged") if r0 else ():
+            x, one = r0[label], r0[label]["one"]
+            f = x["first"]
+            log(f"[tp-cards] {label}, tp={n} over NCCL: TTFT p50 warm-up "
+                f"{x['warm_ttft']:.4f} s, timed {x['ttft']:.4f} s (one "
+                f"card: {one['warm_ttft']:.4f} / {one['ttft']:.4f}); steady"
+                f" {x['steady']:.1f} tokens/s (one card {one['steady']:.1f})"
+                f"; B2 {x['launches']} = {x['want']}; graphs "
+                f"{x['graphs']:.0f}, replays {x['replays']:.0f}; peak "
+                f"{x['peak'] / 2**30:.2f} GiB a rank; first tokens equal "
+                f"{sum(a[0] == b[0] for a, b in zip(x['tokens'], one['tokens']))}"
+                f"/{N_REQUESTS}; first-token window (profiled run) "
+                f"{f['wall']:.4f} s in {f['steps']} steps, card busy "
+                f"{f['busy']:.3f}, NCCL {f['nccl_ms']:.1f} ms, top device "
+                f"ops {f['top']}; on {smi}")
+            assert x["launches"] == x["want"], label
+            for other in ranks[1:]:
+                assert json.loads(other)[label]["tokens"] == x["tokens"]
+        eager = [read(r, "eager.json") for r in range(n)]
+        if r0 and all(eager):
+            same = json.loads(eager[0])["tokens"] == r0["paged"]["tokens"]
+            log(f"[tp-cards] paged, eager rerun: finished on every rank; "
+                f"tokens equal to the captured run's: {same}")
+        if hung or not (r0 and all(eager)):
+            for r in range(n):
+                prog = (read(r, "progress") or "(none)").splitlines()
+                log(f"[tp-cards] rank {r} progress (host clock; last 6 "
+                    f"of {len(prog)} lines): {prog[:1] + prog[-6:]}")
+                log(f"[tp-cards] rank {r} stacks (last dump):\n"
+                    + (read(r, "trace") or "(none)")[-3000:])
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode and not hung:
+                log(f"[tp-cards] rank {r} exited {p.returncode}:\n"
+                    f"{text[-4000:]}")
+        assert r0 and all(eager) and not hung, \
+            f"[tp-cards] FAILED (hung: {hung})"
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+
+
 def _kernel_entry(name, source, replaces, launches, res, by_path=None):
     """One kernel's entry of the kernels line: ``launches`` on the main
     path; ``by_path`` the launches of each path that runs the kernel at
@@ -2909,10 +3599,14 @@ def main():
     lora_launches = phase("lora", lora_phase, smi, cfg, params)
     fleet_launches = phase("fleet", fleet_phase, smi, cfg, params,
                            paged_run)
+    # the tp phase frees the weights before its ranks build theirs
+    holder = [params]
+    del params
+    tp_launches = phase("tp", tp_phase, smi, cfg, holder,
+                        paged_run["tokens"])
     # kvmem's swap watchers tie engines (and through them the weights)
     # in reference cycles: collect them before the train phase measures
     # its peak memory
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     tlaunches, full = phase("train", train_phase, smi)
@@ -2931,9 +3625,11 @@ def main():
                       "ray_tpu/ops/paged_attention_kernel.py:104",
                       launches, kres[("bf16", 1, D)],
                       # the multi-LoRA path: engine (a)'s timed run; the
-                      # fleet: colocated fleet (a), both replicas
+                      # fleet: colocated fleet (a), both replicas; tp:
+                      # rank 0 of the tp=2 paged bf16 run (H 16 / KV 4)
                       {"serve": launches, "lora": lora_launches,
-                       "fleet": fleet_launches}),
+                       "fleet": fleet_launches,
+                       "tp": tp_launches["serve"]}),
         # the speculative path: engine (a)'s launches, the verify pass's
         # shape (S = 5) timed
         _kernel_entry("paged_attention (speculative round, S=5 verify)",
@@ -2942,11 +3638,12 @@ def main():
                       spec_launches, kres[("bf16", 5, D)]),
     ] + [
         # the sharded and the adapter-only train steps run the same
-        # kernels and shapes
+        # kernels and shapes; the tp step (rank 0) at H = 6
         _kernel_entry(name, sm90_src, f"{flash_py}:{line}", tlaunches[key],
                       main_flash[key], {"train": tlaunches[key],
                                         "sharded-train": slaunches[key],
-                                        "lora-train": llaunches[key]})
+                                        "lora-train": llaunches[key],
+                                        "tp": tp_launches["train"][key]})
         for name, line, key in (("flash_fwd", 130, "fwd"),
                                 ("flash_bwd_dq", 192, "dq"),
                                 ("flash_bwd_dkv", 239, "dkv"))
@@ -2956,4 +3653,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--tp-card-rank"]:
+        tp_card_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--tp-cards"]:
+        tp_cards_main(int(sys.argv[2]))
+    else:
+        main()

@@ -27,6 +27,14 @@ mixed batch; the rest stays on the host until traffic warms it.
   JAX pool's donated `_adapter_commit`). The engine drains only with no
   decode dispatch in flight, and defers the waiting request meanwhile.
 
+- Tensor parallelism (``mesh=`` with a "tp" axis, ``rules=`` the
+  engine's pruned serving rules): each rank's stacks hold its region
+  under `lora_stack_specs` — the a-stacks of wo / w_down split on
+  their input, the b-stacks of q/k/v and gate/up on their output — and
+  when the kv axis replicates, the wk/wv b-stacks hold the kv heads
+  this rank's q heads read, as the engine's pool does. Registration
+  cuts the host copies once; commits copy into the local ``[:, slot]``.
+
 Telemetry flows through the engine's metrics plane
 (``llm_engine_adapter_*``, see engine_metrics.py) and the request
 tracer ("adapter_prefetch" / "adapter_evict" instants).
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models.llama import LlamaConfig, resolve_device
-from ray_tpu_torch.models.lora import LoraConfig, lora_dims
+from ray_tpu_torch.models.lora import LoraConfig, lora_dims, tp_cut
 
 Params = Dict[str, Any]
 
@@ -51,6 +59,11 @@ ADAPTER_STATS_KEYS = ("adapters_registered", "adapter_slots",
               "adapter_slots_resident", "adapter_slots_pinned",
               "adapter_lookups", "adapter_hits", "adapter_hit_rate",
               "adapter_prefetches", "adapter_evictions")
+
+
+def _width(cut, n: int) -> int:
+    """How many of ``n`` entries a slice or an index array keeps."""
+    return len(range(n)[cut]) if isinstance(cut, slice) else len(cut)
 
 
 def _host_f32(x) -> np.ndarray:
@@ -85,7 +98,7 @@ class AdapterPool:
 
     def __init__(self, cfg: LlamaConfig, lora_cfg: LoraConfig, *,
                  max_live_adapters: int = 4, device="cuda", metrics=None,
-                 trace=None):
+                 trace=None, mesh=None, rules=None):
         if max_live_adapters < 1:
             raise ValueError(
                 f"max_live_adapters must be >= 1, got {max_live_adapters}")
@@ -98,12 +111,15 @@ class AdapterPool:
         self.metrics = metrics
         self.trace = trace
         self._dims: Dict[str, Tuple[int, int]] = lora_dims(cfg, lora_cfg)
+        self._cuts = self._tp_cuts(mesh, rules)
         L, A, r = cfg.n_layers, self.n_slots, lora_cfg.rank
         self.stacks: Params = {
-            name: {"a": torch.zeros((L, A, n_in, r), dtype=self.dtype,
-                                    device=self.device),
-                   "b": torch.zeros((L, A, r, n_out), dtype=self.dtype,
-                                    device=self.device)}
+            name: {"a": torch.zeros((L, A, _width(self._cuts[name][0], n_in),
+                                     r),
+                                    dtype=self.dtype, device=self.device),
+                   "b": torch.zeros((L, A, r,
+                                     _width(self._cuts[name][1], n_out)),
+                                    dtype=self.dtype, device=self.device)}
             for name, (n_in, n_out) in self._dims.items()}
         self._cuda = self.device.type == "cuda"
         # the staging copies' stream
@@ -128,6 +144,35 @@ class AdapterPool:
         self.hits = 0
         self.prefetches = 0
         self.evictions = 0
+
+    def _tp_cuts(self, mesh, rules) -> Dict[str, Tuple[object, object]]:
+        """name -> (in, out) slices (or, for kv heads replicated over tp,
+        an index array) of the flattened weight that this rank's stacks
+        hold: ``slice(None)`` without a tp axis."""
+        from ray_tpu_torch.models.llama import _layer_shapes, llama_param_specs
+        from ray_tpu_torch.parallel.sharding import mesh_axis_sizes
+        from ray_tpu_torch.parallel.tensor_parallel import local_heads
+
+        size = 1 if mesh is None else mesh_axis_sizes(mesh).get("tp", 1)
+        rank = 0 if size == 1 else int(mesh.get_local_rank("tp"))
+        # the base weight's spec splits the stacks as `lora_stack_specs`
+        # does: its input axis the a-stack's, its output axis the b's
+        specs = llama_param_specs(self.cfg, rules)["layers"]
+        shapes = _layer_shapes(self.cfg)
+        cuts = {}
+        for name, (n_in, n_out) in self._dims.items():
+            shape, _, fan_in = shapes[name]
+            cut = tp_cut(shape, fan_in, specs[name][1:], size, rank)
+            c_in, c_out = cut or (slice(None), slice(None))
+            if name in ("wk", "wv") and size > 1 \
+                    and _width(c_out, n_out) == n_out:
+                # kv replicated: the heads this rank's q heads read
+                hd = self.cfg.head_dim
+                _, kv = local_heads(self.cfg, rules, rank, size)
+                c_out = np.concatenate([np.arange(j * hd, (j + 1) * hd)
+                                        for j in kv])
+            cuts[name] = (c_in, c_out)
+        return cuts
 
     # -- registration ------------------------------------------------------
 
@@ -157,8 +202,10 @@ class AdapterPool:
                 raise ValueError(
                     f"adapter {adapter_id!r} {name}: shapes "
                     f"{a.shape}/{b.shape}, want {want_a}/{want_b}")
-            host[name] = {"a": self._to_host(a),
-                          "b": self._to_host(b * np.float32(scale))}
+            c_in, c_out = self._cuts[name]
+            host[name] = {"a": self._to_host(a[:, c_in]),
+                          "b": self._to_host(b[:, :, c_out]
+                                             * np.float32(scale))}
         self._registry[adapter_id] = host
         self._doomed.discard(adapter_id)
 

@@ -106,9 +106,22 @@ scale rows verbatim) and its logits, which the importer scatters back
 through the swap path with no re-prefill; anything else re-prefills.
 Every engine registers weakly with `ray_tpu_torch.util.state.serving`.
 
-Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: tensor parallelism (A9) and the runtime sanitizer
-(A14).
+Tensor parallelism (``tp=n`` or ``mesh=`` with a "tp" axis, one
+process per rank, `parallel.tensor_parallel`): each rank holds its
+shards of the weights (heads, MLP columns and vocab rows by JAX's
+pruned serving rules, ``"kv"`` on tp) and a cache or pool of the kv
+heads its q heads read (the KV axis splits when ``n_kv_heads`` divides
+tp); the draft plane and the adapter stacks shard the same way. Every
+rank runs the same host loop on the same submits and takes the same
+decisions (those that read the clock use rank 0's reading), the logits
+are gathered whole, so every rank samples the same replicated [H, B]
+token block, and host-transfer bytes per token do not grow with tp. The
+decode loop is captured only when the group's collectives can be
+(NCCL); a handoff payload is made whole over tp, so any engine imports
+it.
+
+Not ported yet, raising NotImplementedError that names its ROADMAP.md
+item: the runtime sanitizer (A14).
 """
 
 from __future__ import annotations
@@ -127,11 +140,12 @@ from ray_tpu_torch.models.engine_metrics import (EngineMetrics,
 from ray_tpu_torch.models.engine_trace import resolve_tracer
 from ray_tpu_torch.models.adapter_pool import (ADAPTER_STATS_KEYS,
                                                AdapterPool)
-from ray_tpu_torch.models.generate import (_check_sampling_knobs, _layer,
-                                           _layer_body, _lora_layer,
-                                           forward_cached_rows, init_cache,
-                                           key_data, key_words, sample_rows)
-from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm
+from ray_tpu_torch.models.generate import (_check_sampling_knobs, _embed,
+                                           _head, _layer, _layer_body,
+                                           _lora_layer, _rows_logits,
+                                           init_cache, key_data, key_words,
+                                           sample_rows)
+from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.models.prefix_cache import PrefixCacheIndex, block_bytes
 from ray_tpu_torch.models.scheduler import (EngineDraining,
                                             EngineOverloaded, FIFOPolicy,
@@ -143,6 +157,9 @@ from ray_tpu_torch.ops.attention import paged_attention
 from ray_tpu_torch.ops.kv_quant import (KVQuantSpec, block_scale,
                                         dequantize, paged_quant_write,
                                         quantize, raw, resolve_kv_quant)
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, collective,
+                                                    gather_logits, is_split,
+                                                    local_heads, tp_group)
 from ray_tpu_torch.util.state.serving import register_engine
 
 Params = Dict[str, Any]
@@ -293,7 +310,8 @@ def _prefill_views(params: Params, prompts: torch.Tensor, cache,
                    last_logits: torch.Tensor, rows: torch.Tensor,
                    starts: torch.Tensor, last_idx: torch.Tensor,
                    cfg: LlamaConfig, adapters: Optional[Params] = None,
-                   row_slot: Optional[torch.Tensor] = None) -> None:
+                   row_slot: Optional[torch.Tensor] = None,
+                   tp: Optional[TPGroup] = None) -> None:
     """N same-bucket chunks [N, Cb] run `forward_cached_rows` over the
     row views ``cache``, and each row's last-real-token logits land in
     ``last_logits[rows]``. Filler tokens past a chunk's true length
@@ -302,12 +320,14 @@ def _prefill_views(params: Params, prompts: torch.Tensor, cache,
     ``last_idx`` are read. ``rows`` may repeat (power-of-two padding
     repeats the last row verbatim): duplicate scatters write identical
     values. ``adapters`` / ``row_slot`` (the adapter pool's stacks and
-    this batch's per-chunk slot lane [N]) add the rows' LoRA deltas."""
-    logits, _ = forward_cached_rows(params, prompts, cache, starts, cfg,
-                                    adapters=adapters, row_slot=row_slot)
+    this batch's per-chunk slot lane [N]) add the rows' LoRA deltas.
+    Under ``tp`` only the rows' last-token logits are gathered whole."""
+    logits = _rows_logits(params, prompts, cache, starts, cfg, adapters,
+                          row_slot, tp)
     n = prompts.shape[0]
-    last_logits[rows.long()] = logits[torch.arange(n, device=logits.device),
-                                      last_idx.long()]
+    last_logits[rows.long()] = gather_logits(
+        logits[torch.arange(n, device=logits.device), last_idx.long()], tp,
+        cfg.vocab_size)
 
 
 @torch.no_grad()
@@ -315,14 +335,15 @@ def _prefill_rows(params: Params, prompts: torch.Tensor, cache,
                   last_logits: torch.Tensor, rows: torch.Tensor,
                   starts: torch.Tensor, last_idx: torch.Tensor,
                   cfg: LlamaConfig, adapters: Optional[Params] = None,
-                  row_slot: Optional[torch.Tensor] = None) -> None:
+                  row_slot: Optional[torch.Tensor] = None,
+                  tp: Optional[TPGroup] = None) -> None:
     """Batched admission prefill into the dense cache, in place: row
     ``rows[n]`` of the cache takes chunk n at offset ``starts[n]`` (0
     cold, the copied prefix warm, the chunk frontier chunked)."""
     views = {"k": _DenseRows(cache["k"], rows),
              "v": _DenseRows(cache["v"], rows)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
-                   last_idx, cfg, adapters, row_slot)
+                   last_idx, cfg, adapters, row_slot, tp)
 
 
 @torch.no_grad()
@@ -335,7 +356,8 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
                         scale_v: Optional[torch.Tensor] = None,
                         qspec: Optional[KVQuantSpec] = None,
                         adapters: Optional[Params] = None,
-                        row_slot: Optional[torch.Tensor] = None) -> None:
+                        row_slot: Optional[torch.Tensor] = None,
+                        tp: Optional[TPGroup] = None) -> None:
     """Batched admission prefill into the pool, in place, through the
     rows' block tables ``bt`` [N, MB]. A quantized pool (``qspec`` and
     the f32 scale slabs) runs the same math on the dequantized f32 view
@@ -348,7 +370,7 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
         views = {"k": _QuantPagedRows(pool_k, scale_k, bt, valid, qspec),
                  "v": _QuantPagedRows(pool_v, scale_v, bt, valid, qspec)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
-                   last_idx, cfg, adapters, row_slot)
+                   last_idx, cfg, adapters, row_slot, tp)
 
 
 @torch.no_grad()
@@ -394,7 +416,8 @@ def _prefix_copy_out(cache, pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
                        cfg: LlamaConfig, max_len: int, view_bt=None,
-                       lora=None, lora_slots=None):
+                       lora=None, lora_slots=None,
+                       tp: Optional[TPGroup] = None):
     """One decoder layer, S new tokens per row (S=1 in decode, S > 1 in
     a speculative round), each row writing its K/V at its own slots and
     attending its own prefix, per query causally. h: [B, S, d]; caches
@@ -429,14 +452,15 @@ def _decode_layer_rows(h, layer, k_cache, v_cache, slots,
 
     h, _, _ = _layer_body(h, layer, k_cache, v_cache, sl, write_kv, sl,
                           max_len, cfg, attend=attend, lora=lora,
-                          lora_slots=lora_slots)
+                          lora_slots=lora_slots, tp=tp)
     return h
 
 
 def _spec_core(params: Params, toks: torch.Tensor, cache,
                starts: torch.Tensor, cfg: LlamaConfig, max_len: int,
                view_bt=None, adapters: Optional[Params] = None,
-               row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+               row_slot: Optional[torch.Tensor] = None,
+               tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Feed each row's chunk ``toks`` [B, S] at slots ``starts[b] +
     arange(S)`` of the dense cache (in place); returns the logits [B, S,
     vocab] f32. Decode is its S=1 case (`_decode_core`); a speculative
@@ -444,35 +468,36 @@ def _spec_core(params: Params, toks: torch.Tensor, cache,
     compute discarded garbage at their own slots, which every mask
     excludes until the slot's next write. ``adapters`` / ``row_slot``
     (the adapter pool's stacks and the [B] slot lane) add each row's
-    LoRA deltas."""
+    LoRA deltas. ``tp``: the rank's shards; the logits come back whole."""
     S = toks.shape[1]
     slots = starts.long()[:, None] + torch.arange(
         S, device=toks.device)[None, :]
-    h = params["tok_embed"][toks]
+    h = _embed(params, toks, cfg, tp)
     for i in range(cfg.n_layers):
         h = _decode_layer_rows(h, _layer(params, i), cache["k"][i],
                                cache["v"][i], slots, cfg, max_len, view_bt,
-                               _lora_layer(adapters, i), row_slot)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg)
+                               _lora_layer(adapters, i), row_slot, tp)
+    return gather_logits(_head(params, h, cfg), tp, cfg.vocab_size)
 
 
 def _decode_core(params: Params, toks: torch.Tensor, cache,
                  row_len: torch.Tensor, cfg: LlamaConfig, max_len: int,
                  view_bt=None, adapters: Optional[Params] = None,
-                 row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_slot: Optional[torch.Tensor] = None,
+                 tp: Optional[TPGroup] = None) -> torch.Tensor:
     """One decode step for ALL slots of the dense cache: row b's token
     ``toks[b]`` is written at slot ``row_len[b]`` and attends slots
     [0, row_len[b]]. Returns next-token logits [B, vocab] f32; the
     cache is updated in place."""
     return _spec_core(params, toks[:, None], cache, row_len, cfg, max_len,
-                      view_bt, adapters, row_slot)[:, 0]
+                      view_bt, adapters, row_slot, tp)[:, 0]
 
 
 def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, slots,
                              cfg: LlamaConfig, k_scale=None, v_scale=None,
                              qspec: Optional[KVQuantSpec] = None,
-                             lora=None, lora_slots=None):
+                             lora=None, lora_slots=None,
+                             tp: Optional[TPGroup] = None):
     """One decoder layer, S new tokens per row, against the pool: row
     b's new K/V land in physical blocks ``bt[b, slot // T]`` at offsets
     ``slot % T`` and its S queries attend back through the block table,
@@ -515,7 +540,7 @@ def _decode_layer_rows_paged(h, layer, k_pages, v_pages, bt, slots,
 
     h, _, _ = _layer_body(h, layer, k_pages, v_pages, sl, write_kv, sl,
                           span, cfg, attend=attend, lora=lora,
-                          lora_slots=lora_slots)
+                          lora_slots=lora_slots, tp=tp)
     return h
 
 
@@ -525,14 +550,15 @@ def _spec_core_paged(params: Params, toks: torch.Tensor,
                      cfg: LlamaConfig, scale_k=None, scale_v=None,
                      qspec: Optional[KVQuantSpec] = None,
                      adapters: Optional[Params] = None,
-                     row_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     row_slot: Optional[torch.Tensor] = None,
+                     tp: Optional[TPGroup] = None) -> torch.Tensor:
     """`_spec_core` against the pool (block tables ``bt``): the chunk
     [B, S] at slots ``starts + arange(S)``, logits [B, S, vocab]; a
     quantized pool passes its scale slabs [L, NB, KV] too."""
     S = toks.shape[1]
     slots = starts.long()[:, None] + torch.arange(
         S, device=toks.device)[None, :]
-    h = params["tok_embed"][toks]
+    h = _embed(params, toks, cfg, tp)
     for i in range(cfg.n_layers):
         scales = ((None, None) if qspec is None
                   else (scale_k[i], scale_v[i]))
@@ -540,9 +566,8 @@ def _spec_core_paged(params: Params, toks: torch.Tensor,
                                      pool_v[i], bt, slots, cfg, *scales,
                                      qspec=qspec,
                                      lora=_lora_layer(adapters, i),
-                                     lora_slots=row_slot)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg)
+                                     lora_slots=row_slot, tp=tp)
+    return gather_logits(_head(params, h, cfg), tp, cfg.vocab_size)
 
 
 def _decode_core_paged(params: Params, toks: torch.Tensor,
@@ -551,13 +576,13 @@ def _decode_core_paged(params: Params, toks: torch.Tensor,
                        cfg: LlamaConfig, scale_k=None, scale_v=None,
                        qspec: Optional[KVQuantSpec] = None,
                        adapters: Optional[Params] = None,
-                       row_slot: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       row_slot: Optional[torch.Tensor] = None,
+                       tp: Optional[TPGroup] = None) -> torch.Tensor:
     """`_decode_core` against the pool: one token per row at slot
     ``row_len``, next-token logits [B, vocab]."""
     return _spec_core_paged(params, toks[:, None], pool_k, pool_v, bt,
                             row_len, cfg, scale_k, scale_v, qspec,
-                            adapters, row_slot)[:, 0]
+                            adapters, row_slot, tp)[:, 0]
 
 
 def _decode_loop(step, last_logits, row_len, active, budget, tok_idx,
@@ -610,12 +635,13 @@ def _decode_multi(params: Params, cache, last_logits, row_len, active,
                   top_k: Optional[int], top_p: Optional[float],
                   eos_id: Optional[int], *, max_len: int, view_bt=None,
                   adapters: Optional[Params] = None,
-                  row_slot: Optional[torch.Tensor] = None):
+                  row_slot: Optional[torch.Tensor] = None,
+                  tp: Optional[TPGroup] = None):
     """The dense decode loop (`_decode_loop` over `_decode_core`);
     ``adapters`` / ``row_slot`` add each row's LoRA deltas."""
     return _decode_loop(
         lambda tok, rl: _decode_core(params, tok, cache, rl, cfg, max_len,
-                                     view_bt, adapters, row_slot),
+                                     view_bt, adapters, row_slot, tp),
         last_logits, row_len, active, budget, tok_idx, row_keys, row_greedy,
         temperature, horizon, greedy, top_k, top_p, eos_id, max_len)
 
@@ -629,13 +655,14 @@ def _decode_multi_paged(params: Params, pool_k, pool_v, bt, last_logits,
                         scale_k=None, scale_v=None,
                         qspec: Optional[KVQuantSpec] = None,
                         adapters: Optional[Params] = None,
-                        row_slot: Optional[torch.Tensor] = None):
+                        row_slot: Optional[torch.Tensor] = None,
+                        tp: Optional[TPGroup] = None):
     """The paged decode loop (`_decode_loop` over `_decode_core_paged`);
     the block table spans exactly max_len slots."""
     return _decode_loop(
         lambda tok, rl: _decode_core_paged(params, tok, pool_k, pool_v, bt,
                                            rl, cfg, scale_k, scale_v,
-                                           qspec, adapters, row_slot),
+                                           qspec, adapters, row_slot, tp),
         last_logits, row_len, active, budget, tok_idx, row_keys, row_greedy,
         temperature, horizon, greedy, top_k, top_p, eos_id,
         bt.shape[1] * pool_k.shape[2])
@@ -746,16 +773,19 @@ def _spec_round(params: Params, d_params: Params, cache, d_cache,
                 row_keys, row_greedy, w_row, temperature: float,
                 cfg: LlamaConfig, d_cfg: LlamaConfig, window: int,
                 greedy: bool, top_k: Optional[int], top_p: Optional[float],
-                eos_id: Optional[int], *, max_len: int, view_bt=None):
+                eos_id: Optional[int], *, max_len: int, view_bt=None,
+                tp: Optional[TPGroup] = None,
+                d_tp: Optional[TPGroup] = None):
     """The dense speculative round (`_spec_loop` over `_spec_core` on
     the target cache and the draft cache). ``view_bt`` (the card) runs
     both planes' attention on B2 over block-table views; both caches
-    have the same row span, so one view serves both."""
+    have the same row span, so one view serves both. ``tp`` / ``d_tp``:
+    each plane's tp group (the draft's is None when it is replicated)."""
     return _spec_loop(
         lambda t, st: _spec_core(params, t, cache, st, cfg, max_len,
-                                 view_bt),
+                                 view_bt, tp=tp),
         lambda t, st: _spec_core(d_params, t, d_cache, st, d_cfg, max_len,
-                                 view_bt),
+                                 view_bt, tp=d_tp),
         last_logits, row_len, active, budget, tok_idx, d_lag, d_tok,
         row_keys, row_greedy, w_row, temperature, window, greedy, top_k,
         top_p, eos_id, max_len)
@@ -770,7 +800,9 @@ def _spec_round_paged(params: Params, d_params: Params, pool_k, pool_v,
                       greedy: bool, top_k: Optional[int],
                       top_p: Optional[float], eos_id: Optional[int], *,
                       scale_k=None, scale_v=None, scale_dk=None,
-                      scale_dv=None, qspec: Optional[KVQuantSpec] = None):
+                      scale_dv=None, qspec: Optional[KVQuantSpec] = None,
+                      tp: Optional[TPGroup] = None,
+                      d_tp: Optional[TPGroup] = None):
     """The speculative round over the block pools: the target through
     ``bt``, the draft through its private table ``bt_d`` (draft blocks
     are never shared: the trie indexes only the target pool). With
@@ -779,10 +811,11 @@ def _spec_round_paged(params: Params, d_params: Params, pool_k, pool_v,
     the next overlapping write's absmax."""
     return _spec_loop(
         lambda t, st: _spec_core_paged(params, t, pool_k, pool_v, bt, st,
-                                       cfg, scale_k, scale_v, qspec),
+                                       cfg, scale_k, scale_v, qspec,
+                                       tp=tp),
         lambda t, st: _spec_core_paged(d_params, t, pool_dk, pool_dv, bt_d,
                                        st, d_cfg, scale_dk, scale_dv,
-                                       qspec),
+                                       qspec, tp=d_tp),
         last_logits, row_len, active, budget, tok_idx, d_lag, d_tok,
         row_keys, row_greedy, w_row, temperature, window, greedy, top_k,
         top_p, eos_id, bt.shape[1] * pool_k.shape[2])
@@ -1119,14 +1152,15 @@ class DecodeEngine:
                     "lora= and draft_params= are mutually exclusive: the "
                     "speculative draft/verify rounds do not carry per-row "
                     "adapter deltas")
-        if mesh is not None or tp is not None:
-            raise _unported("tensor parallelism (mesh= / tp=)", "A9")
         if sanitize:
             raise _unported("the runtime sanitizer (sanitize=)", "A14")
-        self.params = params
         self.cfg = cfg
         self.device = params["tok_embed"].device
         self.B = batch_slots
+        self._init_tp(mesh, tp, sharding_rules)
+        self.params = self._shard(params, cfg, self._rules, self._tp)
+        if draft_params is not None:
+            draft_params = self._init_draft_tp(draft_params, draft_cfg)
         self.max_len = max_len or cfg.max_seq_len
         if self.max_len > cfg.max_seq_len:
             raise ValueError(f"max_len {self.max_len} exceeds "
@@ -1154,9 +1188,11 @@ class DecodeEngine:
                                        if enable_metrics else "engine")
         self.trace = resolve_tracer(trace, engine_id=self.engine_id,
                                     clock=clock)
+        self.metrics.on_tp_degree(self.tp_degree)
 
         self.paged = paged
         L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        kv_local = len(self._kv_heads)
         # Next-token logits per slot, device-resident: prefill scatters
         # into it, decode samples from it and writes it back in place.
         self._last_logits = torch.zeros((self.B, cfg.vocab_size),
@@ -1190,7 +1226,8 @@ class DecodeEngine:
                 self._view_bt = torch.arange(
                     self.B * (span // T), dtype=torch.int32,
                     device=self.device).view(self.B, span // T)
-            self.cache = init_cache(cfg, self.B, span, device=self.device)
+            self.cache = init_cache(cfg, self.B, span, device=self.device,
+                                    n_kv_heads=kv_local)
             self.kv_pool = None
             self._pool_k = self._pool_v = None
             if prefix_cache:
@@ -1203,8 +1240,8 @@ class DecodeEngine:
                     block_tokens=prefix_block, n_blocks=n_blocks,
                     on_evict=self._on_prefix_evict)
                 self._pool_k = torch.zeros(
-                    (L, n_blocks, prefix_block, KV, D), dtype=cfg.dtype,
-                    device=self.device)
+                    (L, n_blocks, prefix_block, kv_local, D),
+                    dtype=cfg.dtype, device=self.device)
                 self._pool_v = torch.zeros_like(self._pool_k)
         if self._prefix is not None:
             attach = getattr(self.scheduler, "attach_prefix_probe", None)
@@ -1238,7 +1275,8 @@ class DecodeEngine:
         if lora is not None:
             self.adapter_pool = AdapterPool(
                 cfg, lora, max_live_adapters=max_live_adapters,
-                device=self.device, metrics=self.metrics, trace=self.trace)
+                device=self.device, metrics=self.metrics, trace=self.trace,
+                mesh=self.mesh, rules=self._rules)
             self.metrics.on_adapter_slots(max_live_adapters, 0, 0)
             attach = getattr(self.scheduler, "attach_adapter_probe", None)
             if attach is not None:
@@ -1279,8 +1317,13 @@ class DecodeEngine:
             else None
         self._d_bt_d = self._din[o + Bn * mb:].view(Bn, mb) \
             if paged and spec else None
+        # Captured only when the tp group's collectives can be (NCCL, or
+        # one rank); a gloo group stages through the host, so its loop
+        # runs eagerly and stats()["decode_graphs"] stays 0.
         self._graphs = (_DecodeGraphs(self.device)
-                        if self.device.type == "cuda" else None)
+                        if self.device.type == "cuda"
+                        and (self._tp is None or self._tp.capturable)
+                        else None)
         self.row_len = np.zeros((self.B,), np.int32)   # written slots
         self.row_req: List[Optional[_Request]] = [None] * self.B
         self.row_budget = np.zeros((self.B,), np.int32)
@@ -1295,7 +1338,6 @@ class DecodeEngine:
         self.requests_shed = 0
         self.draining = False
         self.halted = False             # `halt`: work abandoned
-        self.tp_degree = 1              # tensor parallelism is A9
         self._row_prefill: Dict[int, _PrefillState] = {}
         # Plain-int accounting (reported with enable_metrics=False too).
         self.decode_dispatches = 0     # decode loops launched
@@ -1343,6 +1385,151 @@ class DecodeEngine:
         # Weak: the serving state API lists the engine while it lives.
         register_engine(self)
 
+    def _init_tp(self, mesh, tp: Optional[int], sharding_rules) -> None:
+        """The tensor-parallel plane, with JAX's checks: ``tp=n`` builds
+        a mesh over the world (``{"tp": n}``, or ``{"dp": world / n,
+        "tp": n}`` whose dp replicas each serve on their own), ``mesh=``
+        hands over one with a "tp" axis; ``tp=1`` needs no process
+        group. The rules are JAX's serving table (``"kv"`` on tp) pruned
+        against the tp axis and the model's dims (`self._rules`)."""
+        from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                     mesh_axis_sizes,
+                                                     prune_rules_for_mesh)
+
+        if tp is not None:
+            if mesh is not None:
+                raise ValueError("pass mesh= or tp=, not both")
+            if tp < 1:
+                raise ValueError("tp must be >= 1")
+            if tp > 1:
+                mesh = self._tp_mesh(tp)
+        if mesh is not None and "tp" not in mesh.mesh_dim_names:
+            raise ValueError(
+                "serving mesh needs a 'tp' axis, got axes "
+                f"{tuple(mesh.mesh_dim_names)}")
+        degree = (1 if mesh is None
+                  else mesh_axis_sizes(mesh)["tp"])
+        self.mesh = mesh
+        self.tp_degree = degree
+        cfg = self.cfg
+        self._rules = None
+        if mesh is not None or tp is not None:
+            self._rules = (sharding_rules if sharding_rules is not None
+                           else prune_rules_for_mesh(
+                               dict(DEFAULT_RULES, kv="tp"), {"tp": degree},
+                               self._dims(cfg)))
+        self._tp: Optional[TPGroup] = None
+        if degree > 1:
+            self._tp = tp_group(mesh, host=True)
+        _, self._kv_heads = local_heads(
+            cfg, self._rules, 0 if self._tp is None else self._tp.rank,
+            degree)
+        self._d_tp: Optional[TPGroup] = None
+
+    def _tp_mesh(self, tp: int):
+        from ray_tpu_torch.parallel.bootstrap import distributed_info
+        from ray_tpu_torch.parallel.mesh import create_mesh
+
+        world = distributed_info().num_processes
+        if tp > world or world % tp:
+            raise ValueError(
+                f"tp={tp} exceeds the {world}-rank world (or does not "
+                "divide it): start one process per rank and call "
+                "ray_tpu_torch.parallel.initialize_distributed first")
+        axes = {"tp": tp} if world == tp else {"dp": world // tp, "tp": tp}
+        return create_mesh(axes, device_type=self.device.type)
+
+    def _dims(self, cfg: LlamaConfig) -> Dict[str, int]:
+        """The logical dims the serving rules are pruned against (JAX's
+        ``dims``)."""
+        return {"heads": cfg.n_heads, "qkv": cfg.n_heads,
+                "kv": cfg.n_kv_heads, "mlp": cfg.ffn_dim,
+                "vocab": cfg.vocab_size, "embed": cfg.dim, "batch": self.B}
+
+    def _shard(self, params: Params, cfg: LlamaConfig, rules,
+               tp: Optional[TPGroup]) -> Params:
+        """This rank's shards of a full param tree: the region JAX's
+        `NamedSharding` gives its device under ``rules``, with wk/wv cut
+        to the kv heads its q heads read when the kv axis replicates.
+        Without a split tp group the tree is used as given."""
+        if not is_split(tp):
+            return params
+        from ray_tpu_torch.models.llama import llama_param_specs
+        from ray_tpu_torch.parallel.sharding import local_region
+
+        _, kv = local_heads(cfg, rules, tp.rank, tp.size)
+        specs = llama_param_specs(cfg, rules)
+
+        def cut(x, spec, name=None):
+            x = x[local_region(x.shape, spec, {"tp": tp.size},
+                               {"tp": tp.rank})]
+            if name in ("wk", "wv") and x.shape[2] == cfg.n_kv_heads:
+                x = x.index_select(2, torch.tensor(kv, device=x.device))
+            return x.to(self.device, copy=True).contiguous()
+
+        out = {k: cut(params[k], specs[k])
+               for k in ("tok_embed", "final_norm", "lm_head")}
+        out["layers"] = {k: cut(w, specs["layers"][k], k)
+                         for k, w in params["layers"].items()}
+        return out
+
+    def _init_draft_tp(self, draft_params: Params,
+                       draft_cfg: LlamaConfig) -> Params:
+        """The draft shards over the same tp group with its OWN pruned
+        rules (a draft whose kv heads do not divide tp replicates them
+        while the target splits its). A draft whose q heads do not
+        split over tp runs whole on every rank, with no collective."""
+        from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                     prune_rules_for_mesh)
+
+        self._d_kv_heads = list(range(draft_cfg.n_kv_heads))
+        if not is_split(self._tp):
+            return draft_params
+        self._d_rules = prune_rules_for_mesh(
+            dict(DEFAULT_RULES, kv="tp"), {"tp": self._tp.size},
+            self._dims(draft_cfg))
+        if self._d_rules["heads"] != "tp":
+            return draft_params
+        self._d_tp = self._tp
+        _, self._d_kv_heads = local_heads(draft_cfg, self._d_rules,
+                                          self._tp.rank, self._tp.size)
+        return self._shard(draft_params, draft_cfg, self._d_rules,
+                           self._tp)
+
+    def _decision_clock(self) -> float:
+        """The clock a host decision reads (deadline shedding, the
+        blocking submit's timeout). Every tp rank runs the host loop and
+        must take the same decision, so under tp they all use rank 0's
+        reading, sent on the host group."""
+        if not is_split(self._tp):
+            return self._clock()
+        now = torch.tensor([self._clock()], dtype=torch.float64)
+        return float(collective("broadcast", now, self._tp, host=True)[0])
+
+    def _heads_whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A host tensor of this rank's kv heads (along ``dim``) made
+        whole over tp: each global head placed by the lowest rank that
+        holds it into a zeroed buffer, summed over the host group as raw
+        bytes (exact: every other contribution is zero). What a one-card
+        engine's payload holds."""
+        tp = self._tp
+        if not is_split(tp):
+            return x
+        KV = self.cfg.n_kv_heads
+        owner = {}
+        for r in range(tp.size):
+            for j in local_heads(self.cfg, self._rules, r, tp.size)[1]:
+                owner.setdefault(j, r)
+        u = x.unsqueeze(-1).view(torch.uint8)
+        shape = list(u.shape)
+        shape[dim] = KV
+        full = torch.zeros(shape, dtype=torch.uint8)
+        for i, j in enumerate(self._kv_heads):
+            if owner[j] == tp.rank:
+                full.select(dim, j).copy_(u.select(dim, i))
+        collective("sum", full, tp, host=True)
+        return full.view(x.dtype).squeeze(-1)
+
     def _init_pool(self, kv_block_tokens: Optional[int], prefix_block: int,
                    kv_pool_bytes: Optional[int],
                    prefix_cache_bytes: Optional[int],
@@ -1385,13 +1572,14 @@ class DecodeEngine:
         self._swapped: Dict[int, _SwapState] = {}   # preempted req ids
         self._admit_seq = 0            # preemption recency order
         self._row_admit_seq = np.zeros((self.B,), np.int64)
-        self._pool_k = torch.zeros((L, n_blocks, T, KV, D),
+        kv_local = len(self._kv_heads)
+        self._pool_k = torch.zeros((L, n_blocks, T, kv_local, D),
                                    dtype=pool_dtype, device=self.device)
         self._pool_v = torch.zeros_like(self._pool_k)
         if qspec is not None:
             # Zero scales: the zero pool (the null block included)
             # dequantizes to exactly 0.
-            self._scale_k = torch.zeros((L, n_blocks, KV),
+            self._scale_k = torch.zeros((L, n_blocks, kv_local),
                                         dtype=torch.float32,
                                         device=self.device)
             self._scale_v = torch.zeros_like(self._scale_k)
@@ -1413,9 +1601,9 @@ class DecodeEngine:
         if dcfg.max_seq_len < self.max_len:
             raise ValueError(f"draft max_seq_len {dcfg.max_seq_len} < "
                              f"engine max_len {self.max_len}")
-        if self.draft_params["tok_embed"].device != self.device:
+        if self.draft_params["final_norm"].device != self.device:
             raise ValueError(
-                f"draft params on {self.draft_params['tok_embed'].device},"
+                f"draft params on {self.draft_params['final_norm'].device},"
                 f" target params on {self.device}")
         B = self.B
         self._d_lag = np.zeros((B,), np.int64)
@@ -1426,13 +1614,13 @@ class DecodeEngine:
         self._d_last_logits = torch.zeros((B, dcfg.vocab_size),
                                           dtype=torch.float32,
                                           device=self.device)
-        L, KV, D = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
+        L, KV, D = dcfg.n_layers, len(self._d_kv_heads), dcfg.head_dim
         self._scale_dk = self._scale_dv = None
         self._d_cache = None
         self.kv_pool_d = None
         if not self.paged:
             self._d_cache = init_cache(dcfg, B, self.cache["k"].shape[2],
-                                       device=self.device)
+                                       device=self.device, n_kv_heads=KV)
         else:
             n_blocks = 1 + B * self._mb
             self.kv_pool_d = BlockPool(n_blocks, label="draft_kv")
@@ -1552,14 +1740,14 @@ class DecodeEngine:
                     f"but the pool holds only {self.kv_pool.blocks_total};"
                     " raise kv_pool_bytes or shrink the request")
         deadline = (None if deadline_s is None
-                    else self._clock() + deadline_s)
+                    else self._decision_clock() + deadline_s)
         key = None if rng is None else key_data(rng)
         req = _Request(self._next_id, prompt, max_new_tokens,
                        priority=priority, seq=self._next_id, rng=key,
                        deadline=deadline)
         req.greedy = greedy
         req.adapter_id = adapter_id
-        if deadline is not None and self._clock() >= deadline:
+        if deadline is not None and self._decision_clock() >= deadline:
             # Dead on arrival: shed before the bounded-queue check.
             self._next_id += 1
             self.results[req.req_id] = req
@@ -1575,10 +1763,11 @@ class DecodeEngine:
                 raise EngineOverloaded(
                     f"queue full ({self.max_queue} queued requests); "
                     f"shed load or use on_full='block'")
-            t_block = self._clock()
+            t_block = self._decision_clock()
             while len(self.scheduler) >= self.max_queue:
                 if self.block_timeout_s is not None and \
-                        self._clock() - t_block >= self.block_timeout_s:
+                        self._decision_clock() - t_block \
+                        >= self.block_timeout_s:
                     self.metrics.on_reject()
                     raise SubmitTimeout(
                         f"queue still full ({self.max_queue} queued "
@@ -1834,11 +2023,12 @@ class DecodeEngine:
                                       self._d_bt.to(torch.int32), *args,
                                       scale_k=self._scale_k,
                                       scale_v=self._scale_v,
-                                      qspec=self.kv_quant_spec, **lora)
+                                      qspec=self.kv_quant_spec, tp=self._tp,
+                                      **lora)
         else:
             out = _decode_multi(self.params, self.cache, *args,
                                 max_len=self.max_len,
-                                view_bt=self._view_bt, **lora)
+                                view_bt=self._view_bt, tp=self._tp, **lora)
         toks, last_logits, row_len, active, budget, tok_idx = out
         self._last_logits.copy_(last_logits)
         st.copy_(torch.stack([row_len, active.to(st.dtype), budget,
@@ -1862,11 +2052,13 @@ class DecodeEngine:
                 self._pool_dk, self._pool_dv, self._d_bt.to(torch.int32),
                 self._d_bt_d.to(torch.int32), *args, scale_k=self._scale_k,
                 scale_v=self._scale_v, scale_dk=self._scale_dk,
-                scale_dv=self._scale_dv, qspec=self.kv_quant_spec)
+                scale_dv=self._scale_dv, qspec=self.kv_quant_spec,
+                tp=self._tp, d_tp=self._d_tp)
         else:
             out = _spec_round(self.params, self.draft_params, self.cache,
                               self._d_cache, *args, max_len=self.max_len,
-                              view_bt=self._view_bt)
+                              view_bt=self._view_bt, tp=self._tp,
+                              d_tp=self._d_tp)
         emits, last_logits, row_len, active, budget, tok_idx, d_lag, \
             d_tok = out
         self._last_logits.copy_(last_logits)
@@ -2209,8 +2401,9 @@ class DecodeEngine:
         adapter pool's ``adapter_*`` keys (registered, slots, resident,
         pinned, lookups, hits, hit rate, prefetches, evictions). The
         handoff plane: ``prefill_only``, ``handoffs_*``,
-        ``handoff_*_bytes``, ``requests_handoff_ready``; ``tp_degree``
-        is 1 (tensor parallelism is A9). Every key is published, 0 where
+        ``handoff_*_bytes``, ``requests_handoff_ready``; the tp plane:
+        ``tp_degree`` (``decode_graphs`` stays 0 when the tp group's
+        collectives cannot be captured). Every key is published, 0 where
         its feature is off."""
         def _ratio(num: float, den: float) -> float:
             return num / den if den else 0.0
@@ -2397,7 +2590,7 @@ class DecodeEngine:
                     deferred = True    # the prefix policy deferred all
                     break
                 if cand.deadline is not None and \
-                        self._clock() >= cand.deadline and \
+                        self._decision_clock() >= cand.deadline and \
                         not cand.resume:
                     # Expired mid-queue: shed at the admission gate (a
                     # preempted request was admitted once and is exempt).
@@ -2659,10 +2852,11 @@ class DecodeEngine:
                     self._pool_dv, self._d_last_logits,
                     self._dev(self._bt_d[rows]), *args,
                     scale_k=self._scale_dk, scale_v=self._scale_dv,
-                    qspec=self.kv_quant_spec)
+                    qspec=self.kv_quant_spec, tp=self._d_tp)
             else:
                 _prefill_rows(self.draft_params, self._dev(prompts),
-                              self._d_cache, self._d_last_logits, *args)
+                              self._d_cache, self._d_last_logits, *args,
+                              tp=self._d_tp)
             self.spec_prefill_dispatches += 1
             if self.trace.enabled:
                 self.trace.add("spec_draft_prefill", t0,
@@ -2900,9 +3094,11 @@ class DecodeEngine:
         return list(self._handoff_ready)
 
     def _pool_shape(self) -> Tuple[int, int, int]:
-        """(L, KV, D) of the paged pool: what a handoff payload must
-        match to be scattered in verbatim."""
-        return tuple(int(self._pool_k.shape[i]) for i in (0, 3, 4))
+        """(L, KV, D) of the paged pool, KV counting every kv head of
+        the model (a tp rank holds some of them): what a handoff payload
+        must match to be scattered in verbatim."""
+        return (int(self._pool_k.shape[0]), self.cfg.n_kv_heads,
+                int(self._pool_k.shape[4]))
 
     def export_request(self, req_id: int) -> dict:
         """Extract a request whose prefill completed: the engine half of
@@ -2957,6 +3153,9 @@ class DecodeEngine:
                 if b.event is not None:
                     b.event.synchronize()
             host = [b.data for b in blocks]
+            # under tp the payload is made whole, as a one-card engine's
+            host[:-1] = [self._heads_whole(x, 3 if x.dim() == 5 else 2)
+                         for x in host[:-1]]
             k, v, lg = host[0], host[1], host[-1]
             sk, sv = (host[2], host[3]) if len(host) == 5 else (None, None)
             nbytes = sum(x.nbytes for x in host)
@@ -3031,6 +3230,11 @@ class DecodeEngine:
             parts = [kv["k"], kv["v"]]
             if kv["sk"] is not None:
                 parts += [kv["sk"], kv["sv"]]
+            if is_split(self._tp):
+                # this rank's kv heads of the whole payload
+                heads = torch.tensor(self._kv_heads)
+                parts = [x.index_select(3 if x.dim() == 5 else 2, heads)
+                         for x in parts]
             swap = _SwapState([_HostBlock(x, None) for x in parts],
                               kv["n_blocks"], kv["row_len"], kv["tok_idx"],
                               kv["budget"], _HostBlock(kv["logits"], None))
@@ -3152,10 +3356,10 @@ class DecodeEngine:
                     self._pool_v, self._last_logits,
                     self._dev(self._bt[rows]), *args,
                     scale_k=self._scale_k, scale_v=self._scale_v,
-                    qspec=self.kv_quant_spec, **lora)
+                    qspec=self.kv_quant_spec, tp=self._tp, **lora)
             else:
                 _prefill_rows(self.params, self._dev(prompts), self.cache,
-                              self._last_logits, *args, **lora)
+                              self._last_logits, *args, tp=self._tp, **lora)
             self.prefill_dispatches += 1
             padded = n_pad * Cb - real
             self.prefill_real_tokens += real

@@ -10,9 +10,8 @@ prefill padding and chunked-prefill stalls, the async decode pipeline
 speculative decoding (rounds, proposed and accepted draft tokens,
 acceptance rate), multi-LoRA serving (adapter lookups, hits,
 prefetches, evictions, deferrals and slot residency) and the
-disaggregated prefill->decode handoff (requests and bytes each way).
-The tensor-parallel plane comes with that engine feature (ROADMAP.md
-Queue A9).
+disaggregated prefill->decode handoff (requests and bytes each way)
+and the tensor-parallel degree.
 Instruments go through the port's own `ray_tpu_torch.util.metrics`.
 
 Every request moves queued → admitted (prefill) → decoding → finished;
@@ -351,6 +350,11 @@ class EngineMetrics:
             "llm_engine_adapter_slots_pinned",
             "Resident slots pinned by >= 1 live row (ineligible for "
             "eviction)")
+        self.tp_degree = 1
+        self._m_tp_degree = gauge(
+            "llm_engine_tp_degree",
+            "Tensor-parallel degree of the serving mesh (1 = "
+            "unsharded single-card engine)")
 
     # -- lifecycle hooks (called by DecodeEngine) --------------------------
 
@@ -445,6 +449,12 @@ class EngineMetrics:
         if nbytes > 0:
             self.host_transfer_bytes += nbytes
             self._m_transfer_bytes.inc(nbytes)
+
+    def on_tp_degree(self, tp: int) -> None:
+        """Record the engine's tensor-parallel degree (once, at
+        construction)."""
+        self.tp_degree = int(tp)
+        self._m_tp_degree.set(float(tp))
 
     def on_pipeline_drain(self, depth: int, lag: int) -> None:
         """One in-flight block replayed: `depth` fused steps were in
@@ -689,6 +699,7 @@ class EngineMetrics:
             "adapter_slots": self.adapter_slots,
             "adapter_slots_resident": self.adapter_slots_resident,
             "adapter_slots_pinned": self.adapter_slots_pinned,
+            "tp_degree": self.tp_degree,
         }
         self.queue_wait_s.fields("queue_wait_s", out)
         self.ttft_s.fields("ttft_s", out)
@@ -720,6 +731,8 @@ class NullEngineMetrics:
     def on_dispatch(self, horizon, host_syncs=1): pass
 
     def on_host_sync(self, n=1, nbytes=0): pass
+
+    def on_tp_degree(self, tp): pass
 
     def on_pipeline_drain(self, depth, lag): pass
 

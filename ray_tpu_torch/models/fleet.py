@@ -1818,8 +1818,8 @@ class LLMFleet:
             "tpot_s_p95_max": max(
                 (s.get("tpot_s_p95", 0.0) for s in per), default=0.0),
             # Tensor-parallel plane: a replica may itself be tp-sharded
-            # (A9; 1 today), and the fleet then scales in units of whole
-            # meshes. Replicas are homogeneous in practice, so max ==
+            # (`DecodeEngine(tp=)`), and the fleet then scales in units
+            # of whole meshes. Replicas are homogeneous in practice, so max ==
             # the fleet's tp; the per-replica view flows through each
             # engine's own llm_engine_* series.
             "tp_degree_max": max(

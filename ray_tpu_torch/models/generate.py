@@ -18,6 +18,14 @@ sampled stream is the same whichever batch, row or step samples it,
 which is what lets the engine reproduce solo `generate`. The hash does
 not reproduce JAX's threefry bits: sampled tokens match the port's own
 solo run, not the JAX package's.
+
+Tensor parallelism: the cached paths take a tp group (``tp=``,
+`parallel.tensor_parallel`) with params that are this rank's shards and
+caches that hold the kv heads its q heads read. The layer runs at the
+local heads and MLP columns, with one all-reduce after wo and one after
+w_down; the token lookup is vocab-parallel and the logits are gathered
+whole, so every rank samples the same tokens. ``tp=None`` runs the ops
+it ran before tensor parallelism existed.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.llama import LlamaConfig, _logits, _rmsnorm, _rope
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, gather_logits,
+                                                    reduce_from_tp,
+                                                    vocab_embed)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]  # {"k","v": [L, B, max_len, KV, D]}
@@ -38,11 +49,13 @@ _M32 = 0xFFFFFFFF
 
 
 def init_cache(cfg: LlamaConfig, batch_size: int,
-               max_len: Optional[int] = None, *, device="cuda") -> Cache:
-    """Zero KV cache ``[L, B, max_len, KV, D]`` in cfg.dtype."""
+               max_len: Optional[int] = None, *, device="cuda",
+               n_kv_heads: Optional[int] = None) -> Cache:
+    """Zero KV cache ``[L, B, max_len, KV, D]`` in cfg.dtype (``KV`` a tp
+    rank's kv heads when ``n_kv_heads`` says so)."""
     max_len = max_len or cfg.max_seq_len
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.n_layers, batch_size, max_len,
+             n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -89,7 +102,8 @@ def _lora_delta(x, ab, slots, dt):
 
 def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
                 q_slots, kv_valid_len, cfg: LlamaConfig, slot_live=None,
-                attend=None, lora=None, lora_slots=None):
+                attend=None, lora=None, lora_slots=None,
+                tp: Optional[TPGroup] = None):
     """The decoder-layer math shared by ALL cached decode paths:
     rmsnorm → q/k/v projections → RoPE → cache write → causal cached
     attention → attn residual → gated MLP residual.
@@ -109,7 +123,13 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
     of the shared base matmul (q/k/v before RoPE, wo on the flattened
     attention output, w_gate/w_up on x, w_down on ``silu(gate) * up``).
     With lora=None the body runs exactly the ops it ran before adapters
-    existed."""
+    existed.
+
+    Tensor parallelism: under ``tp`` the weights, caches and adapter
+    stacks are this rank's shards (q/k/v, gate/up and their b-stacks
+    split on the output; wo, w_down and their a-stacks on the input), so
+    the wo and w_down products (each with its LoRA delta) are partial
+    sums, made whole by one all-reduce each."""
     dt = cfg.dtype
     x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", x, layer["wq"])
@@ -138,7 +158,7 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
         o_flat = o.reshape(o.shape[0], o.shape[1], -1)
         attn_out = attn_out + _lora_delta(o_flat, lora["wo"], lora_slots,
                                           dt)
-    h = h + attn_out
+    h = h + reduce_from_tp(attn_out, tp)
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
     gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"])
     up = torch.einsum("bsd,df->bsf", x, layer["w_up"])
@@ -151,13 +171,26 @@ def _layer_body(h, layer, k_cache, v_cache, positions, write_kv,
     mlp_out = torch.einsum("bsf,fd->bsd", act, layer["w_down"])
     if lora is not None and "w_down" in lora:
         mlp_out = mlp_out + _lora_delta(act, lora["w_down"], lora_slots, dt)
-    h = h + mlp_out
+    h = h + reduce_from_tp(mlp_out, tp)
     return h, k_cache, v_cache
 
 
 def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's slice of the stacked weights."""
     return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+           tp: Optional[TPGroup]) -> torch.Tensor:
+    """The token lookup (vocab-parallel under ``tp``)."""
+    return vocab_embed(params["tok_embed"], tokens, tp, cfg.vocab_size)
+
+
+def _head(params: Params, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm and the vocab projection: this rank's logit columns
+    when ``lm_head`` is a tp shard."""
+    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(h, params["lm_head"], cfg)
 
 
 def _lora_layer(adapters: Optional[Params], i: int) -> Optional[Params]:
@@ -174,7 +207,8 @@ def _lora_layer(adapters: Optional[Params], i: int) -> Optional[Params]:
 def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
                    start: int, cfg: LlamaConfig, *,
                    positions: Optional[torch.Tensor] = None,
-                   slot_live: Optional[torch.Tensor] = None
+                   slot_live: Optional[torch.Tensor] = None,
+                   tp: Optional[TPGroup] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """Run a token chunk [B, S] at cache offset `start`, writing its
     K/V into the cache in place. Returns (logits [B, S, vocab] f32,
@@ -182,9 +216,10 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
     calls. ``positions`` overrides the RoPE position ids (ragged
     batches: left-pad rows start their real tokens at position 0);
     ``slot_live`` [B, max_len] masks dead (pad) cache slots out of every
-    attention."""
+    attention. ``tp``: params and cache are this rank's shards; the
+    logits come back whole."""
     B, S = tokens.shape
-    h = params["tok_embed"][tokens]
+    h = _embed(params, tokens, cfg, tp)
     slot_ids = start + torch.arange(S, device=tokens.device)[None, :]
     slot_ids = slot_ids.expand(B, S)
     if positions is None:
@@ -199,15 +234,15 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: Cache,
     for i in range(cfg.n_layers):
         h, _, _ = _layer_body(h, _layer(params, i), cache["k"][i],
                               cache["v"][i], positions, write_kv, slot_ids,
-                              kv_valid_len, cfg, slot_live=slot_live)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg), cache
+                              kv_valid_len, cfg, slot_live=slot_live, tp=tp)
+    return gather_logits(_head(params, h, cfg), tp, cfg.vocab_size), cache
 
 
 def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
                         starts: torch.Tensor, cfg: LlamaConfig, *,
                         adapters: Optional[Params] = None,
-                        row_slot: Optional[torch.Tensor] = None
+                        row_slot: Optional[torch.Tensor] = None,
+                        tp: Optional[TPGroup] = None
                         ) -> Tuple[torch.Tensor, Cache]:
     """Run a token chunk [B, S] with a PER-ROW cache offset: row b's
     tokens land at cache slots ``starts[b] + i`` and attend that row's
@@ -224,9 +259,23 @@ def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
     Multi-LoRA: ``adapters`` is the adapter pool's full stack tree
     ({name: {"a": [L, A, n_in, r], "b": [L, A, r, n_out]}}) and
     ``row_slot`` [B] maps each row to its adapter slot (0 = base only);
-    both None run the plain layers."""
+    both None run the plain layers. ``tp``: params, cache and stacks are
+    this rank's shards; the logits come back whole."""
+    logits = _rows_logits(params, tokens, cache, starts, cfg, adapters,
+                          row_slot, tp)
+    return gather_logits(logits, tp, cfg.vocab_size), cache
+
+
+def _rows_logits(params: Params, tokens: torch.Tensor, cache: Cache,
+                 starts: torch.Tensor, cfg: LlamaConfig,
+                 adapters: Optional[Params] = None,
+                 row_slot: Optional[torch.Tensor] = None,
+                 tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """`forward_cached_rows` up to this rank's logit columns (all of
+    them without ``tp``): the engine's prefill gathers only the rows'
+    last-token logits."""
     B, S = tokens.shape
-    h = params["tok_embed"][tokens]
+    h = _embed(params, tokens, cfg, tp)
     slot_ids = starts.long()[:, None] + torch.arange(
         S, device=tokens.device)[None, :]                   # [B, S]
     bidx = torch.arange(B, device=tokens.device)[:, None]
@@ -241,11 +290,10 @@ def forward_cached_rows(params: Params, tokens: torch.Tensor, cache: Cache,
         h, k_c, v_c = _layer_body(h, _layer(params, i), k_c, v_c, slot_ids,
                                   write_kv, slot_ids, k_c.shape[1], cfg,
                                   lora=_lora_layer(adapters, i),
-                                  lora_slots=row_slot)
+                                  lora_slots=row_slot, tp=tp)
         cache["k"][i] = k_c
         cache["v"][i] = v_c
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg), cache
+    return _head(params, h, cfg)
 
 
 def filter_logits(logits: torch.Tensor, top_k: Optional[int] = None,

@@ -32,6 +32,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, copy_to_tp,
+                                                    gather_logits, is_split,
+                                                    reduce_from_tp,
+                                                    select_kv, vocab_embed,
+                                                    vocab_cross_entropy)
 
 Params = Dict[str, Any]
 
@@ -368,49 +373,77 @@ def _remat_context(cfg: LlamaConfig):
 
 
 def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
+                   cfg: LlamaConfig, tp: Optional[TPGroup] = None
+                   ) -> torch.Tensor:
+    """One decoder layer. Under a tp group ``tp`` the layer holds this
+    rank's heads and MLP columns: f before the q/k/v and gate/up
+    products, g after wo and w_down (`parallel.tensor_parallel`); kv
+    weights replicated over tp are cut to the heads this rank's q heads
+    read, so the attention runs at the local head counts."""
     dt = cfg.dtype
-    x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
+    x = copy_to_tp(_rmsnorm(h, layer["attn_norm"], cfg.norm_eps), tp)
+    wk = select_kv(layer["wk"], tp, cfg, 1)
+    wv = select_kv(layer["wv"], tp, cfg, 1)
     with _named("qkv"):
         q = torch.einsum("bsd,dhk->bshk", x, layer["wq"].to(dt))
-        k = torch.einsum("bsd,dhk->bshk", x, layer["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, layer["wv"].to(dt))
+        k = torch.einsum("bsd,dhk->bshk", x, wk.to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, wv.to(dt))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     o = _attention_call(q, k, v, cfg)
     with _named("wo_out"):
-        h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
+        attn = torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
+    h = h + reduce_from_tp(attn, tp)
 
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
+    x = copy_to_tp(x, tp)
     with _named("ffn_gate"):
         gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(dt))
     with _named("ffn_up"):
         up = torch.einsum("bsd,df->bsf", x, layer["w_up"].to(dt))
     act = F.silu(gate) * up
     with _named("ffn_down"):
-        return h + torch.einsum("bsf,fd->bsd", act, layer["w_down"].to(dt))
+        down = torch.einsum("bsf,fd->bsd", act, layer["w_down"].to(dt))
+    return h + reduce_from_tp(down, tp)
+
+
+def _check_shards(params: Params, cfg: LlamaConfig,
+                  tp: Optional[TPGroup]) -> None:
+    """Refuse tp shards without their tp group: they would run as a
+    smaller model."""
+    heads = params["layers"]["wq"].shape[-2]
+    if not is_split(tp) and heads != cfg.n_heads:
+        raise ValueError(
+            f"params hold {heads} of {cfg.n_heads} q heads: tensor-"
+            "parallel shards need their group (tp=)")
 
 
 def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 tp: Optional[TPGroup] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, dim] (activation
     dtype) — the backbone without the vocab projection.
 
     With ``cfg.remat`` each layer runs under a non-reentrant
     `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` per layer), with
     ``cfg.remat_policy`` deciding what the forward keeps
-    (`_remat_context`)."""
+    (`_remat_context`). ``tp``: the params are this rank's tp shards
+    (`parallel.tensor_parallel`; vocab-parallel lookup, `_decoder_layer`
+    at the local heads); the result is the whole hidden state on every
+    rank."""
+    _check_shards(params, cfg, tp)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     # gather, then cast: the same values as JAX's cast-then-gather
-    h = params["tok_embed"][tokens.long()].to(cfg.dtype)
+    h = vocab_embed(params["tok_embed"], tokens.long(), tp,
+                    cfg.vocab_size).to(cfg.dtype)
     # one unbind per stacked leaf: its backward stacks the per-layer
     # grads once, where indexing [i] would add L full-size zero tensors
     per_layer = {name: torch.unbind(w) for name, w in
                  params["layers"].items()}
     layer_fn = functools.partial(_decoder_layer, positions=positions,
-                                 cfg=cfg)
+                                 cfg=cfg, tp=tp)
     context_fn = _remat_context(cfg) if cfg.remat else None
     kw = {} if context_fn is None else {"context_fn": context_fn}
     for i in range(cfg.n_layers):
@@ -460,15 +493,27 @@ def _logits(h: torch.Tensor, lm_head: torch.Tensor,
 
 
 def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] (float32)."""
-    h = llama_hidden(params, tokens, cfg, positions)
+                  positions: Optional[torch.Tensor] = None,
+                  tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] (float32); under ``tp``
+    gathered whole on every rank (inference: not differentiable)."""
+    h = llama_hidden(params, tokens, cfg, positions, tp)
+    if is_split(tp):
+        return gather_logits(_logits(h, params["lm_head"], cfg), tp,
+                             cfg.vocab_size)
     return _logits(h, params["lm_head"], cfg)
 
 
 def _nll(h: torch.Tensor, targets: torch.Tensor, lm_head: torch.Tensor,
-         cfg: LlamaConfig) -> torch.Tensor:
-    """[.., S, d] hidden + [.., S] targets -> [.., S] token nll (f32)."""
+         cfg: LlamaConfig, tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """[.., S, d] hidden + [.., S] targets -> [.., S] token nll (f32).
+    With ``lm_head`` split over ``tp`` by vocab: f, the rank's logit
+    columns and the vocab-parallel cross-entropy."""
+    if is_split(tp) and lm_head.shape[-1] != cfg.vocab_size:
+        logits = _logits(copy_to_tp(h, tp), lm_head, cfg)
+        nll = vocab_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1), tp)
+        return nll.reshape(targets.shape)
     logits = _logits(h, lm_head, cfg)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1).long(), reduction="none")
@@ -476,7 +521,8 @@ def _nll(h: torch.Tensor, targets: torch.Tensor, lm_head: torch.Tensor,
 
 
 def llama_loss(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: LlamaConfig) -> torch.Tensor:
+               cfg: LlamaConfig, tp: Optional[TPGroup] = None
+               ) -> torch.Tensor:
     """Next-token cross-entropy. batch: {'tokens': [B,S]} or
     {'inputs': [B,S], 'targets': [B,S]} (optional 'mask').
 
@@ -484,23 +530,25 @@ def llama_loss(params: Params, batch: Dict[str, torch.Tensor],
     softmax run loss_chunk tokens at a time, each chunk under a
     checkpoint: the [B, S, vocab] f32 logits are never materialized and
     the backward recomputes one chunk's projection at a time. Same loss
-    and grads (tested)."""
+    and grads (tested). ``tp``: the params are this rank's tp shards;
+    the loss is the same on every rank of the group, and no rank holds
+    a [B, S, vocab] f32 tensor."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
         mask = batch.get("mask")
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         mask = None
-    h = llama_hidden(params, inputs, cfg)
+    h = llama_hidden(params, inputs, cfg, tp=tp)
     S = targets.shape[1]
     chunk = cfg.loss_chunk
     if chunk and S % chunk == 0 and S > chunk:
         nll = torch.cat([
             checkpoint(_nll, h[:, i:i + chunk], targets[:, i:i + chunk],
-                       params["lm_head"], cfg, use_reentrant=False)
+                       params["lm_head"], cfg, tp, use_reentrant=False)
             for i in range(0, S, chunk)], dim=1)
     else:
-        nll = _nll(h, targets, params["lm_head"], cfg)
+        nll = _nll(h, targets, params["lm_head"], cfg, tp)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -14,9 +14,17 @@ batch, and the step runs the collectives the data axes imply:
   steps; the shards are all-gathered before the forward and the
   gradients reduce-scattered back to them;
 - ``dcn`` and ``dp`` replicate: their gradients are summed by an
-  all-reduce (together with fsdp's over a leaf that fsdp does not split).
+  all-reduce (together with fsdp's over a leaf that fsdp does not split);
+- ``tp`` splits the compute, not the storage: a leaf split over tp stays
+  split (no all-gather before the forward, no reduce-scatter after), and
+  the loss_fn runs the tp layer (`llama_loss(..., tp=tp_group(mesh))`,
+  `parallel.tensor_parallel`), whose f and g make each rank's gradient
+  the one of its own shard. A leaf replicated over tp whose use is split
+  (`wk`/`wv` under the training rules, cut to the rank's kv heads) gets
+  its partial gradients summed over tp by the f at that cut. The batch
+  is replicated over tp.
 
-Tensor, sequence, expert and pipeline axes of size > 1 raise
+Sequence, expert and pipeline axes of size > 1 raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -33,8 +41,7 @@ from ray_tpu_torch.models.llama import resolve_device
 Pytree = Any
 
 # mesh axes the step cannot split yet, and the ROADMAP item that adds them
-_UNPORTED_AXES = {"tp": "A9 (tensor parallelism)",
-                  "sp": "A12 (sequence parallelism)",
+_UNPORTED_AXES = {"sp": "A12 (sequence parallelism)",
                   "ep": "A13 (expert parallelism)",
                   "pp": "A13 (pipeline parallelism)"}
 
@@ -161,6 +168,11 @@ class _OneCard:
     def reduce(self, grads):
         return grads
 
+    def reduce_replicated(self, grads):
+        """Gradients of leaves replicated on every rank (LoRA adapters),
+        summed over the batch axes."""
+        return grads
+
     def grad_norm(self, grads) -> torch.Tensor:
         return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
 
@@ -247,7 +259,9 @@ class _Mesh(_OneCard):
     names (``self.split[i]``: (dim, axes) pairs; ``self.leaf_axes[i]``
     all of them). The batch is split over the axes its spec names
     (``self.batch_axes``, any size, so that the gradient all-reduce runs
-    even in a world of one rank)."""
+    even in a world of one rank). The tp axis is never gathered: a tp
+    shard is what the rank computes with, and its gradient is the
+    shard's."""
 
     def __init__(self, mesh, param_specs, batch_logical, rules):
         from ray_tpu_torch.parallel.sharding import (logical_to_mesh,
@@ -271,6 +285,12 @@ class _Mesh(_OneCard):
              for dim, e in enumerate(spec)
              if any(self.sizes[a] > 1 for a in spec_axes(e))]
             for spec in _leaves(param_specs)]
+        for split in self.split:
+            for _, axes in split:
+                if "tp" in axes and len(axes) > 1:
+                    raise NotImplementedError(
+                        f"a dimension split over {axes}: tp shares a "
+                        "dimension with another axis")
         self.leaf_axes = [
             tuple(a for a in mesh.mesh_dim_names
                   if any(a in axes for _, axes in split))
@@ -306,6 +326,7 @@ class _Mesh(_OneCard):
 
         full = []
         for leaf, split in zip(leaves, self.split):
+            split = [(d, axes) for d, axes in split if axes != ("tp",)]
             if not split:
                 full.append(leaf)
                 continue
@@ -334,6 +355,10 @@ class _Mesh(_OneCard):
         total = self._all_reduce(count.clone(), self.batch_axes)
         return count.clamp(min=1) / total.clamp(min=1)
 
+    def reduce_replicated(self, grads):
+        return [self._all_reduce(g.contiguous(), self.batch_axes)
+                for g in grads]
+
     def reduce(self, grads):
         import torch.distributed as dist
 
@@ -349,7 +374,7 @@ class _Mesh(_OneCard):
                         dist.reduce_scatter_tensor(shard, part,
                                                    group=self._group((a,)))
                         g = shard.movedim(0, dim)
-                    else:                         # same data: own block
+                    elif a != "tp":               # same data: own block
                         block = g.shape[dim] // n
                         g = g.narrow(dim, self.coord[a] * block, block)
             out.append(self._all_reduce(g.contiguous(),

@@ -8,8 +8,11 @@ tensors (`ops.flash_attention`, `ops.paged_attention_kernel`) and runs
 the plain version for CPU tensors; "kernel" (or "flash", the JAX
 package's name for it) and "reference" force one.
 There is no fallback: on a CUDA tensor "auto" launches the kernel or
-raises. The JAX dispatch's `shard_map` branch under a mesh waits for
-tensor parallelism (ROADMAP A9).
+raises. The JAX dispatch's `shard_map` branch under a mesh has no
+counterpart: under tensor parallelism each rank calls these seams with
+its own q heads and the kv heads they read
+(`parallel.tensor_parallel.local_heads`), so the kernels run at the
+local head counts with their usual grouped-query mapping.
 """
 
 from __future__ import annotations

@@ -158,9 +158,8 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
     assert eng.kv_pool.blocks_in_use == 0
 
 
-@pytest.mark.parametrize("knob", [
-    {"tp": 2}, {"mesh": "mesh"}, {"sanitize": True}],
-    ids=lambda k: next(iter(k)))
+@pytest.mark.parametrize("knob", [{"sanitize": True}],
+                         ids=lambda k: next(iter(k)))
 def test_out_of_slice_knobs_raise(weights, knob):
     _, tp = weights
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -182,5 +181,8 @@ def test_engine_argument_checks(weights):
         eng.submit([1] * 30, 8)
     with pytest.raises(ValueError, match="resume_tokens"):
         eng.submit([1, 2], 1, resume_tokens=[3])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # tensor parallelism needs a world of tp ranks; tp=1 needs none
+    with pytest.raises(ValueError, match="exceeds the 1-rank world"):
         DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN, tp=2)
+    assert DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
+                        tp=1).stats()["tp_degree"] == 1.0

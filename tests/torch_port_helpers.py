@@ -8,7 +8,11 @@ start it as a fresh interpreter (never a fork of a process that has
 used torch), so this module imports no JAX at its top.
 """
 
+import ctypes
+import dataclasses
 import json
+import os
+import signal
 import sys
 
 import numpy as np
@@ -259,6 +263,375 @@ def rank_main():
                                   for k, v in rp["layers"].items()}
         _, _, m = step_fn(params, state, batch)
         out["continued"] = [m["loss"].item(), m["grad_norm"].item()]
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+class _ProductFlops:
+    """Counts the FLOPs of every matrix product dispatched while it is
+    active (mm, bmm, addmm, baddbmm: 2 * output size * contraction)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops = {torch.ops.aten.mm.default: -1, torch.ops.aten.bmm.default: -1,
+               torch.ops.aten.addmm.default: -1,
+               torch.ops.aten.baddbmm.default: -1}
+        counter = self
+        self.flops = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func in ops:
+                    a = args[-2]
+                    counter.flops += 2 * out.numel() * a.shape[-1]
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _engine_case(case, params, cfg, draft, adapters, tp):
+    """Run one engine case at tp degree ``tp``: (tokens per request, the
+    engine)."""
+    from ray_tpu_torch.models.engine import DecodeEngine
+    from ray_tpu_torch.models.lora import LoraConfig
+
+    kw = dict(case["kw"])
+    if case.get("draft"):
+        kw.update(draft_params=draft, draft_cfg=cfg)
+    if case.get("lora"):
+        kw.update(lora=LoraConfig(**dict(
+            case["lora"], targets=tuple(case["lora"]["targets"]))))
+    eng = DecodeEngine(params, cfg, tp=tp, **kw)
+    for aid in sorted(adapters if case.get("lora") else {}):
+        eng.register_adapter(aid, adapters[aid])
+    seeds = case.get("seeds") or [None] * len(case["prompts"])
+    aids = case.get("aids") or [None] * len(case["prompts"])
+    ids = [eng.submit(p, n, rng=s, adapter_id=a) for p, n, s, a in
+           zip(case["prompts"], case["budgets"], seeds, aids)]
+    out = eng.run()
+    return [out[i] for i in ids], eng
+
+
+_STAT_KEYS = ("tp_degree", "decode_dispatches", "host_syncs",
+              "host_lag_steps", "host_transfer_bytes", "prefix_evictions",
+              "adapter_evictions", "adapter_prefetches", "adapter_hits",
+              "decode_graphs", "spec_dispatches", "kv_quant_enabled",
+              "preemptions")
+
+
+def _engine_record(eng):
+    """What the tests read of an engine after its run."""
+    s = eng.stats()
+    rec = {"stats": {k: s[k] for k in _STAT_KEYS if k in s},
+           "rules": eng._rules, "kv_heads": list(eng._kv_heads),
+           "wq": list(eng.params["layers"]["wq"].shape),
+           "tok_embed": list(eng.params["tok_embed"].shape)}
+    if eng.paged:
+        rec["pool_k"] = list(eng._pool_k.shape)
+        rec["blocks_in_use"] = eng.kv_pool.blocks_in_use
+        rec["trie_blocks"] = (eng._prefix.blocks_in_use
+                              if eng._prefix is not None else 0)
+    else:
+        rec["cache_k"] = list(eng.cache["k"].shape)
+    if eng.adapter_pool is not None:
+        rec["stacks"] = {n: [list(ab["a"].shape), list(ab["b"].shape)]
+                         for n, ab in eng.adapter_pool.stacks.items()}
+        rec["refs"] = list(eng.adapter_pool._refs)
+    return rec
+
+
+def _tp_specials(job, params, cfg, tp, out):
+    """The world's non-matrix cases: drain, knobs, registry, skewed
+    clocks and a handoff."""
+    from ray_tpu_torch.models.engine import DecodeEngine
+    from ray_tpu_torch.models.scheduler import EngineDraining
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.util import metrics as tmetrics
+
+    prompts = job["special_prompts"]
+    # begin_drain with run-ahead blocks in flight
+    eng = DecodeEngine(params, cfg, batch_slots=2, max_len=64, tp=tp,
+                       pipeline_depth=2, decode_horizon=4)
+    a, b = eng.submit(prompts[0], 12), eng.submit(prompts[1], 12)
+    eng.step()
+    lag = eng.stats()["host_lag_steps"]
+    drained = eng.drain()
+    try:
+        eng.submit(prompts[2], 4)
+        refused = False
+    except EngineDraining:
+        refused = True
+    one = DecodeEngine(params, cfg, batch_slots=2, max_len=64)
+    a1, b1 = one.submit(prompts[0], 12), one.submit(prompts[1], 12)
+    solo = one.run()
+    out["drain"] = {"lag": lag, "tokens": [drained[a], drained[b]],
+                    "solo": [solo[a1], solo[b1]],
+                    "refused": refused, "pending": eng.pending(),
+                    "lag_after": eng.stats()["host_lag_steps"]}
+
+    # a request exported at tp, imported by a one-card engine
+    kw = dict(batch_slots=2, max_len=64, paged=True, kv_block_tokens=4,
+              kv_quant="int8")
+    src = DecodeEngine(params, cfg, tp=tp, **kw)
+    src.prefill_only = True
+    rid = src.submit(prompts[0], 6)
+    while not src.handoff_ready():
+        src.step()
+    handoff = src.export_request(rid)
+    dst = DecodeEngine(params, cfg, **kw)
+    r2 = dst.import_request(handoff)
+    got = dst.run()[r2]
+    solo = DecodeEngine(params, cfg, **kw)
+    r3 = solo.submit(prompts[0], 6)
+    out["handoff"] = {"tokens": got, "solo": solo.run()[r3],
+                      "mode_swap": dst.stats()["swap_ins"],
+                      "k_shape": list(handoff["kv"]["k"].shape),
+                      "pool_shape": list(handoff["kv"]["pool_shape"]),
+                      "src_blocks": src.kv_pool.blocks_in_use}
+
+    # skewed clocks: each rank's clock starts 100 s after the last's
+    clock = FakeClock(100.0 * int(job["rank"]))
+    eng = DecodeEngine(params, cfg, batch_slots=1, max_len=64, tp=tp,
+                       clock=clock)
+    ids = [eng.submit(p, 4, deadline_s=5.0) for p in prompts[:3]]
+    clock.advance(3.0 + 7.0 * int(job["rank"]))
+    eng.step()
+    clock.advance(10.0)
+    res = eng.run()
+    out["clock"] = {"shed": eng.requests_shed,
+                    "tokens": [res.get(i) for i in ids]}
+
+    if job.get("knobs"):
+        knobs = {}
+        mesh = create_mesh({"tp": tp}, device_type="cpu")
+        eng = DecodeEngine(params, cfg, batch_slots=2, max_len=64,
+                           mesh=mesh)
+        r = eng.submit([5, 6, 7], 4)
+        knobs["mesh_tokens"] = eng.run()[r]
+        knobs["mesh_tp_degree"] = eng.tp_degree
+        one = DecodeEngine(params, cfg, batch_slots=2, max_len=64)
+        r = one.submit([5, 6, 7], 4)
+        knobs["solo_tokens"] = one.run()[r]
+        from torch.distributed.device_mesh import DeviceMesh
+
+        dp_mesh = DeviceMesh("cpu", torch.arange(int(job["world"])),
+                             mesh_dim_names=("dp",))
+        for name, kw in (("both", dict(mesh=mesh, tp=tp)),
+                         ("zero", dict(tp=0)),
+                         ("exceeds", dict(tp=int(job["world"]) + 1)),
+                         ("axis", dict(mesh=dp_mesh))):
+            try:
+                DecodeEngine(params, cfg, batch_slots=2, max_len=64, **kw)
+                knobs[name] = None
+            except ValueError as e:
+                knobs[name] = str(e)
+        eng = DecodeEngine(params, cfg, batch_slots=2, max_len=64, tp=tp,
+                           engine_id="tp-metrics-test")
+        for p in prompts[:2]:
+            eng.submit(p, 5)
+        eng.run()
+        s = eng.stats()
+        rows = {r["name"]: r["value"] for r in tmetrics.snapshots()
+                if r["tags"].get("engine") == "tp-metrics-test"}
+        knobs["registry"] = {
+            "stats_tp": s["tp_degree"],
+            "stats_bytes": s["host_transfer_bytes"],
+            "stats_bytes_per_token": s["host_transfer_bytes_per_token"],
+            "gauge_tp": rows.get("llm_engine_tp_degree"),
+            "counter_bytes": rows.get(
+                "llm_engine_host_transfer_bytes_total")}
+        out["knobs"] = knobs
+
+
+def _tp_training(job, tree, data, cfg, out):
+    """make_sharded_train_step over the job's training mesh with the tp
+    loss: per-step metrics, the first step's gradients (from AdamW's
+    first moment), the params after the steps, a checkpoint restored
+    under ``restore_mesh``, and the FLOPs of one step against the
+    one-card step on this rank's rows."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.convert import params_from_numpy
+    from ray_tpu_torch.models import llama, training
+    from ray_tpu_torch.parallel import create_mesh, tp_group
+    from ray_tpu_torch.parallel.sharding import logical_to_mesh, shard_tensor
+    from ray_tpu_torch.train.array_checkpoint import (restore_pytree,
+                                                      save_pytree)
+
+    def fresh():
+        return params_from_numpy(tree, cfg, device="cpu",
+                                 dtype=torch.float32)
+
+    mesh = create_mesh(job["train_mesh"], device_type="cpu")
+    tp = tp_group(mesh)
+    specs = llama.llama_param_specs(cfg)
+    opt = training.adamw(job["lr"], eps=job["eps"])
+    loss_fn = lambda p, b: llama.llama_loss(p, b, cfg, tp=tp)  # noqa: E731
+    batch = {"tokens": data["tokens"]}
+
+    def train(cfg, tree):
+        init_fn, step_fn = training.make_sharded_train_step(
+            lambda p, b: llama.llama_loss(p, b, cfg, tp=tp), opt, mesh,
+            llama.llama_param_specs(cfg))
+        params, state = init_fn(params_from_numpy(
+            tree, cfg, device="cpu", dtype=torch.float32))
+        metrics, grads = [], None
+        for i in range(job["steps"]):
+            params, state, m = step_fn(params, state, batch)
+            metrics.append([m["loss"].item(), m["grad_norm"].item()])
+            if i == 0:
+                moments = opt.state_tree(state, params)["exp_avg"]
+                grads = {k: (v / 0.1).tolist() for k, v in flat_tree(
+                    training._tree_map(lambda x: x.detach(),
+                                       moments)).items()}
+        return params, {"metrics": metrics, "grads": grads,
+                        "params": {k: v.detach().tolist() for k, v in
+                                   flat_tree(params).items()}}
+
+    params, out["train"] = train(cfg, tree)
+    if job.get("mqa"):
+        # MQA: the one kv head is read by every rank, nothing is cut
+        out["mqa_train"] = train(
+            dataclasses.replace(cfg, n_kv_heads=1),
+            nest_tree({k[len("mqa/"):]: v for k, v in data.items()
+                       if k.startswith("mqa/")}))[1]
+
+    # one step's products against the one-card step on this rank's rows
+    rows = shard_tensor(torch.as_tensor(data["tokens"]),
+                        logical_to_mesh(("batch", None)), mesh)
+    f_init, f_step = training.make_sharded_train_step(loss_fn, opt, mesh,
+                                                      specs)
+    fp, fs = f_init(fresh())
+    with _ProductFlops() as sharded:
+        f_step(fp, fs, batch)
+    o_init, o_step = training.make_train_step(
+        lambda p, b: llama.llama_loss(p, b, cfg), opt, device="cpu")
+    op, os_ = o_init(fresh())
+    with _ProductFlops() as one:
+        o_step(op, os_, {"tokens": rows})
+    out["flops"] = [sharded.flops, one.flops]
+
+    # bench.py's remat policy with a chunked loss: the first step again
+    rcfg = dataclasses.replace(cfg, remat=True, loss_chunk=4,
+                               remat_policy="save:ffn_gate+ffn_up+ffn_down")
+    r_init, r_step = training.make_sharded_train_step(
+        lambda p, b: llama.llama_loss(p, b, rcfg, tp=tp), opt, mesh, specs)
+    rp, rs = r_init(fresh())
+    m = r_step(rp, rs, batch)[2]
+    out["remat_first"] = [m["loss"].item(), m["grad_norm"].item()]
+
+    ckpt = job["out"] + "/ckpt"
+    save_pytree(params, ckpt + "/params", mesh=mesh, specs=specs)
+    dist.barrier()
+    if job.get("restore_mesh"):
+        other = create_mesh(job["restore_mesh"], device_type="cpu")
+        rp = restore_pytree(specs, ckpt + "/params", mesh=other,
+                            specs=specs)
+        out["restored"] = {k: v.tolist() for k, v in flat_tree(rp).items()}
+
+
+def _tp_lora_training(job, tree, data, cfg, out):
+    """The mesh form of make_lora_train_step over {"tp": world}."""
+    from ray_tpu_torch.convert import params_from_numpy
+    from ray_tpu_torch.models import llama, training
+    from ray_tpu_torch.models.lora import LoraConfig, make_lora_train_step
+    from ray_tpu_torch.parallel import create_mesh, tp_group
+
+    mesh = create_mesh({"tp": int(job["world"])}, device_type="cpu")
+    tp = tp_group(mesh)
+    lcfg = LoraConfig(**dict(job["lora_cfg"],
+                             targets=tuple(job["lora_cfg"]["targets"])))
+    lora = nest_tree({k[len("lora_train/"):]: torch.from_numpy(v.copy())
+                      for k, v in data.items()
+                      if k.startswith("lora_train/")})
+    init_fn, step_fn = make_lora_train_step(
+        lambda p, b: llama.llama_loss(p, b, cfg, tp=tp),
+        training.adamw(job["lr"], eps=job["eps"]), mesh, cfg, lcfg,
+        llama.llama_param_specs(cfg))
+    base, lora, state = init_fn(
+        params_from_numpy(tree, cfg, device="cpu", dtype=torch.float32),
+        lora)
+    metrics = []
+    for _ in range(job["steps"]):
+        lora, state, m = step_fn(lora, state, base, {"tokens":
+                                                     data["tokens"]})
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    out["lora_train"] = {"metrics": metrics, "lora": {
+        k: v.detach().tolist() for k, v in flat_tree(lora).items()}}
+
+
+def die_with_parent():
+    """Have the kernel kill this process when the process that started it
+    exits (``PARENT_PID`` names that one), so that a test worker killed
+    mid-run leaves no ranks or reference interpreters behind."""
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PDEATHSIG
+    if os.getppid() != int(os.environ.get("PARENT_PID", os.getppid())):
+        os._exit(1)
+
+
+def tp_rank_main():
+    """One rank of a tensor-parallel world a job file describes; run as
+    ``python -c "import torch_port_helpers as h; h.tp_rank_main()" JOB
+    RANK``. It runs every engine case of the job at tp = ``tp`` and
+    (``also_tp1``) on a one-card engine, the special cases
+    (`_tp_specials`), the sharded training step over ``train_mesh``
+    (`_tp_training`) and, with ``lora_cfg``, the mesh LoRA step; it
+    writes what it saw to ``out/rank<k>.json``."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    die_with_parent()
+    with open(sys.argv[1]) as f:
+        job = json.load(f)
+    faulthandler.dump_traceback_later(job["limit_s"], exit=True)
+    torch.set_num_threads(1)
+    rank = int(sys.argv[2])
+    job["rank"] = rank
+
+    from ray_tpu_torch.convert import params_from_numpy
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(job["store"], job["world"], rank,
+                           device_type="cpu")
+    cfg = llama.LlamaConfig.nano()
+    data = dict(np.load(job["inputs"]))
+    tree = nest_tree({k[len("params/"):]: v for k, v in data.items()
+                      if k.startswith("params/")})
+    params = params_from_numpy(tree, cfg, device="cpu", dtype=torch.float32)
+    adapters = {}
+    for key, v in data.items():
+        if key.startswith("adapters/"):
+            adapters.setdefault(key.split("/")[1], {})[key] = v
+    adapters = {aid: nest_tree({k[len(f"adapters/{aid}/"):]: v
+                                for k, v in flat.items()})
+                for aid, flat in adapters.items()}
+    tp = job["tp"]
+    out = {"cases": {}}
+    for case in job["cases"]:
+        toks, eng = _engine_case(case, params, cfg, params, adapters, tp)
+        rec = _engine_record(eng)
+        rec["tokens"] = toks
+        if case.get("also_tp1", True):
+            rec["tokens_tp1"], one = _engine_case(case, params, cfg, params,
+                                                  adapters, None)
+            rec["tp1"] = _engine_record(one)
+        out["cases"][case["id"]] = rec
+    _tp_specials(job, params, cfg, tp, out)
+    _tp_training(job, tree, data, cfg, out)
+    if job.get("lora_cfg"):
+        _tp_lora_training(job, tree, data, cfg, out)
     with open(f"{job['out']}/rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
