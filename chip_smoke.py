@@ -216,6 +216,37 @@ Phases, each of which must pass:
  15. parity  — one training step's loss, grad norm and gradients at the
                flagship widths with 2 layers, kernels against the plain
                attention, from the same weights and batch.
+ 16. long-context — sequence parallelism on bench.py's flagship at full
+               widths, one sequence of 32768 tokens. (a) A world of one
+               NCCL rank, make_sharded_train_step over {"sp": 1} with
+               batch_logical ("batch", "length"), 16 layers, bench.py's
+               policy, adamw(3e-4): attn_impl "flash", "ring" and
+               "ulysses", one warm-up and 3 timed steps each; ring and
+               Ulysses must give flash's first loss within 1e-6
+               relative, the loss must fall, the kernels launch as in
+               the train phase and the plain attention never runs.
+               Prints step ms, tokens/s, MFU at S = 32768 and peak
+               memory. (b) The ring's own code looped over 4 blocks in
+               this process (`LocalRing`: the same B1/B3 calls, masks
+               and f32 merge) against whole-sequence flash: loss, grad
+               norm and every gradient leaf within the parity limits;
+               the per-block calls must match the schedule (causal on
+               the diagonal block, non-causal on past blocks, future
+               blocks skipped) and so must the kernels' launch counts;
+               then Llama-3-8B's forward at its 8192-token context, bf16
+               weights, through the same ring against flash (logits max
+               error and argmax agreement). (c) Two rank processes
+               (this script with --sp-rank) share the card in a gloo
+               world, sp = 2: the flagship at 2 layers and 8192 tokens,
+               ring and Ulysses, one step each through
+               make_sharded_train_step; loss, grad norm and every
+               gradient leaf against the one-rank flash step, and each
+               planted fault of SP_FAULTS (a past block run causal, dk/dv
+               not rotated home, positions left local, Ulysses's second
+               all-to-all skipped) must fail that gate. Then B1, B3a and
+               B3b (bf16 and f32 gradients) at the ring's block shapes
+               [1, 12, 8192, 128], causal and non-causal, against their
+               plain versions, timed beside their bounds and SDPA.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
 that more than one path runs at its timed shape also gives each path's
 launches, "launches_by_path"); the last line is {"ok": true, "device":
@@ -2512,20 +2543,25 @@ def _flash_pairs(Sq, Sk, causal):
     return int(np.clip(np.arange(Sq) + Sk - Sq + 1, 0, Sk).sum())
 
 
-def _flash_bound_ms(kernel, B, H, Hkv, Sq, Sk, D, causal, dtype):
+def _flash_bound_ms(kernel, B, H, Hkv, Sq, Sk, D, causal, dtype,
+                    grad_item=None):
     """Least time of one kernel on these inputs: each input read once and
     each output written once over the memory rate, or its products over
     the tensor rate (2 flop per multiply-add per unmasked pair and head
     dim: 2 products in the forward, s/dp/dq in dq, s/dp/dv/dk in dk/dv),
-    whichever is larger. Returns (ms, bound_by)."""
+    whichever is larger. ``grad_item``: bytes per gradient element when
+    the gradients are written in another dtype than the inputs (4 for
+    f32 gradients of bf16 inputs). Returns (ms, bound_by)."""
     item = 2 if dtype == "bf16" else 4
+    g_item = grad_item or item
     q_b, kv_b, rows = B * H * Sq * D * item, B * Hkv * Sk * D * item, \
         B * H * Sq * 4
+    dq_b, dkv_b = B * H * Sq * D * g_item, B * Hkv * Sk * D * g_item
     products, nbytes = {
         "fwd": (2, 2 * q_b + 2 * kv_b + rows),     # q, k, v -> o, lse
-        "dq": (3, 3 * q_b + 2 * kv_b + 2 * rows),  # q, dO, k, v, lse,
-                                                   # delta -> dq
-        "dkv": (4, 2 * q_b + 4 * kv_b + 2 * rows),  # -> dk, dv
+        "dq": (3, 2 * q_b + dq_b + 2 * kv_b + 2 * rows),  # q, dO, k, v,
+                                                   # lse, delta -> dq
+        "dkv": (4, 2 * q_b + 2 * kv_b + 2 * dkv_b + 2 * rows),  # -> dk, dv
     }[kernel]
     flops = products * 2 * D * B * H * _flash_pairs(Sq, Sk, causal)
     rate = BF16_FLOPS_PER_S if dtype == "bf16" else F32_FLOPS_PER_S
@@ -2535,9 +2571,11 @@ def _flash_bound_ms(kernel, B, H, Hkv, Sq, Sk, D, causal, dtype):
                                  "operations")
 
 
-def _time_flash(q, k, v, do, o, lse, scale, causal, gqa):
+def _time_flash(q, k, v, do, o, lse, scale, causal, gqa, f32_grads=False):
     """CUDA-event ms of each kernel, its plain version and torch's SDPA
-    forward and backward on the same inputs."""
+    forward and backward on the same inputs; with ``f32_grads`` also the
+    backward kernels and their plain version writing f32 gradients (no
+    library call computes those)."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
@@ -2556,6 +2594,16 @@ def _time_flash(q, k, v, do, o, lse, scale, causal, gqa):
         "plain_bwd": _time_ms(lambda: fa._flash_bwd_reference(
             q, k, v, o, lse, do, scale, causal), 3),
     }
+    if f32_grads:
+        f32 = torch.float32
+        t.update({
+            "dq_f32": _time_ms(lambda: fak.flash_bwd_dq_kernel(
+                q, k, v, do, lse, delta, scale, causal, f32), 20),
+            "dkv_f32": _time_ms(lambda: fak.flash_bwd_dkv_kernel(
+                q, k, v, do, lse, delta, scale, causal, f32), 20),
+            "plain_bwd_f32": _time_ms(lambda: fa._flash_bwd_reference(
+                q, k, v, o, lse, do, scale, causal, delta=delta,
+                grad_dtype=f32), 3)})
     sdpa = dict(is_causal=causal, scale=scale, enable_gqa=gqa)
     t["sdpa_fwd"] = _time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), 20)
@@ -2566,7 +2614,89 @@ def _time_flash(q, k, v, do, o, lse, scale, causal, gqa):
     return t
 
 
-def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash"):
+def _rel(got, want):
+    """||got - want|| / ||want||, in f64."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _rel_family(key):
+    if key in ("o", "lse"):
+        return key
+    return "f32_grads" if key.endswith("_f32") else "grads"
+
+
+# the outputs each kernel writes, by the keys of flash_phase's pairs
+_KERNEL_KEYS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv"),
+                "dq_f32": ("dq_f32",), "dkv_f32": ("dk_f32", "dv_f32")}
+
+
+def _planted_flash(q, k, v, o, lse, do, scale, causal, fault, f32_grads):
+    """The kernels' outputs under a planted fault, by flash_phase's keys,
+    and the first q row to compare: "scale" runs them at 1.01 x the
+    softmax scale; "tile" drops the first LC_FAULT_TILE keys (k and v
+    without them; causal rows then see keys LC_FAULT_TILE..i, and the
+    dropped keys' dk/dv are 0), compared from that row on."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t = LC_FAULT_TILE
+    if fault == "scale":
+        kk, vv, sc, row0 = k, v, scale * 1.01, 0
+    else:
+        assert fault == "tile", fault
+        kk, vv, sc, row0 = (k[:, :, t:].contiguous(), v[:, :, t:].contiguous(),
+                            scale, t)
+    fo, flse = fa._flash_fwd(q, kk, vv, sc, causal, with_lse=True)
+    out = {"o": fo, "lse": flse}
+    for sfx, gd in (("", None),) + ((("_f32", torch.float32),)
+                                     if f32_grads else ()):
+        dq, dk, dv = fa._flash_bwd(q, kk, vv, o, lse, do, sc, causal,
+                                   grad_dtype=gd)
+        if fault == "tile":
+            dk, dv = (torch.cat([x.new_zeros(x.shape[:2] + (t,) + x.shape[3:]),
+                                 x], dim=2) for x in (dk, dv))
+        out.update({f"dq{sfx}": dq, f"dk{sfx}": dk, f"dv{sfx}": dv})
+    return out, row0
+
+
+def _rel_check(phase, name, pairs, planted, limits):
+    """Each output's relative error against its plain version, sound and
+    under each planted fault ({fault: (outputs, row0)}). Returns the log
+    lines, the outputs whose sound reading is over its family's limit,
+    and the (fault, kernel) pairs where the fault pushed no output of
+    the kernel past its limit."""
+    sound = {key: _rel(got, want) for key, got, want in pairs}
+    faults = {}
+    for fault, (outs, row0) in planted.items():
+        faults[fault] = {}
+        for key, _, want in pairs:
+            rows = row0 if key in ("o", "lse") or key.startswith("dq") \
+                else 0
+            faults[fault][key] = _rel(outs[key][:, :, rows:],
+                                      want[:, :, rows:])
+    lines = [f"[{phase}] {name}: relative error ||got - want|| / ||want|| "
+             "(limits " + ", ".join(f"{f} {v:g}" for f, v in limits.items())
+             + "): sound " + ", ".join(f"{k_} {e:.3e}"
+                                       for k_, e in sound.items())]
+    lines += [f"[{phase}] {name}:   planted {fault}: "
+              + ", ".join(f"{k_} {e:.3e}" for k_, e in got.items())
+              for fault, got in faults.items()]
+    bad = [k_ for k_, e in sound.items() if e > limits[_rel_family(k_)]]
+    missed = [(fault, kern) for fault, got in faults.items()
+              for kern, keys in _KERNEL_KEYS.items() if keys[0] in got
+              and not any(got[k_] > limits[_rel_family(k_)] for k_ in keys)]
+    return lines, bad, missed
+
+
+def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash",
+                f32_grads=False, rel=None):
+    """Each case's kernels against their plain versions; the ``timed``
+    cases timed beside their bounds, plain versions and SDPA. With
+    ``f32_grads`` the backward kernels writing f32 gradients (the ring's
+    partials) are checked and timed too, as "dq_f32" and "dkv_f32".
+    With ``rel`` (limits by family, `_rel_family`) each output is also
+    held to its plain version by its relative error, and two planted
+    faults (`_planted_flash`) must each be rejected by every kernel."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     results = {}
@@ -2585,11 +2715,20 @@ def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash"):
         # the backward kernels and their plain version from the same o, lse
         rdq, rdk, rdv = fa._flash_bwd_reference(q, k, v, o, lse, do, scale,
                                                 causal)
+        pairs = [("o", o, ro), ("lse", lse, rlse), ("dq", dq, rdq),
+                 ("dk", dk, rdk), ("dv", dv, rdv)]
+        if f32_grads:
+            f32 = torch.float32
+            got32 = fa._flash_bwd(q, k, v, o, lse, do, scale, causal,
+                                  grad_dtype=f32)
+            want32 = fa._flash_bwd_reference(q, k, v, o, lse, do, scale,
+                                             causal, grad_dtype=f32)
+            assert all(x.dtype == f32 for x in got32)
+            pairs += [(f"{n}_f32", a, b) for n, a, b in
+                      zip(("dq", "dk", "dv"), got32, want32)]
         torch.cuda.synchronize()
         errs = {}
-        for key, got, want in (("o", o, ro), ("lse", lse, rlse),
-                               ("dq", dq, rdq), ("dk", dk, rdk),
-                               ("dv", dv, rdv)):
+        for key, got, want in pairs:
             got, want = got.float(), want.float()
             assert torch.isfinite(got).all(), f"[{phase}] {name} {key}: inf/nan"
             err = (got - want).abs()
@@ -2600,6 +2739,18 @@ def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash"):
         if dead > 0:
             assert bool((o[:, :, :dead] == 0).all()), f"{name}: dead o"
             assert bool((dq[:, :, :dead] == 0).all()), f"{name}: dead dq"
+        if rel is not None:
+            planted = {f: _planted_flash(q, k, v, o, lse, do, scale, causal,
+                                         f, f32_grads)
+                       for f in ("scale", "tile")}
+            lines, bad, missed = _rel_check(phase, name, pairs, planted, rel)
+            for text in lines:
+                log(text)
+            assert not bad, f"[{phase}] {name}: relative error of {bad} " \
+                "over the limit FAILED"
+            assert not missed, f"[{phase}] {name}: planted faults not " \
+                f"rejected (fault, kernel): {missed}"
+            del planted
         line = (f"[{phase}] {name}: B={B} H={H}/{Hkv} Sq={Sq} Sk={Sk} D={D} "
                 f"{dts} {'causal' if causal else 'non-causal'}: max_abs_err "
                 + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
@@ -2609,26 +2760,36 @@ def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash"):
         res = {"fwd": {"max_abs_err": max(errs["o"], errs["lse"])},
                "dq": {"max_abs_err": errs["dq"]},
                "dkv": {"max_abs_err": max(errs["dk"], errs["dv"])}}
+        kerns = [("fwd", "plain_fwd", "sdpa_fwd", None),
+                 ("dq", "plain_bwd", "sdpa_bwd", None),
+                 ("dkv", "plain_bwd", "sdpa_bwd", None)]
+        if f32_grads:
+            res["dq_f32"] = {"max_abs_err": errs["dq_f32"]}
+            res["dkv_f32"] = {"max_abs_err": max(errs["dk_f32"],
+                                                 errs["dv_f32"])}
+            kerns += [("dq_f32", "plain_bwd_f32", None, 4),
+                      ("dkv_f32", "plain_bwd_f32", None, 4)]
         if name in timed:
-            t = _time_flash(q, k, v, do, o, lse, scale, causal, H != Hkv)
-            for kern, plain, lib in (("fwd", "plain_fwd", "sdpa_fwd"),
-                                     ("dq", "plain_bwd", "sdpa_bwd"),
-                                     ("dkv", "plain_bwd", "sdpa_bwd")):
-                bound, by = _flash_bound_ms(kern, B, H, Hkv, Sq, Sk, D,
-                                            causal, dts)
+            t = _time_flash(q, k, v, do, o, lse, scale, causal, H != Hkv,
+                            f32_grads)
+            for kern, plain, lib, g_item in kerns:
+                bound, by = _flash_bound_ms(kern.split("_")[0], B, H, Hkv,
+                                            Sq, Sk, D, causal, dts, g_item)
+                lib_ms = t[lib] if lib else None
                 res[kern].update(ms=t[kern], plain_ms=t[plain],
-                                 library_ms=t[lib], bound_ms=bound,
+                                 library_ms=lib_ms, bound_ms=bound,
                                  bound_by=by)
                 line += (f"\n[{phase}]   {kern}: kernel {t[kern]:.4f} ms, "
                          f"bound {bound:.4f} ms ({by}, {bound / t[kern]:.1%}"
-                         f" of bound), plain {t[plain]:.4f} ms, SDPA "
-                         f"{t[lib]:.4f} ms, kernel / SDPA "
-                         f"{t[kern] / t[lib]:.2f}x")
+                         f" of bound), plain {t[plain]:.4f} ms, "
+                         + (f"SDPA {lib_ms:.4f} ms, kernel / SDPA "
+                            f"{t[kern] / lib_ms:.2f}x" if lib else
+                            "no library call computes it"))
             line += (f"\n[{phase}]   (the plain backward and SDPA's backward "
                      "each compute dq, dk and dv in one call)")
         log(line)
         results[name] = res
-        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv, pairs
         torch.cuda.empty_cache()
     return results
 
@@ -3456,6 +3617,7 @@ def tp_card_rank_main(rank, job_path):
     # the paged engine again, eager, each step logged; stacks dumped
     # until the process group is gone
     eng = engines["paged"]
+    eng.release_graphs()
     eng._graphs = None
     trace = open(f"{out}/rank{rank}.trace", "w")
     faulthandler.dump_traceback_later(TP_CARDS_TRACE_S, repeat=True,
@@ -3470,11 +3632,22 @@ def tp_card_rank_main(rank, job_path):
 
     eng.step = logged
     _, toks, _ = _drive(eng, prompts, NEW_TOKENS)
-    with open(f"{out}/rank{rank}.eager.json", "w") as f:
-        json.dump({"tokens": toks}, f)
     mark("eager rerun done")
+    # the eager path held to the captured run's tokens, teacher-forced
+    # (free-running streams part at the first near-tie and stay apart)
+    picks, _ = _forced_picks(params, cfg, prompts, res["paged"]["tokens"],
+                             None, mesh=mesh)
+    with open(f"{out}/rank{rank}.eager.json", "w") as f:
+        json.dump({"tokens": toks, "forced": float(np.mean(
+            picks == np.array(res["paged"]["tokens"])))}, f)
+    mark("teacher-forced eager run done")
     dist.barrier()
     mark("barrier passed")
+    # NCCL's teardown waits for every graph that captured the group's
+    # collectives to be freed (ROADMAP C6)
+    for e in engines.values():
+        e.release_graphs()
+    mark("graphs released")
     dist.destroy_process_group()
     mark("process group destroyed")
     faulthandler.cancel_dump_traceback_later()
@@ -3541,10 +3714,18 @@ def tp_cards_main(n):
             for other in ranks[1:]:
                 assert json.loads(other)[label]["tokens"] == x["tokens"]
         eager = [read(r, "eager.json") for r in range(n)]
+        forced = None
         if r0 and all(eager):
-            same = json.loads(eager[0])["tokens"] == r0["paged"]["tokens"]
+            e0 = json.loads(eager[0])
+            same = e0["tokens"] == r0["paged"]["tokens"]
+            forced = e0["forced"]
             log(f"[tp-cards] paged, eager rerun: finished on every rank; "
-                f"tokens equal to the captured run's: {same}")
+                f"tokens equal to the captured run's: {same} ("
+                f"{_agreement(e0['tokens'], r0['paged']['tokens']):.4f} "
+                f"free-running); teacher-forced agreement of the eager "
+                f"path with the captured tokens {forced:.4f} (gate >= "
+                f"{TP_AGREE}); NCCL_ALGO={os.environ.get('NCCL_ALGO')}, "
+                f"NCCL_PROTO={os.environ.get('NCCL_PROTO')}")
         if hung or not (r0 and all(eager)):
             for r in range(n):
                 prog = (read(r, "progress") or "(none)").splitlines()
@@ -3558,6 +3739,646 @@ def tp_cards_main(n):
                     f"{text[-4000:]}")
         assert r0 and all(eager) and not hung, \
             f"[tp-cards] FAILED (hung: {hung})"
+        assert forced >= TP_AGREE, forced
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+
+
+# The long-context phase (sequence parallelism, ROADMAP A12):
+# bench.py's flagship trained on one sequence of LC_SEQ tokens. (a) sp =
+# 1 over one NCCL rank, attn_impl ring and ulysses against flash; (b)
+# the ring's schedule looped over LC_SHARDS blocks in this process
+# (`LocalRing`), against whole-sequence flash, and Llama-3-8B's forward
+# at its 8192 context through the same local ring; (c) LC_RANKS rank
+# processes sharing the card in a gloo world, sp = 2, the flagship at 2
+# layers and LC_RANK_SEQ tokens, held to the one-rank step, with each
+# fault of SP_FAULTS planted; the kernels at the ring's block shapes.
+LC_SEQ, LC_STEPS = 32768, 3
+LC_SHARDS = 4
+LC_RANKS, LC_RANK_SEQ, LC_RANK_LAYERS = 2, 8192, 2
+# (a): ring and Ulysses at sp = 1 against flash, first loss
+LC_LOSS_RTOL = 1e-6
+# (b): the 8B forward's argmax agreement through the ring may fall this
+# far below the plain attention's (both against flash)
+LC_FLOOR_MARGIN = 0.03
+# (b), (c): the ring's (or Ulysses's) step against flash's: the relative
+# loss and grad-norm limits and the gradients' min cosine, set between
+# the sound readings and the planted faults' (SP_FAULTS) on an H100:
+# loss 5.3e-6 / 1.8e-4 (dk/dv not home leaves the loss as it is), norm
+# 7.5e-5 / 5.7e-3, cosine 0.99969 / 0.789
+SP_LOSS_RTOL, SP_NORM_RTOL, SP_MIN_COS = 3e-5, 1e-3, 0.999
+SP_FAULTS = ("past-causal", "dkv-not-home", "positions-local",
+             "ulysses-out-skipped")
+# The kernels at the ring's block shapes: at Sk = 8192 an output's
+# typical size (~sqrt(e / 8192)) is FLASH_TOL's, so each output is also
+# held by its relative error to its plain version, with limits by family
+# (o; the f32 lse; bf16 gradients; f32 gradient partials) set near the
+# geometric mean of the largest sound reading and the smallest planted
+# fault's (the softmax scale 1% off, or the first LC_FAULT_TILE keys
+# dropped), on an H100: o 2.4e-3 / 1.2e-2, lse 6.0e-8 / 1.1e-3, grads
+# 3.1e-4 / 2.1e-2, f32 partials 4.6e-5 / 2.1e-2
+LC_REL_TOL = {"o": 5e-3, "lse": 1e-5, "grads": 2.5e-3, "f32_grads": 1e-3}
+LC_FAULT_TILE = 128
+LC_FLASH_CASES = [
+    ("ring_diag", 1, 12, 12, 8192, 8192, 128, "bf16", True),
+    ("ring_past", 1, 12, 12, 8192, 8192, 128, "bf16", False),
+]
+
+
+def lc_batch(cfg, seq, seed=3):
+    """{'tokens': [1, seq + 1]} from a numpy seed, on the card."""
+    rng = np.random.RandomState(seed)
+    return {"tokens": torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, size=(1, seq + 1))).cuda()}
+
+
+def _lc_config(**kw):
+    from ray_tpu_torch.profile_train import flagship_config
+
+    return flagship_config(max_seq_len=LC_SEQ, **kw)
+
+
+def _flash_counts():
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    return {"fwd": fak.fwd_launches, "dq": fak.dq_launches,
+            "dkv": fak.dkv_launches}
+
+
+def _zero_flash_counts():
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    fak.reset_launches()
+
+
+def _lc_one_rank(smi):
+    """(a): the flagship at LC_SEQ tokens through make_sharded_train_step
+    over {"sp": 1} on a one-rank NCCL world, per attn_impl. Returns
+    {impl: run}."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch.models.llama import (llama_flops_per_token,
+                                            llama_init, llama_param_specs)
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.parallel.sequence_parallel import sp_group
+
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    runs = {}
+    try:
+        mesh = create_mesh({"sp": 1})
+        sp = sp_group(mesh)
+        assert sp.size == 1
+        for impl in ("flash", "ring", "ulysses"):
+            cfg = _lc_config(attn_impl=impl)
+            batch = lc_batch(cfg, LC_SEQ)
+            torch.cuda.reset_peak_memory_stats()
+            init_fn, step_fn = make_sharded_train_step(
+                lambda p, b, cfg=cfg: llama_loss(p, b, cfg, sp=sp),
+                adamw(3e-4, weight_decay=0.0), mesh, llama_param_specs(cfg),
+                batch_logical=("batch", "length"))
+            params, state = init_fn(llama_init(cfg, seed=0, device="cuda"))
+            with _plain_attention_forbidden():
+                params, state, m = step_fn(params, state, batch)
+                losses, norms = [m["loss"].item()], [m["grad_norm"].item()]
+                _zero_flash_counts()
+                times = []
+                for _ in range(LC_STEPS):
+                    t0 = time.perf_counter()
+                    params, state, m = step_fn(params, state, batch)
+                    losses.append(m["loss"].item())
+                    norms.append(m["grad_norm"].item())
+                    times.append(time.perf_counter() - t0)
+                launches = _flash_counts()
+            tok_s = LC_SEQ * LC_STEPS / sum(times)
+            runs[impl] = {
+                "losses": losses, "norms": norms, "launches": launches,
+                "step_ms": np.mean(times) * 1e3, "tok_s": tok_s,
+                "mfu": tok_s * llama_flops_per_token(cfg, LC_SEQ)
+                / BF16_FLOPS_PER_S,
+                "peak": torch.cuda.max_memory_allocated()}
+            del params, state, step_fn
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    L = cfg.n_layers
+    want = {"fwd": 2 * L * LC_STEPS, "dq": L * LC_STEPS,
+            "dkv": L * LC_STEPS}
+    flash = runs["flash"]
+    for impl, r in runs.items():
+        label = f"[long-context] (a) {impl}, sp=1"
+        assert all(np.isfinite(r["losses"])) and all(np.isfinite(r["norms"]))
+        assert r["losses"][-1] < r["losses"][0], (label, r["losses"])
+        assert r["launches"] == want, (label, r["launches"], want)
+        rel = abs(r["losses"][0] - flash["losses"][0]) / flash["losses"][0]
+        equal = r["losses"][0] == flash["losses"][0]
+        line = (f"{label}: losses {[round(x, 5) for x in r['losses']]}; "
+                f"first loss {'bit-equal to' if equal else 'vs'} flash's "
+                f"({r['losses'][0]!r} vs {flash['losses'][0]!r}, relative "
+                f"{rel:.3e} <= {LC_LOSS_RTOL}); later steps vs flash "
+                f"{[abs(a - b) / b for a, b in zip(r['losses'][1:], flash['losses'][1:])]}"
+                f"; launches in {LC_STEPS} steps {r['launches']}; step "
+                f"{r['step_ms']:.1f} ms, {r['tok_s']:.0f} tokens/s, MFU "
+                f"{r['mfu']:.2%} of 989 TFLOP/s bf16 at S={LC_SEQ}, peak "
+                f"{r['peak'] / 2**30:.2f} GiB; on {smi}")
+        assert rel <= LC_LOSS_RTOL, line + " FAILED"
+        log(line)
+    return runs
+
+
+def _mask_counts():
+    """The flash kernels' launches by mask, as their wrappers count them:
+    {"causal" / "non-causal": {"fwd", "dq", "dkv"}}."""
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    return {m: dict(c) for m, c in fak.mask_launches.items()}
+
+
+def _loss_grads(cfg, params, batch, sp=None):
+    from ray_tpu_torch import llama_loss
+    from ray_tpu_torch.models.training import _leaves, _tree_map
+
+    tree = _tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = llama_loss(tree, batch, cfg, sp=sp)
+    grads = torch.autograd.grad(loss, _leaves(tree))
+    return loss.item(), torch.nn.utils.get_total_norm(grads).item(), grads
+
+
+def _lc_local_ring(smi):
+    """(b): the 4-block ring in this process against flash, and with the
+    past-causal fault planted; returns the kernels' launches and their
+    split by mask in the ring's one step."""
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_forward, \
+        llama_init
+    from ray_tpu_torch.ops.ring_attention import LocalRing
+
+    ring = LocalRing(LC_SHARDS)
+    cfg = _lc_config(attn_impl="flash")
+    ring_cfg = dataclasses.replace(cfg, attn_impl="ring")
+    params = llama_init(cfg, seed=0, device="cuda")
+    batch = lc_batch(cfg, LC_SEQ)
+    with _plain_attention_forbidden():
+        want = _loss_grads(cfg, params, batch)
+        _zero_flash_counts()
+        t0 = time.perf_counter()
+        got = _loss_grads(ring_cfg, params, batch, sp=ring)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, masks = _flash_counts(), _mask_counts()
+        with _sp_fault("past-causal"):
+            fault = _loss_grads(ring_cfg, params, batch, sp=ring)
+    names = [nm for nm, _ in _named_leaves(params)]
+    gate, fgate = _sp_gate(got, want, names), _sp_gate(fault, want, names)
+    n, L = LC_SHARDS, cfg.n_layers
+    pairs = n * (n + 1) // 2          # blocks at or before each q block
+    sched = {"causal": {"fwd": 2 * L * n, "dq": L * n, "dkv": L * n},
+             "non-causal": {"fwd": 2 * L * (pairs - n), "dq": L * (pairs - n),
+                            "dkv": L * (pairs - n)}}
+    line = (f"[long-context] (b) the ring looped over {n} blocks of "
+            f"{LC_SEQ // n} tokens in one process, flagship at S={LC_SEQ}, "
+            f"{L} layers: loss {got[0]:.6f} vs whole-sequence flash "
+            f"{want[0]:.6f} (relative {gate[0]:.3e} <= {SP_LOSS_RTOL}), grad "
+            f"norm {got[1]:.6f} vs {want[1]:.6f} ({gate[1]:.3e} <= "
+            f"{SP_NORM_RTOL}), min cosine over {len(names)} grad leaves "
+            f"{gate[2]:.6f} ({gate[3]}; >= {SP_MIN_COS}); launches by mask, "
+            f"counted by the kernels' wrappers, {masks} = the schedule "
+            f"{sched} (causal on the diagonal, non-causal on past blocks, "
+            f"future blocks skipped; forward twice under remat); kernel "
+            f"launches {launches}; forward + backward {ms:.1f} ms")
+    fline = (f"[long-context] (b) planted fault past-causal: loss "
+             f"{fgate[0]:.3e}, norm {fgate[1]:.3e}, min cosine "
+             f"{fgate[2]:.6f} ({fgate[3]})")
+    log(line)
+    log(fline)
+    assert _sp_ok(gate), line + " FAILED"
+    assert not _sp_ok(fgate), fline + " NOT REJECTED"
+    assert masks == sched, line + " FAILED"
+    assert launches == {k: masks["causal"][k] + masks["non-causal"][k]
+                        for k in launches}, line + " FAILED"
+    del params, want, got, fault
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Llama-3-8B's forward at its published context through the same
+    # ring, against flash; the plain attention's distance from flash is
+    # the floor (bf16 attention outputs rounded elsewhere, through 32
+    # layers); the ring with the past-causal fault must fall below it
+    cfg8 = LlamaConfig.llama3_8b()
+    p8 = llama_init(cfg8, seed=0, device="cuda", dtype=cfg8.dtype)
+    tokens = lc_batch(cfg8, cfg8.max_seq_len)["tokens"][:, :-1]
+    runs = (("ring", "ring", contextlib.nullcontext),
+            ("fault", "ring", lambda: _sp_fault("past-causal")),
+            ("plain", "reference", contextlib.nullcontext))
+    err, agree = {}, {}
+    with torch.no_grad():
+        with _plain_attention_forbidden():
+            flash = llama_forward(p8, tokens, dataclasses.replace(
+                cfg8, attn_impl="flash"))
+        top, big = flash.argmax(-1), flash.abs().max().item()
+        for label, impl, planted in runs:
+            guard = _plain_attention_forbidden() if impl == "ring" else \
+                contextlib.nullcontext()
+            with guard, planted():
+                x = llama_forward(p8, tokens, dataclasses.replace(
+                    cfg8, attn_impl=impl), sp=ring if impl == "ring" else None)
+            assert torch.isfinite(x).all(), label
+            err[label] = (x - flash).abs().max().item()
+            agree[label] = (x.argmax(-1) == top).float().mean().item()
+            del x
+    floor = agree["plain"] - LC_FLOOR_MARGIN
+    line = (f"[long-context] (b) Llama-3-8B forward, B=1 x {cfg8.max_seq_len}"
+            f" tokens, bf16 weights, ring over {n} blocks of "
+            f"{cfg8.max_seq_len // n} (GQA 32/8) against flash: logits max "
+            f"abs error {err['ring']:.4e} (of max |logit| {big:.3f}), argmax "
+            f"agreement {agree['ring']:.4f}; the plain attention against "
+            f"flash (the floor): {err['plain']:.4e}, {agree['plain']:.4f}; "
+            f"the ring with the past-causal fault: {err['fault']:.4e}, "
+            f"{agree['fault']:.4f}; gate: agreement >= {floor:.4f}; on {smi}")
+    log(line)
+    assert agree["ring"] >= floor, line + " FAILED"
+    assert agree["fault"] < floor, line + " FAULT NOT REJECTED"
+    del p8, flash, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, masks
+
+
+def _sp_fault(fault):
+    """A planted fault of the sp layer for a ``with`` block:
+    "past-causal" runs the kernels causal on past blocks too;
+    "dkv-not-home" leaves the dk/dv accumulators where the ring's last
+    step left them (one rank on); "positions-local" gives every rank the
+    positions 0..S/sp-1; "ulysses-out-skipped" skips Ulysses's second
+    all-to-all (its [B, H/sp, S, D] input read as [B, H, S/sp, D])."""
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.ops import ulysses as ul
+    from ray_tpu_torch.parallel import sequence_parallel as seqp
+
+    if fault == "past-causal":
+        return mock.patch.object(
+            ra, "shard_kind",
+            lambda src, rank, causal: "diag" if src <= rank else None)
+    if fault == "dkv-not-home":
+        return mock.patch.object(ra, "_home", lambda acc, ring: acc)
+    if fault == "positions-local":
+        return mock.patch.object(
+            seqp, "seq_positions", lambda b, n, sp, device: torch.arange(
+                n, device=device).expand(b, n))
+    assert fault == "ulysses-out-skipped", fault
+    return mock.patch.object(
+        ul, "swap_out", lambda x, sp: x.reshape(
+            x.shape[0], x.shape[1] * sp.size, x.shape[2] // sp.size,
+            x.shape[3]))
+
+
+def _sp_step_grads(cfg, batch, mesh, sp):
+    """One make_sharded_train_step over the sp mesh: (loss, grad norm,
+    the gradients read back from AdamW's first moment, flash launches,
+    ms)."""
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+    from ray_tpu_torch.models.training import _leaves
+
+    opt = adamw(3e-4, weight_decay=0.0)
+    init_fn, step_fn = make_sharded_train_step(
+        lambda p, b: llama_loss(p, b, cfg, sp=sp), opt, mesh,
+        llama_param_specs(cfg), batch_logical=("batch", "length"))
+    params, state = init_fn(llama_init(cfg, seed=0, device="cuda"))
+    _zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step_fn(params, state, batch)
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    moments = opt.state_tree(state, params)["exp_avg"]
+    grads = [g.detach() / (1 - opt.b1) for g in _leaves(moments)]
+    return loss, norm, grads, _flash_counts(), ms
+
+
+def _sp_gate(got, one, names):
+    """(loss rel. error, norm rel. error, min cosine and its leaf's name)
+    of an sp step against the one-rank step; every leaf is whole on a
+    rank."""
+    cos = min((torch.nn.functional.cosine_similarity(
+        g.flatten().double(), w.flatten().double(), dim=0).item(), name)
+        for name, g, w in zip(names, got[2], one[2]))
+    return (abs(got[0] - one[0]) / abs(one[0]),
+            abs(got[1] - one[1]) / abs(one[1]), cos[0], cos[1])
+
+
+def _sp_ok(gate):
+    return gate[0] <= SP_LOSS_RTOL and gate[1] <= SP_NORM_RTOL and \
+        gate[2] >= SP_MIN_COS
+
+
+def sp_rank_main(rank, job_path):
+    """One rank of (c), started as ``python3 chip_smoke.py --sp-rank RANK
+    JOB``: a gloo world of LC_RANKS processes on the one card. Writes
+    what it saw to the job's ``out`` directory."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.sequence_parallel import sp_group
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo",
+                            init_method=job["store"], world_size=LC_RANKS,
+                            rank=rank)
+    out = {"rank": rank}
+    try:
+        mesh = create_mesh({"sp": LC_RANKS})
+        sp = sp_group(mesh)
+        assert sp.size == LC_RANKS and not sp.nccl
+        base = _lc_config(n_layers=LC_RANK_LAYERS)
+        batch = lc_batch(base, LC_RANK_SEQ)
+        runs = {impl: (impl, None) for impl in ("ring", "ulysses")}
+        runs.update({f: ("ulysses" if f.startswith("ulysses") else "ring",
+                         f) for f in SP_FAULTS})
+        got = {}
+        for name, (impl, fault) in runs.items():
+            cfg = dataclasses.replace(base, attn_impl=impl)
+            with _sp_fault(fault) if fault else contextlib.nullcontext():
+                got[name] = _sp_step_grads(cfg, batch, mesh, sp)
+        out["runs"] = {k: {"loss": v[0], "norm": v[1], "launches": v[3],
+                           "ms": v[4]} for k, v in got.items()}
+        if rank == 0:
+            cfg = dataclasses.replace(base, attn_impl="flash")
+            one = _loss_grads(cfg, llama_init(cfg, seed=0, device="cuda"),
+                              batch)
+            names = [n for n, _ in _named_leaves(llama_param_specs(cfg))]
+            out["one"] = [one[0], one[1]]
+            out["gates"] = {k: _sp_gate(v, one, names)
+                            for k, v in got.items()}
+        out["peak"] = torch.cuda.max_memory_allocated()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _lc_world_two(smi):
+    """(c): LC_RANKS rank processes on the one card; returns rank 0's
+    launches of the sound ring step."""
+    import os
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"store": f"tcp://127.0.0.1:{_free_port()}",
+                       "out": tmp}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
+             job], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(LC_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, \
+                f"[long-context] rank {r} exited {p.returncode}:\n" \
+                f"{text[-6000:]}"
+        ranks = []
+        for r in range(LC_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    first = ranks[0]
+    for other in ranks[1:]:
+        for name, run in other["runs"].items():
+            assert run["loss"] == first["runs"][name]["loss"], name
+    lo, no = first["one"]
+    L = LC_RANK_LAYERS
+    checks = []
+    for impl in ("ring", "ulysses"):
+        le, ne, cos, leaf = first["gates"][impl]
+        launches = [r["runs"][impl]["launches"] for r in ranks]
+        # ring: rank r runs r + 1 blocks a layer; Ulysses: one whole-
+        # sequence call on its heads
+        want = [{"fwd": 2 * L * (r + 1 if impl == "ring" else 1),
+                 "dq": L * (r + 1 if impl == "ring" else 1),
+                 "dkv": L * (r + 1 if impl == "ring" else 1)}
+                for r in range(LC_RANKS)]
+        line = (f"[long-context] (c) {LC_RANKS} rank processes on one card "
+                f"(gloo, cpu:gloo,cuda:gloo), sp={LC_RANKS}, {impl}: "
+                f"flagship at {L} layers, S={LC_RANK_SEQ}: loss "
+                f"{first['runs'][impl]['loss']:.6f} vs the one-rank flash "
+                f"step's {lo:.6f} (relative {le:.3e} <= {SP_LOSS_RTOL}), grad"
+                f" norm {first['runs'][impl]['norm']:.6f} vs {no:.6f} "
+                f"({ne:.3e} <= {SP_NORM_RTOL}), min cosine {cos:.6f} ("
+                f"{leaf}; >= {SP_MIN_COS}); launches per rank {launches}; "
+                f"step {first['runs'][impl]['ms']:.1f} ms, peak "
+                + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+                + " GiB a rank (two processes on one card, gloo through the"
+                f" host: not a speed); on {smi}")
+        log(line)
+        checks += [(_sp_ok(first["gates"][impl]), line + " FAILED"),
+                   (launches == want, line + f" FAILED (want {want})")]
+    for fault in SP_FAULTS:
+        gate = first["gates"][fault]
+        line = (f"[long-context] (c) planted fault {fault}: loss "
+                f"{gate[0]:.3e}, norm {gate[1]:.3e}, min cosine "
+                f"{gate[2]:.6f} ({gate[3]})")
+        rejected = not _sp_ok(gate)
+        log(line + (": rejected" if rejected else ": NOT REJECTED"))
+        checks.append((rejected, line + " NOT REJECTED"))
+    for ok, text in checks:
+        assert ok, text
+    return first["runs"]["ring"]["launches"]
+
+
+def long_context_phase(smi):
+    """(a), (b), (c) and the kernels at the ring's block shapes. Returns
+    (b)'s launches, their split by mask and the kernel results."""
+    _lc_one_rank(smi)
+    launches, masks = _lc_local_ring(smi)
+    _lc_world_two(smi)
+    fres = flash_phase(LC_FLASH_CASES, [c[0] for c in LC_FLASH_CASES],
+                       phase="long-context", f32_grads=True, rel=LC_REL_TOL)
+    return launches, masks, fres
+
+
+# --sp-cards N: the flagship at LC_SEQ tokens over sp = N over NCCL, one
+# rank a card, against one card in the same call.
+SP_CARDS_LIMIT_S = 420
+
+
+def _overlap(prof):
+    """(ms of NCCL kernels, ms of them that ran while a flash kernel ran,
+    ms of flash kernels) in a profiled window, from the device-side
+    intervals of the kernels."""
+    nccl, flash = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "nccl" in e.name.lower():
+            nccl.append(span)
+        elif "flash" in e.name.lower():
+            flash.append(span)
+    flash.sort()
+    both = 0.0
+    for a, b in nccl:
+        for c, d in flash:
+            if c >= b:
+                break
+            both += max(0.0, min(b, d) - max(a, c))
+    return (sum(b - a for a, b in nccl) / 1e3, both / 1e3,
+            sum(b - a for a, b in flash) / 1e3)
+
+
+def sp_card_rank_main(rank, job_path):
+    """One rank of ``--sp-cards``: card ``rank`` of an NCCL world. Rank 0
+    first trains the flagship on one card (flash, make_train_step) while
+    the others wait; then every rank takes 1 warm-up and LC_STEPS timed
+    steps over {"sp": N} per attn_impl, and one more ring step under the
+    profiler. Results go to ``rank<k>.json``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import adamw, llama_loss, make_sharded_train_step
+    from ray_tpu_torch import make_train_step
+    from ray_tpu_torch.models.llama import llama_init, llama_param_specs
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.parallel.sequence_parallel import sp_group
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(job["store"], job["sp"], rank)
+    res = {"rank": rank}
+
+    def timed(step_fn, params, state, batch):
+        params, state, m = step_fn(params, state, batch)
+        losses = [m["loss"].item()]
+        times = []
+        for _ in range(LC_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            losses.append(m["loss"].item())
+            times.append(time.perf_counter() - t0)
+        return params, state, {"losses": losses, "step_ms":
+                               np.mean(times) * 1e3,
+                               "tok_s": LC_SEQ * LC_STEPS / sum(times),
+                               "peak": torch.cuda.max_memory_allocated()}
+
+    if rank == 0:
+        cfg = _lc_config(attn_impl="flash")
+        init_fn, step_fn = make_train_step(
+            lambda p, b: llama_loss(p, b, cfg), adamw(3e-4, weight_decay=0.0))
+        params, state = init_fn(llama_init(cfg, seed=0, device="cuda"))
+        _, _, res["one"] = timed(step_fn, params, state,
+                                 lc_batch(cfg, LC_SEQ))
+        del params, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = create_mesh({"sp": job["sp"]})
+    sp = sp_group(mesh)
+    for impl in ("ring", "ulysses"):
+        cfg = _lc_config(attn_impl=impl)
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn = make_sharded_train_step(
+            lambda p, b, cfg=cfg: llama_loss(p, b, cfg, sp=sp),
+            adamw(3e-4, weight_decay=0.0), mesh, llama_param_specs(cfg),
+            batch_logical=("batch", "length"))
+        params, state = init_fn(llama_init(cfg, seed=0, device="cuda"))
+        batch = lc_batch(cfg, LC_SEQ)
+        params, state, res[impl] = timed(step_fn, params, state, batch)
+        if impl == "ring":
+            # one more step, profiled on every rank
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step_fn(params, state, batch)
+                torch.cuda.synchronize()
+            res["overlap"] = _overlap(prof)
+        del params, state, step_fn
+        torch.cuda.empty_cache()
+    dist.barrier()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def sp_cards_main(n):
+    """``python3 chip_smoke.py --sp-cards N``: the flagship at LC_SEQ
+    tokens over sp = N over NCCL, one rank process a card, ring and
+    Ulysses, against one card in the same call; prints tokens/s, step
+    ms, peak memory, the losses beside one card's and, per rank, how
+    much of the NCCL kernels' time ran under the flash kernels in one
+    more profiled ring step (a rank with fewer blocks to compute spends
+    most of its NCCL time waiting for its neighbours)."""
+    import os
+    import sys
+    import tempfile
+
+    name, count, smi = device_phase()
+    if count < n:
+        raise SystemExit(f"--sp-cards {n} needs {n} cards, {count} seen")
+    build_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"store": f"tcp://127.0.0.1:{_free_port()}",
+                       "sp": n, "out": tmp}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-card-rank",
+             str(r), job], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(n)]
+        deadline, logs = time.monotonic() + SP_CARDS_LIMIT_S, []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1, deadline - time.monotonic()))[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, \
+                f"[sp-cards] rank {r} exited {p.returncode}:\n{text[-6000:]}"
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    one = ranks[0]["one"]
+    log(f"[sp-cards] one card, flash, S={LC_SEQ}: losses "
+        f"{[round(x, 5) for x in one['losses']]}; step {one['step_ms']:.1f}"
+        f" ms, {one['tok_s']:.0f} tokens/s, peak {one['peak'] / 2**30:.2f} "
+        f"GiB; on {smi}")
+    for impl in ("ring", "ulysses"):
+        r0 = ranks[0][impl]
+        for other in ranks[1:]:
+            assert other[impl]["losses"] == r0["losses"], impl
+        rel = abs(r0["losses"][0] - one["losses"][0]) / one["losses"][0]
+        line = (f"[sp-cards] {impl}, sp={n} over NCCL: losses "
+                f"{[round(x, 5) for x in r0['losses']]} (first vs one "
+                f"card's: relative {rel:.3e} <= {PARITY_LOSS_RTOL}); step "
+                f"{r0['step_ms']:.1f} ms, {r0['tok_s']:.0f} tokens/s "
+                f"({r0['tok_s'] / one['tok_s']:.2f}x one card), peak "
+                + ", ".join(f"{x[impl]['peak'] / 2**30:.2f}" for x in ranks)
+                + f" GiB a rank; on {smi}")
+        assert all(np.isfinite(r0["losses"])), line + " FAILED"
+        assert rel <= PARITY_LOSS_RTOL, line + " FAILED"
+        log(line)
+    for r, x in enumerate(ranks):
+        nccl, both, flash = x["overlap"]
+        log(f"[sp-cards] ring, one profiled step, rank {r} ({r + 1} blocks "
+            f"a layer): NCCL kernels {nccl:.1f} ms on the card, {both:.1f} "
+            f"ms of it while a flash kernel ran "
+            f"({both / max(nccl, 1e-9):.1%}); flash kernels {flash:.1f} ms")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
 
@@ -3613,6 +4434,8 @@ def main():
     slaunches = phase("sharded-train", sharded_train_phase, smi, full)
     llaunches = phase("lora-train", lora_train_phase, smi, full)
     phase("parity", parity_phase)
+    lc_launches, lc_masks, lc_res = phase("long-context",
+                                          long_context_phase, smi)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     # the main path is bf16: its flash kernels are the wgmma ones
@@ -3643,10 +4466,25 @@ def main():
                       main_flash[key], {"train": tlaunches[key],
                                         "sharded-train": slaunches[key],
                                         "lora-train": llaunches[key],
-                                        "tp": tp_launches["train"][key]})
+                                        "tp": tp_launches["train"][key],
+                                        "long-context": lc_launches[key]})
         for name, line, key in (("flash_fwd", 130, "fwd"),
                                 ("flash_bwd_dq", 192, "dq"),
                                 ("flash_bwd_dkv", 239, "dkv"))
+    ] + [
+        # the long-context path's ring (b): each kernel at its block
+        # shape, with its launches of that mask as its wrapper counted
+        # them (causal on the diagonal block, non-causal on past
+        # blocks); the backward writes f32 partials
+        _kernel_entry(f"{name} (ring {kind} block, {mask} "
+                      "[1,12,8192,128])", sm90_src, f"{flash_py}:{line}",
+                      lc_masks[mask][count], lc_res[case][key])
+        for case, kind, mask in (("ring_diag", "diagonal", "causal"),
+                                 ("ring_past", "past", "non-causal"))
+        for name, line, key, count in (
+            ("flash_fwd", 130, "fwd", "fwd"),
+            ("flash_bwd_dq, f32 grads", 192, "dq_f32", "dq"),
+            ("flash_bwd_dkv, f32 grads", 239, "dkv_f32", "dkv"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
@@ -3661,5 +4499,11 @@ if __name__ == "__main__":
         tp_card_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--tp-cards"]:
         tp_cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--sp-card-rank"]:
+        sp_card_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--sp-cards"]:
+        sp_cards_main(int(sys.argv[2]))
     else:
         main()

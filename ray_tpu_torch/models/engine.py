@@ -917,6 +917,13 @@ class _DecodeGraphs:
         pak.launches = before
         return toks
 
+    def release(self) -> None:
+        """Wait for the card, then free every captured graph."""
+        torch.cuda.synchronize(self.device)
+        for graph, _, _ in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+
 
 # ---------------------------------------------------------------------------
 # Engine
@@ -2274,6 +2281,18 @@ class DecodeEngine:
         """`begin_drain()` + run to empty."""
         self.begin_drain()
         return self.run()
+
+    def release_graphs(self) -> None:
+        """Free the decode loop's captured CUDA graphs, after the card
+        has finished with them. Under tensor parallelism over NCCL every
+        rank calls it on each of its engines before the process group is
+        destroyed: a graph that captured the group's collectives holds
+        its communicator, and NCCL's teardown waits for every such graph
+        to be freed, so with one alive `destroy_process_group` never
+        returns. The engine stays usable: a key's next dispatch captures
+        its graph again."""
+        if self._graphs is not None:
+            self._graphs.release()
 
     def halt(self) -> None:
         """Abandon this engine's work WITHOUT completing it: the fleet's

@@ -32,6 +32,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.ops.ulysses import ulysses_attention
+from ray_tpu_torch.parallel import sequence_parallel as seqp
+from ray_tpu_torch.parallel.sequence_parallel import SPGroup
 from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, copy_to_tp,
                                                     gather_logits, is_split,
                                                     reduce_from_tp,
@@ -85,7 +89,9 @@ class LlamaConfig:
     # and runs the plain versions on CPU tensors; "kernel" (or "flash",
     # the JAX package's name for it) and "reference" force one
     # (ops.attention.attention / paged_attention). "ring" and "ulysses"
-    # wait for long context (ROADMAP A12).
+    # are sequence-parallel attention over the sp group passed as
+    # ``sp=`` (ops.ring_attention, ops.ulysses); without one, a group of
+    # one rank.
     attn_impl: str = "auto"
     # The JAX flash kernel's tile sizes (None = kernel default). Validated
     # and passed on; the CUDA kernels use their own compile-time tiles.
@@ -96,6 +102,9 @@ class LlamaConfig:
     # f32 logits never exist at once. None = unchunked. Ignored when
     # S % loss_chunk != 0.
     loss_chunk: Optional[int] = None
+    # The mesh axis the sequence is split over (`sequence_parallel.
+    # sp_group(mesh, cfg.ring_axis)`).
+    ring_axis: str = "sp"
 
     def __post_init__(self):
         if self.attn_impl not in _ATTN_IMPLS:
@@ -268,15 +277,27 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     return rotated.to(x.dtype)
 
 
-def _attention_call(q, k, v, cfg: LlamaConfig):
-    """q,k,v: [B, S, H, D] -> [B, S, H, D]."""
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence-parallel attention) is "
-            "not ported yet: ROADMAP A12")
-    out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    causal=True, impl=cfg.attn_impl,
-                    block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
+def _attention_call(q, k, v, cfg: LlamaConfig,
+                    sp: Optional[SPGroup] = None):
+    """q,k,v: [B, S, H, D] -> [B, S, H, D]; under an sp group, this
+    rank's block of the sequence. "ring" and "ulysses" run over ``sp``;
+    any other impl attends over the whole sequence: k and v gathered
+    over sp (their gradients summed back), each rank's q rows against
+    the keys up to its block's end, so the causal rule of a kv prefix
+    holds (what GSPMD inserts for the JAX step)."""
+    qT, kT, vT = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    blocks = dict(block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
+    if cfg.attn_impl == "ring":
+        out = ring_attention(qT, kT, vT, sp=sp, causal=True, **blocks)
+    elif cfg.attn_impl == "ulysses":
+        out = ulysses_attention(qT, kT, vT, sp=sp, causal=True, **blocks)
+    else:
+        if seqp.is_split(sp):
+            end = (sp.rank + 1) * kT.shape[2]
+            kT = seqp.gather_seq(kT, sp, 2)[:, :, :end]
+            vT = seqp.gather_seq(vT, sp, 2)[:, :, :end]
+        out = attention(qT, kT, vT, causal=True, impl=cfg.attn_impl,
+                        **blocks)
     with _named("attn_out"):
         return out.transpose(1, 2)
 
@@ -373,13 +394,15 @@ def _remat_context(cfg: LlamaConfig):
 
 
 def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
-                   cfg: LlamaConfig, tp: Optional[TPGroup] = None
-                   ) -> torch.Tensor:
+                   cfg: LlamaConfig, tp: Optional[TPGroup] = None,
+                   sp: Optional[SPGroup] = None) -> torch.Tensor:
     """One decoder layer. Under a tp group ``tp`` the layer holds this
     rank's heads and MLP columns: f before the q/k/v and gate/up
     products, g after wo and w_down (`parallel.tensor_parallel`); kv
     weights replicated over tp are cut to the heads this rank's q heads
-    read, so the attention runs at the local head counts."""
+    read, so the attention runs at the local head counts. Under an sp
+    group ``sp`` ``h`` is this rank's block of the sequence and only
+    the attention crosses blocks (`_attention_call`)."""
     dt = cfg.dtype
     x = copy_to_tp(_rmsnorm(h, layer["attn_norm"], cfg.norm_eps), tp)
     wk = select_kv(layer["wk"], tp, cfg, 1)
@@ -390,7 +413,7 @@ def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
         v = torch.einsum("bsd,dhk->bshk", x, wv.to(dt))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = _attention_call(q, k, v, cfg)
+    o = _attention_call(q, k, v, cfg, sp)
     with _named("wo_out"):
         attn = torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
     h = h + reduce_from_tp(attn, tp)
@@ -420,7 +443,8 @@ def _check_shards(params: Params, cfg: LlamaConfig,
 
 def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                  positions: Optional[torch.Tensor] = None,
-                 tp: Optional[TPGroup] = None) -> torch.Tensor:
+                 tp: Optional[TPGroup] = None,
+                 sp: Optional[SPGroup] = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, dim] (activation
     dtype) — the backbone without the vocab projection.
 
@@ -430,11 +454,14 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     (`_remat_context`). ``tp``: the params are this rank's tp shards
     (`parallel.tensor_parallel`; vocab-parallel lookup, `_decoder_layer`
     at the local heads); the result is the whole hidden state on every
-    rank."""
+    rank. ``sp``: ``tokens`` is this rank's block of the sequence
+    (`parallel.sequence_parallel`), its default positions are global
+    (``rank * S + arange(S)``), and so is the result."""
     _check_shards(params, cfg, tp)
+    seqp.check_split(sp)
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        positions = seqp.seq_positions(B, S, sp, tokens.device)
     # gather, then cast: the same values as JAX's cast-then-gather
     h = vocab_embed(params["tok_embed"], tokens.long(), tp,
                     cfg.vocab_size).to(cfg.dtype)
@@ -443,7 +470,7 @@ def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     per_layer = {name: torch.unbind(w) for name, w in
                  params["layers"].items()}
     layer_fn = functools.partial(_decoder_layer, positions=positions,
-                                 cfg=cfg, tp=tp)
+                                 cfg=cfg, tp=tp, sp=sp)
     context_fn = _remat_context(cfg) if cfg.remat else None
     kw = {} if context_fn is None else {"context_fn": context_fn}
     for i in range(cfg.n_layers):
@@ -494,10 +521,12 @@ def _logits(h: torch.Tensor, lm_head: torch.Tensor,
 
 def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                   positions: Optional[torch.Tensor] = None,
-                  tp: Optional[TPGroup] = None) -> torch.Tensor:
+                  tp: Optional[TPGroup] = None,
+                  sp: Optional[SPGroup] = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (float32); under ``tp``
-    gathered whole on every rank (inference: not differentiable)."""
-    h = llama_hidden(params, tokens, cfg, positions, tp)
+    gathered whole on every rank (inference: not differentiable); under
+    ``sp`` those of this rank's block of the sequence."""
+    h = llama_hidden(params, tokens, cfg, positions, tp, sp)
     if is_split(tp):
         return gather_logits(_logits(h, params["lm_head"], cfg), tp,
                              cfg.vocab_size)
@@ -521,8 +550,8 @@ def _nll(h: torch.Tensor, targets: torch.Tensor, lm_head: torch.Tensor,
 
 
 def llama_loss(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: LlamaConfig, tp: Optional[TPGroup] = None
-               ) -> torch.Tensor:
+               cfg: LlamaConfig, tp: Optional[TPGroup] = None,
+               sp: Optional[SPGroup] = None) -> torch.Tensor:
     """Next-token cross-entropy. batch: {'tokens': [B,S]} or
     {'inputs': [B,S], 'targets': [B,S]} (optional 'mask').
 
@@ -532,14 +561,21 @@ def llama_loss(params: Params, batch: Dict[str, torch.Tensor],
     the backward recomputes one chunk's projection at a time. Same loss
     and grads (tested). ``tp``: the params are this rank's tp shards;
     the loss is the same on every rank of the group, and no rank holds
-    a [B, S, vocab] f32 tensor."""
+    a [B, S, vocab] f32 tensor. ``sp``: the batch is this rank's block
+    of the sequence, as inputs and targets (a block of 'tokens' would
+    lose its last target to the shift: `make_sharded_train_step` splits
+    after the shift), and the loss is the mean over the block."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
         mask = batch.get("mask")
     else:
+        if seqp.is_split(sp):
+            raise ValueError(
+                "under an sp group the batch is a block of the sequence: "
+                "pass 'inputs' and 'targets' (split after the shift)")
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         mask = None
-    h = llama_hidden(params, inputs, cfg, tp=tp)
+    h = llama_hidden(params, inputs, cfg, tp=tp, sp=sp)
     S = targets.shape[1]
     chunk = cfg.loss_chunk
     if chunk and S % chunk == 0 and S > chunk:

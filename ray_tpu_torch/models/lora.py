@@ -31,6 +31,7 @@ from ray_tpu_torch.models.llama import (LlamaConfig, _layer_shapes,
                                         resolve_device)
 from ray_tpu_torch.models.training import (AdamW, _leaves, _Mesh,
                                            _OneCard, _tree_map, _unflatten)
+from ray_tpu_torch.parallel.sequence_parallel import splitting
 from ray_tpu_torch.parallel.sharding import logical_to_mesh, shard_pytree
 from ray_tpu_torch.parallel.tensor_parallel import copy_to_tp, tp_group
 
@@ -263,14 +264,15 @@ def make_lora_train_step(
 
     def step_fn(lora: Params, opt_state, base: Params,
                 batch: Dict[str, Any]):
-        batch = {k: plan.local_batch(v) for k, v in batch.items()}
+        batch = plan.batch(batch)
         weight = plan.weight(batch)
         with torch.no_grad():
             full = [x.detach() for x in plan.gather(_leaves(base))]
         leaves = _leaves(lora)
         merged = lora_merge(_unflatten(base, full), lora, cfg, lora_cfg,
                             cuts=cuts, tp=tp)
-        loss = loss_fn(merged, batch)
+        with splitting(plan.sp):
+            loss = loss_fn(merged, batch)
         if weight is not None:
             loss = loss * weight
         grads = plan.reduce_replicated(torch.autograd.grad(loss, leaves))

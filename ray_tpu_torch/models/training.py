@@ -22,10 +22,19 @@ batch, and the step runs the collectives the data axes imply:
   the one of its own shard. A leaf replicated over tp whose use is split
   (`wk`/`wv` under the training rules, cut to the rank's kv heads) gets
   its partial gradients summed over tp by the f at that cut. The batch
-  is replicated over tp.
+  is replicated over tp;
+- ``sp`` splits the sequence: with "length" -> "sp" in
+  ``batch_logical`` each rank takes its block of the sequence (a
+  ``tokens`` batch is shifted into inputs and targets first, then
+  split), the loss_fn runs the sp layer (`llama_loss(..., sp=
+  sp_group(mesh))`: ring or Ulysses attention, or attention over the
+  gathered sequence for any other ``attn_impl``; a model given no sp
+  group there raises), and the loss weight,
+  the mask count and the gradient all-reduce run over sp as over any
+  batch axis.
 
-Sequence, expert and pipeline axes of size > 1 raise
-NotImplementedError naming their ROADMAP item.
+Expert and pipeline axes of size > 1 raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,12 +46,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch.models.llama import resolve_device
+from ray_tpu_torch.parallel.sequence_parallel import splitting
 
 Pytree = Any
 
 # mesh axes the step cannot split yet, and the ROADMAP item that adds them
-_UNPORTED_AXES = {"sp": "A12 (sequence parallelism)",
-                  "ep": "A13 (expert parallelism)",
+_UNPORTED_AXES = {"ep": "A13 (expert parallelism)",
                   "pp": "A13 (pipeline parallelism)"}
 
 
@@ -153,11 +162,17 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 class _OneCard:
     """The step's parallel part on one card with no mesh: nothing."""
 
+    sp = 1          # the sp ranks the sequence is split over
+
     def __init__(self, device: torch.device):
         self.device = device
 
     def local_batch(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """This rank's part of each leaf of the global batch."""
+        return {k: self.local_batch(v) for k, v in batch.items()}
 
     def gather(self, leaves):
         return leaves
@@ -183,11 +198,12 @@ class _OneCard:
 def _step(loss_fn, optimizer: AdamW, params: Pytree, opt_state,
           batch: Dict[str, Any], plan: _OneCard):
     """One step of either builder: ``plan`` supplies the collectives."""
-    batch = {k: plan.local_batch(v) for k, v in batch.items()}
+    batch = plan.batch(batch)
     leaves = _leaves(params)
     weight = plan.weight(batch)
     full = plan.gather(leaves)
-    loss = loss_fn(_unflatten(params, full), batch)
+    with splitting(plan.sp):
+        loss = loss_fn(_unflatten(params, full), batch)
     if weight is not None:
         loss = loss * weight
     grads = plan.reduce(torch.autograd.grad(loss, full))
@@ -280,6 +296,13 @@ class _Mesh(_OneCard):
         self.local_batch = batch_sharding_fn(mesh, batch_logical, rules)
         batch_spec = logical_to_mesh(tuple(batch_logical), rules)
         self.batch_axes = tuple(a for e in batch_spec for a in spec_axes(e))
+        self.sp = sp = self.sizes.get("sp", 1)
+        self.sp_dim = next((d for d, e in enumerate(batch_spec)
+                            if "sp" in spec_axes(e)), None)
+        if sp > 1 and self.sp_dim is None:
+            raise ValueError(
+                f"a mesh with sp={sp} needs the batch's sequence dimension "
+                "split over it: batch_logical=(\"batch\", \"length\")")
         self.split = [
             [(dim, tuple(a for a in spec_axes(e) if self.sizes[a] > 1))
              for dim, e in enumerate(spec)
@@ -301,6 +324,26 @@ class _Mesh(_OneCard):
                 g for leaf in self.leaf_axes
                 for g in (self._unsplit(leaf), leaf)]:
             self._group(axes)
+
+    def batch(self, batch):
+        """This rank's region of each leaf. When sp splits the
+        sequence, a ``tokens`` leaf is shifted into inputs and targets
+        before the split, so that no block loses its last target to the
+        shift; the sequence must split evenly over sp."""
+        sp = self.sp
+        if sp > 1:
+            batch = dict(batch)
+            if "tokens" in batch:
+                tokens = torch.as_tensor(batch.pop("tokens"))
+                batch.update(inputs=tokens[:, :-1], targets=tokens[:, 1:])
+            for k, v in batch.items():
+                shape = torch.as_tensor(v).shape
+                if len(shape) > self.sp_dim and shape[self.sp_dim] % sp:
+                    raise ValueError(
+                        f"sp={sp} does not divide the sequence length "
+                        f"{shape[self.sp_dim]} of batch leaf {k!r} (a "
+                        "'tokens' leaf is counted after the shift)")
+        return super().batch(batch)
 
     def _unsplit(self, leaf_axes):
         """The batch axes a leaf is not split over: its gradient is

@@ -1,2 +1,3 @@
 """Ops of the PyTorch/CUDA port: the attention dispatch, flash
-attention, paged decode attention and KV quantization."""
+attention, paged decode attention, KV quantization, and ring and
+Ulysses attention over a sequence-parallel group."""

@@ -18,8 +18,10 @@ are `ops.flash_attention._flash_fwd_reference` and
 `_flash_bwd_reference`.
 
 `fwd_launches`, `dq_launches` and `dkv_launches` count kernel launches
-(one per call that reached its kernel); a run sets them to 0 before the
-path it wants to account for.
+(one per call that reached its kernel), and `mask_launches` splits them
+by mask (``mask_launches["causal"]["fwd"]``, ``["non-causal"]...``);
+a run sets them to 0 (`reset_launches`) before the path it wants to
+account for.
 """
 
 from __future__ import annotations
@@ -34,6 +36,20 @@ from ray_tpu_torch import _build
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+mask_launches = {m: {"fwd": 0, "dq": 0, "dkv": 0}
+                 for m in ("causal", "non-causal")}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global fwd_launches, dq_launches, dkv_launches
+    fwd_launches = dq_launches = dkv_launches = 0
+    for counts in mask_launches.values():
+        counts.update(fwd=0, dq=0, dkv=0)
+
+
+def _count(kernel: str, causal: bool) -> None:
+    mask_launches["causal" if causal else "non-causal"][kernel] += 1
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
@@ -168,6 +184,7 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], *shape)
     fwd_launches += 1
+    _count("fwd", causal)
     return o, lse
 
 
@@ -196,6 +213,7 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, sm_scale: float,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], _CODES[out_dtype], *shape)
     dq_launches += 1
+    _count("dq", causal)
     return dq
 
 
@@ -226,4 +244,5 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, sm_scale: float,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], _CODES[out_dtype], *shape)
     dkv_launches += 1
+    _count("dkv", causal)
     return dk, dv

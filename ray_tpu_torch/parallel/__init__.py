@@ -7,7 +7,9 @@ the card (gloo on the CPU). `with_logical_constraint` and
 `named_sharding` are GSPMD placements with no counterpart outside a
 compiler: the tp axis runs as explicit Megatron layers instead
 (`tensor_parallel`: `TPGroup`, f and g, the vocab-parallel ends and
-`local_heads`), passed down to the model as its ``tp=`` argument.
+`local_heads`), passed down to the model as its ``tp=`` argument, and
+the sp axis as explicit rotations and all-to-alls (`sequence_parallel`:
+`SPGroup`), passed down as ``sp=``.
 """
 
 from ray_tpu_torch.parallel.bootstrap import (
@@ -32,6 +34,7 @@ from ray_tpu_torch.parallel.sharding import (
     shard_pytree,
     spec_for,
 )
+from ray_tpu_torch.parallel.sequence_parallel import SPGroup, sp_group
 from ray_tpu_torch.parallel.tensor_parallel import (
     TPGroup,
     copy_to_tp,
@@ -49,6 +52,7 @@ __all__ = [
     "DistributedInfo",
     "LogicalAxisRules",
     "MeshSpec",
+    "SPGroup",
     "TPGroup",
     "auto_mesh",
     "copy_to_tp",
@@ -64,6 +68,7 @@ __all__ = [
     "prune_rules_for_mesh",
     "reduce_from_tp",
     "shard_pytree",
+    "sp_group",
     "spec_for",
     "tp_group",
     "vocab_cross_entropy",

@@ -367,3 +367,43 @@ def test_graph_replay_tokens_equal_eager_on_card(cuda, paged):
     assert [len(t) for t in g_toks] == budgets
     assert g_stats["decode_graph_replays"] > 0
     assert e_stats["decode_graph_replays"] == 0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_release_graphs_keeps_the_engine_serving(paged):
+    """On the CPU the loop runs eagerly and holds no graph:
+    `release_graphs` frees nothing, and the engine serves the same
+    prompts again with the same tokens."""
+    params = tllama.llama_init(TCFG, seed=3, device="cpu")
+    eng = DecodeEngine(params, TCFG, batch_slots=2, max_len=MAX_LEN,
+                       paged=paged, kv_block_tokens=4)
+    prompts = [[5, 6, 7], [9, 8, 7, 6], [1, 2]]
+    first, _ = _drive(eng, prompts, [5, 6, 4])
+    eng.release_graphs()
+    again, _ = _drive(eng, prompts, [5, 6, 4])
+    assert first == again
+    assert eng.stats()["decode_graphs"] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_release_graphs_then_recapture_on_card(cuda, paged):
+    """`release_graphs` waits for the card and frees every captured
+    decode graph (what a tp rank does before its NCCL group is
+    destroyed); the engine's next dispatches capture again and emit the
+    tokens of the first run."""
+    cfg = tllama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
+                             n_heads=4, n_kv_heads=2, ffn_dim=512,
+                             max_seq_len=256)
+    params = tllama.llama_init(cfg, seed=2, device=cuda, dtype=cfg.dtype)
+    eng = DecodeEngine(params, cfg, batch_slots=4, max_len=128,
+                       paged=paged, kv_block_tokens=16)
+    prompts = [[5, 6, 7, 8], list(range(1, 30)), [9] * 12]
+    budgets = [10, 14, 6]
+    first, _ = _drive(eng, prompts, budgets)
+    assert eng.stats()["decode_graphs"] > 0
+    eng.release_graphs()
+    assert eng.stats()["decode_graphs"] == 0.0
+    again, _ = _drive(eng, prompts, budgets)
+    assert again == first
+    assert eng.stats()["decode_graphs"] > 0

@@ -41,7 +41,7 @@ REPO = os.path.dirname(TESTS)
 # world -> (axis sizes, through create_hybrid_mesh, axes that must
 # refuse, the mesh the checkpoint is restored under)
 WORLDS = {
-    "dp2": ({"dp": 2}, False, [{"pp": 2}, {"sp": 2}], None),
+    "dp2": ({"dp": 2}, False, [{"pp": 2}, {"ep": 2}], None),
     "fsdp2": ({"fsdp": 2}, False, [{"ep": 2}, {"pp": 2}], {"dp": 2}),
     "dcn2_fsdp2": ({"dcn": 2, "fsdp": 2}, True, [], None),
 }
@@ -156,7 +156,7 @@ def test_sharded_step_matches_jax(tmp_path, request, name):
     and the port's one-card step's; the params the world saves (each
     rank its own region) restore whole, in both packages, to JAX's; a
     masked batch whose shards hold 16, ~8, 0 and 0 tokens gives JAX's
-    global masked mean; sp/ep/pp axes refuse, naming their item. Also
+    global masked mean; ep/pp axes refuse, naming their item. Also
     on each world: a step without donation leaves its inputs and gives
     the donated step's metrics; a replicated batch over split params
     gives the one-card step's; `auto_mesh` puts every rank on fsdp and
@@ -193,9 +193,8 @@ def test_sharded_step_matches_jax(tmp_path, request, name):
         assert out["local_mesh"] == [np.full([1] * 7, r).tolist(),
                                      list(AXIS_ORDER)]
         assert len(out["refused"]) == len(WORLDS[name][2])
-    for msg, item in zip(ranks[0]["refused"], ("A13", "A12")
-                         if name == "dp2" else ("A13", "A13")):
-        assert f"ROADMAP {item}" in msg, msg
+    for msg in ranks[0]["refused"]:
+        assert "ROADMAP A13" in msg, msg
     assert dict(zip(ranks[0]["names"], np.array(ranks[0]["ranks"]).shape)) \
         == {a: axes.get(a, 1) for a in AXIS_ORDER}
 

@@ -40,9 +40,7 @@ import os
 import subprocess
 import sys
 import time
-import traceback
 
-import filelock
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,7 +61,8 @@ from ray_tpu_torch.models.llama import LlamaConfig as TConfig
 from ray_tpu_torch.models.llama import llama_param_specs as tspecs
 from ray_tpu_torch.parallel import DEFAULT_RULES, local_heads
 from ray_tpu_torch.parallel.sharding import local_region, prune_rules_for_mesh
-from torch_port_helpers import die_with_parent, flat_tree, numpy_params
+from torch_port_helpers import (child_env, die_with_parent, flat_tree,
+                                numpy_params, once)
 
 LR, EPS, STEPS = 1e-3, 1e-6, 3
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -230,48 +229,6 @@ def _inputs(cfg):
                 np.int32)}
 
 
-def _shared_dir(tmp_path_factory):
-    """A directory every xdist worker of this session sees."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    path = root / "torch_port_tp"
-    path.mkdir(exist_ok=True)
-    return path
-
-
-def _once(tmp_path_factory, name, compute):
-    """``compute()``'s JSON result, computed by the first worker that
-    asks and read back by the rest. A failure is computed once too: the
-    workers that ask after it raise its traceback at once."""
-    shared = _shared_dir(tmp_path_factory)
-    result = shared / f"{name}.json"
-    failed = shared / f"{name}.failed"
-    with filelock.FileLock(str(shared / f"{name}.lock")):
-        if not result.exists() and not failed.exists():
-            try:
-                out = compute(shared / name)
-            except BaseException:
-                failed.write_text(traceback.format_exc()[-6000:])
-                raise
-            tmp = shared / f"{name}.json.tmp"
-            tmp.write_text(json.dumps(out))
-            tmp.rename(result)
-    if failed.exists():
-        raise RuntimeError(f"{name} failed in another worker:\n"
-                           + failed.read_text())
-    return json.loads(result.read_text())
-
-
-def _child_env(**extra):
-    """The environment of a child interpreter: the tests and the repo on
-    its path, and this process named as the parent it dies with."""
-    return dict(os.environ, PARENT_PID=str(os.getpid()),
-                PYTHONPATH=os.pathsep.join(
-                    [TESTS, REPO, os.environ.get("PYTHONPATH", "")]),
-                **extra)
-
-
 def _wait(procs, deadline):
     """Wait for ``procs`` until ``deadline`` (time.monotonic()); their
     stderr tails. Every one of them is killed on the way out."""
@@ -313,7 +270,7 @@ def _start_world(name, out_dir):
         "lora_cfg": LORA if extras else None,
         "mqa": extras,
         "special_prompts": _prompts(3, seed=5), "limit_s": RANK_LIMIT_S}))
-    env = _child_env()
+    env = child_env()
     env.pop("XLA_FLAGS", None)
     procs = [subprocess.Popen(
         [sys.executable, "-c",
@@ -423,7 +380,7 @@ def _compute(out_dir):
     deadline = time.monotonic() + COMPUTE_S
     out_dir.mkdir(exist_ok=True)
     started = {name: _start_world(name, out_dir / name) for name in WORLDS}
-    env = _child_env(JAX_PLATFORMS="cpu",
+    env = child_env(JAX_PLATFORMS="cpu",
                      XLA_FLAGS="--xla_force_host_platform_device_count=8")
     jax_procs = {(name, part): subprocess.Popen(
         [sys.executable, "-c",
@@ -447,7 +404,7 @@ def _compute(out_dir):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """name -> (each rank's results, JAX's results)."""
-    return _once(tmp_path_factory, "tp-worlds", _compute)
+    return once(tmp_path_factory, "torch_port_tp", "tp-worlds", _compute)
 
 
 def _case(ranks, cid):

@@ -201,14 +201,33 @@ def test_config_validation_matches_jax(kw):
 
 @pytest.mark.parametrize("kw", [dict(attn_impl="ring"),
                                 dict(attn_impl="ulysses")])
-def test_unported_options_raise_not_implemented(kw):
-    """Valid JAX options the port does not run yet name their ROADMAP
-    item instead of computing something else."""
-    cfg = tllama.LlamaConfig.nano(**kw)
-    params = tllama.llama_init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tllama.llama_forward(params, torch.zeros(1, 4, dtype=torch.long),
-                             cfg)
+def test_unported_options_raise_not_implemented(kw, nano_weights):
+    """The sequence-parallel options, once refused here, run: without an
+    sp group (a ring of one block, Ulysses over one rank) llama_forward
+    and llama_loss with its gradients equal JAX's with reference
+    attention (1e-4; JAX's ring and Ulysses need an sp axis bound by
+    shard_map). Their sp > 1 parity is `test_torch_port_sp.py`'s."""
+    tree, jparams = nano_weights
+    jcfg, tcfg = _configs("nano", attn_impl="reference")
+    tcfg = dataclasses.replace(tcfg, **kw)
+    tokens = _tokens(jcfg, (2, 17), seed=4)
+    params = params_from_numpy(tree, tcfg, device="cpu")
+    _close(tllama.llama_forward(params, torch.from_numpy(tokens[:, :-1]),
+                                tcfg),
+           jllama.llama_forward(jparams, jnp.asarray(tokens[:, :-1]), jcfg),
+           1e-4)
+    batch = {"tokens": tokens}
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jllama.llama_loss(p, batch, jcfg))(jparams)
+    leaves = ttrain._leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = tllama.llama_loss(params, {"tokens": torch.from_numpy(tokens)},
+                             tcfg)
+    _close(loss, jloss, 1e-4)
+    grads = torch.autograd.grad(loss, leaves)
+    for g, w in zip(grads, jax.tree_util.tree_leaves(jgrads)):
+        _close(g, w, 1e-4)
 
 
 @pytest.mark.parametrize("name", ["llama3_8b", "llama2_7b", "nano"])
@@ -318,14 +337,14 @@ _NANO_WIDTHS = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
 
 
 def _port_config(jcfg):
-    """The port config with every field of the JAX one, dtypes mapped;
-    ``ring_axis`` (the sp axis name) comes with long context (A12) and
-    must be at its default."""
+    """The port config with every field of the JAX one, dtypes mapped:
+    the two configs have the same fields, ``ring_axis`` (the sp axis
+    name) included."""
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg)}
     port_fields = {f.name for f in dataclasses.fields(tllama.LlamaConfig)}
-    assert set(fields) - port_fields == {"ring_axis"}
-    assert fields.pop("ring_axis") == jllama.LlamaConfig().ring_axis
+    assert set(fields) == port_fields
+    assert tllama.LlamaConfig().ring_axis == jllama.LlamaConfig().ring_axis
     for k, v in fields.items():
         if not isinstance(v, (bool, int, float, str, type(None))):
             fields[k] = _DTYPES[jnp.dtype(v).type]

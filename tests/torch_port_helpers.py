@@ -570,6 +570,49 @@ def _tp_lora_training(job, tree, data, cfg, out):
         k: v.detach().tolist() for k, v in flat_tree(lora).items()}}
 
 
+def once(tmp_path_factory, subdir, name, compute):
+    """``compute(path)``'s JSON result, computed by the first xdist worker
+    of the session that asks (in ``subdir`` of the directory every worker
+    sees) and read back by the rest. A failure is computed once too: the
+    workers that ask after it raise its traceback at once."""
+    import traceback
+
+    import filelock
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    shared = root / subdir
+    shared.mkdir(exist_ok=True)
+    result = shared / f"{name}.json"
+    failed = shared / f"{name}.failed"
+    with filelock.FileLock(str(shared / f"{name}.lock")):
+        if not result.exists() and not failed.exists():
+            try:
+                out = compute(shared / name)
+            except BaseException:
+                failed.write_text(traceback.format_exc()[-6000:])
+                raise
+            tmp = shared / f"{name}.json.tmp"
+            tmp.write_text(json.dumps(out))
+            tmp.rename(result)
+    if failed.exists():
+        raise RuntimeError(f"{name} failed in another worker:\n"
+                           + failed.read_text())
+    return json.loads(result.read_text())
+
+
+def child_env(**extra):
+    """The environment of a child interpreter: the tests and the repo on
+    its path, and this process named as the parent it dies with."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PARENT_PID=str(os.getpid()),
+                PYTHONPATH=os.pathsep.join(
+                    [tests, os.path.dirname(tests),
+                     os.environ.get("PYTHONPATH", "")]),
+                **extra)
+
+
 def die_with_parent():
     """Have the kernel kill this process when the process that started it
     exits (``PARENT_PID`` names that one), so that a test worker killed
@@ -632,6 +675,206 @@ def tp_rank_main():
     _tp_training(job, tree, data, cfg, out)
     if job.get("lora_cfg"):
         _tp_lora_training(job, tree, data, cfg, out)
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _sp_ops(job, data, sp, out):
+    """Ring and Ulysses on this rank's blocks of the global inputs, and
+    their gradients under the global cotangent's block."""
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ring_attention_sharded)
+    from ray_tpu_torch.ops.ulysses import ulysses_attention
+
+    n, r = sp.size, sp.rank
+
+    def block(x):
+        s = x.shape[2] // n
+        return torch.from_numpy(x[:, :, r * s:(r + 1) * s].copy())
+
+    def run(fn, prefix):
+        q, k, v, g = (block(data[f"{prefix}/{x}"]).requires_grad_(x != "g")
+                      for x in "qkvg")
+        o = fn(q, k, v)
+        grads = torch.autograd.grad(o, (q, k, v), g)
+        return {"o": o.detach().tolist(),
+                "grads": [x.tolist() for x in grads]}
+
+    out["ring"] = {}
+    for case in job["ring_cases"]:
+        out["ring"][case["id"]] = run(
+            lambda q, k, v: ring_attention(q, k, v, sp=sp,
+                                           causal=case["causal"],
+                                           impl=case["impl"]),
+            case["inputs"])
+    q, k, v = (torch.from_numpy(data[f"ring-gqa/{x}"]) for x in "qkv")
+    out["ring_sharded"] = ring_attention_sharded(
+        q, k, v, sp, causal=True, impl="pallas").tolist()
+    out["ulysses"] = run(
+        lambda q, k, v: ulysses_attention(q, k, v, sp=sp, causal=True),
+        "ulysses")
+    errors = out["errors"] = {}
+    try:       # kv heads that do not split over sp
+        q, k, v = (block(data[f"ring-gqa/{x}"]) for x in "qkv")
+        ulysses_attention(q, k[:, :1], v[:, :1], sp=sp)
+    except ValueError as e:
+        errors["ulysses_kv"] = str(e)
+    try:       # unequal causal blocks
+        qb = block(data["ring-gqa/q"])
+        ring_attention(qb, qb[:, :2, :-1], qb[:, :2, :-1], sp=sp,
+                       impl="pallas")
+    except ValueError as e:
+        errors["ring_unequal"] = str(e)
+
+
+def _sp_forward(job, data, sp, out):
+    """llama_forward on this rank's block of the tokens, per attn_impl."""
+    from ray_tpu_torch.convert import params_from_numpy
+    from ray_tpu_torch.models import llama
+
+    tree = nest_tree({k[len("fwd_params/"):]: v for k, v in data.items()
+                      if k.startswith("fwd_params/")})
+    tokens = torch.from_numpy(data["fwd_tokens"])
+    s = tokens.shape[1] // sp.size
+    mine = tokens[:, sp.rank * s:(sp.rank + 1) * s]
+    out["forward"] = {}
+    for impl in ("ring", "ulysses", "reference"):
+        cfg = llama.LlamaConfig.nano(**dict(job["fwd_cfg"], attn_impl=impl))
+        params = params_from_numpy(tree, cfg, device="cpu",
+                                   dtype=torch.float32)
+        with torch.no_grad():
+            out["forward"][impl] = llama.llama_forward(
+                params, mine, cfg, sp=sp).tolist()
+
+
+def _sp_training(job, data, out):
+    """make_sharded_train_step over each of the world's sp meshes, per
+    attn_impl and remat policy: the metrics of the steps, and the params
+    after them in ``out/<run>-rank<k>.npz``."""
+    import dataclasses
+
+    from ray_tpu_torch.convert import params_from_numpy
+    from ray_tpu_torch.models import llama, training
+    from ray_tpu_torch.parallel import create_mesh, tp_group
+    from ray_tpu_torch.parallel.sequence_parallel import sp_group
+
+    rank = job["rank"]
+    tokens = data["tokens"]
+    out["train"], out["errors"] = {}, out.get("errors", {})
+    for mname, spec in job["train_meshes"].items():
+        mesh = create_mesh(spec["axes"], device_type="cpu")
+        tp, sp = tp_group(mesh), sp_group(mesh)
+        tree = nest_tree({k[len(f"{mname}/"):]: v for k, v in data.items()
+                          if k.startswith(f"{mname}/")})
+        base = llama.LlamaConfig.nano(**spec["cfg"])
+        specs = llama.llama_param_specs(base)
+        opt = training.adamw(job["lr"], eps=job["eps"])
+
+        def step(cfg, batch=None):
+            init_fn, step_fn = training.make_sharded_train_step(
+                lambda p, b: llama.llama_loss(p, b, cfg, tp=tp, sp=sp),
+                opt, mesh, specs, batch_logical=("batch", "length"))
+            params, state = init_fn(params_from_numpy(
+                tree, cfg, device="cpu", dtype=torch.float32))
+            metrics = []
+            for _ in range(job["steps"]):
+                params, state, m = step_fn(
+                    params, state, batch or {"tokens": tokens})
+                metrics.append([m["loss"].item(), m["grad_norm"].item()])
+            return params, metrics
+
+        for impl in ("ring", "ulysses", "reference"):
+            for policy, kw in job["policies"].items():
+                cfg = dataclasses.replace(base, attn_impl=impl, **kw)
+                run = f"{mname}-{impl}-{policy}"
+                if impl == "ulysses" and spec.get("ulysses_error"):
+                    try:
+                        step(cfg)
+                    except ValueError as e:
+                        out["errors"][run] = str(e)
+                    continue
+                params, metrics = step(cfg)
+                path = f"{job['out']}/{run}-rank{rank}.npz"
+                np.savez(path, **{k: v.detach().numpy() for k, v in
+                                  flat_tree(params).items()})
+                out["train"][run] = {"metrics": metrics, "params": path}
+        if mname != job["shift_mesh"]:
+            continue
+        # the tokens form against inputs/targets split by hand; the
+        # params a step starts from are the numpy tree's, unchanged
+        cfg = dataclasses.replace(base, attn_impl="ring")
+        _, split = step(cfg, {"inputs": tokens[:, :-1],
+                              "targets": tokens[:, 1:]})
+        out["shift"] = {"split": split,
+                        "tokens": out["train"][f"{mname}-ring-full"][
+                            "metrics"]}
+        init_fn, _ = training.make_sharded_train_step(
+            lambda p, b: llama.llama_loss(p, b, cfg, sp=sp), opt, mesh,
+            specs, batch_logical=("batch", "length"))
+        start, _ = init_fn(params_from_numpy(tree, cfg, device="cpu",
+                                             dtype=torch.float32))
+        out["init_is_tree"] = all(
+            np.array_equal(v.detach().numpy(), flat_tree(tree)[k])
+            for k, v in flat_tree(start).items())
+        _, bad_step = training.make_sharded_train_step(
+            lambda p, b: llama.llama_loss(p, b, cfg, sp=sp), opt, mesh,
+            specs, batch_logical=("batch", "length"))
+        try:
+            bad_step(start, opt.init(start), {"tokens": tokens[:, :-1]})
+        except ValueError as e:
+            out["errors"]["shift_length"] = str(e)
+        try:
+            llama.llama_loss(start, {"tokens": torch.from_numpy(tokens)},
+                             cfg, sp=sp)
+        except ValueError as e:
+            out["errors"]["loss_tokens"] = str(e)
+        try:
+            training.make_sharded_train_step(
+                lambda p, b: llama.llama_loss(p, b, cfg, sp=sp), opt,
+                mesh, specs)
+        except ValueError as e:
+            out["errors"]["unsplit_length"] = str(e)
+        # a loss_fn that hands the model no sp group: refused, not
+        # trained on block-local attention
+        _, blind_step = training.make_sharded_train_step(
+            lambda p, b: llama.llama_loss(p, b, cfg), opt, mesh, specs,
+            batch_logical=("batch", "length"))
+        try:
+            blind_step(start, opt.init(start), {"tokens": tokens})
+        except ValueError as e:
+            out["errors"]["loss_without_sp"] = str(e)
+
+
+def sp_rank_main():
+    """One rank of a sequence-parallel world a job file describes; run
+    as ``python -c "import torch_port_helpers as h; h.sp_rank_main()"
+    JOB RANK``. It runs ring and Ulysses attention over {"sp": world}
+    (`_sp_ops`), `llama_forward` per attn_impl (`_sp_forward`) and the
+    sharded step over the job's sp meshes (`_sp_training`), and writes
+    what it saw to ``out/rank<k>.json``."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    die_with_parent()
+    with open(sys.argv[1]) as f:
+        job = json.load(f)
+    faulthandler.dump_traceback_later(job["limit_s"], exit=True)
+    torch.set_num_threads(1)
+    rank = job["rank"] = int(sys.argv[2])
+
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.parallel.sequence_parallel import sp_group
+
+    initialize_distributed(job["store"], job["world"], rank,
+                           device_type="cpu")
+    data = dict(np.load(job["inputs"]))
+    sp = sp_group(create_mesh({"sp": job["world"]}, device_type="cpu"))
+    out = {"sp": [sp.rank, sp.size]}
+    _sp_ops(job, data, sp, out)
+    _sp_forward(job, data, sp, out)
+    _sp_training(job, data, out)
     with open(f"{job['out']}/rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
