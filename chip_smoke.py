@@ -247,6 +247,45 @@ Phases, each of which must pass:
                B3b (bf16 and f32 gradients) at the ring's block shapes
                [1, 12, 8192, 128], causal and non-causal, against their
                plain versions, timed beside their bounds and SDPA.
+ 17. moe     — Mixtral-8x7B's published widths (vocab 32000, dim 4096,
+               32/8 heads, ffn 14336, 8 experts, top-2, capacity 1.25)
+               cut to MOE_LAYERS of 32 layers, a seeded batch of 2 x 2048
+               tokens (G = 4096, capacity 1280). (a) One step's loss and
+               gradients with the kernels against the plain attention
+               (the parity limits), the dropped-token share, then steps
+               through make_sharded_train_step over {"dp": 1, "ep": 1} on
+               one NCCL rank: launches, step ms, MFU on active params,
+               peak memory. (b) Two rank processes (--moe-rank) on the
+               card in a gloo world at 1 layer, each first computing the
+               one-rank step itself: ep = 2 (4 experts a rank, the real
+               step) and dp = 2 (the step's own plan without its
+               optimizer: global capacity over the row shards) held to it
+               by loss, norm and gradient cosine (MOE_*), and each
+               planted fault of MOE_FAULTS (the combine's all-reduce
+               skipped, the router's ep gradient summed twice, each row
+               shard routed on its own) must fail that gate.
+ 18. pipeline — bench.py's flagship at 16 layers (full remat) as a GPipe
+               pipeline (`make_pipelined_fn`, a stage a loop over its
+               decoder layers; embedding, final norm, head and loss
+               outside), batch 8 x 2048 in PP_MICRO microbatches. (a) pp =
+               1 on one NCCL rank against make_train_step's loss and
+               gradients (parity limits), then timed: launches, step ms,
+               MFU. (b) pp = 2 as two gloo rank processes (--pp-rank, 8
+               layers a stage) against the one-card step, and the planted
+               faults of PP_FAULTS (a hand-off a tick late, the
+               backward's hand-off dropped) must fail it; the stages'
+               forward share of each step against GPipe's bubble.
+ 19. vit-t5-mlp — B1/B3 at the new shapes (ViT D = 32 bf16 and f32, T5's
+               encoder, decoder and cross-attention, the pipeline's
+               microbatch; the D = 32 fault of columns past 32 read as
+               live must fail the check), then ViTConfig(), T5Config() and
+               MLPConfig() at their defaults: kernels against the plain
+               attention (the MLP against the CPU), steps over {"dp": 1}
+               on one NCCL rank with their launches, and t5_generate's
+               greedy tokens against an uncached argmax rollout through
+               t5_forward (f32: equal; bf16: agreement printed).
+`--ep-cards N` and `--pp-cards N` run the moe and pipeline models over N
+cards (NCCL, one rank process a card) beside one card's step.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
 that more than one path runs at its timed shape also gives each path's
 launches, "launches_by_path"); the last line is {"ok": true, "device":
@@ -289,6 +328,20 @@ FLASH_CASES = [
     ("c_f32", 1, 4, 2, 512, 512, 128, "f32", True),
 ]
 FLASH_TIMED = ("a_flagship", "b_llama3_8b")
+# The other model families' shapes: ViT's default config (6 heads of
+# head dim 32 over 65 tokens, batch 256), bf16 and f32, and T5's default
+# config (8 heads of 64) at batch 32 with 512 source and 128 target
+# tokens: the encoder, the causal decoder and the cross-attention (Sq
+# 128 over Sk 512); the pipeline's microbatch of the flagship (2 of its 8
+# rows). Mixtral's attention is b_llama3_8b's shape.
+A13_FLASH_CASES = [
+    ("vit_d32", 256, 6, 6, 65, 65, 32, "bf16", False),
+    ("vit_d32_f32", 256, 6, 6, 65, 65, 32, "f32", False),
+    ("t5_enc", 32, 8, 8, 512, 512, 64, "bf16", False),
+    ("t5_dec", 32, 8, 8, 128, 128, 64, "bf16", True),
+    ("t5_cross", 32, 8, 8, 128, 512, 64, "bf16", False),
+    ("pp_micro", 2, 12, 12, 2048, 2048, 128, "bf16", True),
+]
 # bf16: outputs are bf16 and the kernel rounds p to bf16 per tile where
 # the plain version rounds it once (as B2 uses); f32: exact f32 FMAs in
 # both, the online softmax and the tile order change the summation order.
@@ -2659,6 +2712,40 @@ def _planted_flash(q, k, v, o, lse, do, scale, causal, fault, f32_grads):
     return out, row0
 
 
+def _d32_fault_rejected(phase, name, q, k, v, do, scale, causal, pairs,
+                        tol):
+    """A planted D = 32 fault: the columns past 32 of a 64-column tile
+    read as live (q, k, v and dO padded to 64 with random columns, the
+    D = 64 kernels run at D = 32's scale, the outputs cut back to 32
+    columns). The elementwise check against the plain versions must
+    fail for every kernel."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+
+    def pad(x):
+        return torch.cat([x, torch.randn(x.shape, generator=g,
+                                         device="cuda").to(x.dtype)], -1)
+
+    qp, kp, vp, dop = (pad(x) for x in (q, k, v, do))
+    fo, flse = fa._flash_fwd(qp, kp, vp, scale, causal, with_lse=True)
+    fdq, fdk, fdv = fa._flash_bwd(qp, kp, vp, fo, flse, dop, scale, causal)
+    got = {"o": fo[..., :32], "lse": flse, "dq": fdq[..., :32],
+           "dk": fdk[..., :32], "dv": fdv[..., :32]}
+    errs = {}
+    for key, _, want in pairs:
+        want = want.float()
+        err = (got[key].float() - want).abs()
+        errs[key] = (err.max().item(),
+                     bool((err <= tol + tol * want.abs()).all()))
+    log(f"[{phase}] {name}: planted fault (columns past 32 live): max_abs_err "
+        + ", ".join(f"{k_} {e:.3e}" for k_, (e, _) in errs.items()))
+    for kern, keys in (("fwd", ("o", "lse")), ("dq", ("dq",)),
+                       ("dkv", ("dk", "dv"))):
+        assert not all(errs[k_][1] for k_ in keys), \
+            f"[{phase}] {name}: the D = 32 fault passed {kern}'s check"
+
+
 def _rel_check(phase, name, pairs, planted, limits):
     """Each output's relative error against its plain version, sound and
     under each planted fault ({fault: (outputs, row0)}). Returns the log
@@ -2735,6 +2822,9 @@ def flash_phase(cases=FLASH_CASES, timed=FLASH_TIMED, phase="flash",
             errs[key] = err.max().item()
             assert bool((err <= tol + tol * want.abs()).all()), \
                 f"[{phase}] {name} {key}: max_abs_err {errs[key]:.3e} FAILED"
+        if D == 32 and dts == "bf16":
+            _d32_fault_rejected(phase, name, q, k, v, do, scale, causal,
+                                pairs, tol)
         dead = Sq - Sk if causal else 0
         if dead > 0:
             assert bool((o[:, :, :dead] == 0).all()), f"{name}: dead o"
@@ -3514,7 +3604,90 @@ def tp_phase(smi, cfg, holder, serve_tokens):
 # A rank that has not finished within TP_CARDS_LIMIT_S of its start is
 # killed; from its eager rerun on, each rank dumps its threads' stacks
 # every TP_CARDS_TRACE_S into its trace file, which the parent prints.
-TP_CARDS_LIMIT_S, TP_CARDS_TRACE_S = 240, 20
+TP_CARDS_LIMIT_S, TP_CARDS_TRACE_S = 300, 20
+
+
+def _fixed_schedule_run(eng, prompts, snapshot):
+    """Serve ``prompts`` on ``eng`` on one fixed schedule: every request
+    submitted before the first step and every step at horizon 1, so the
+    admissions, the prefill batches and the dispatches are the same
+    whatever the host's timing. With ``snapshot`` the last logits are
+    copied after every step. Returns the tokens and the snapshots."""
+    ids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    logits = []
+    while eng.pending():
+        eng.step(horizon=1)
+        if snapshot:
+            logits.append(eng._last_logits.detach().float().clone())
+    torch.cuda.synchronize()
+    return [eng.pop_result(i) for i in ids], logits
+
+
+def _first_diverging(a, b):
+    """The first of the paired logit snapshots that differ bit for bit:
+    its index, max abs difference and how many rows' argmax differ."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            return {"step": i, "of": len(a),
+                    "max_diff": float((x - y).abs().max()),
+                    "argmax_rows": int((x.argmax(-1) != y.argmax(-1)).sum())}
+    return {"step": None, "of": len(a)}
+
+
+def _capture_probes(cfg, tp, group):
+    """Each op of a tp rank's decode layer at the serve shapes (8 rows,
+    one token), run eagerly and from a captured CUDA graph on the same
+    inputs: the number of output elements that differ bit for bit. The
+    all-reduce is collective: every rank runs the probes in one order."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import _logits
+
+    g = torch.Generator(device="cuda").manual_seed(1 + dist.get_rank())
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(cfg.dtype)
+
+    d, hd = cfg.dim, cfg.head_dim
+    h, kv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    f, v = cfg.ffn_dim // tp, cfg.vocab_size // tp
+    x, act, o = rand(8, 1, d), rand(8, 1, f), rand(8, 1, h, hd)
+
+    def summed(a):
+        a = a.clone()
+        dist.all_reduce(a, group=group)
+        return a
+
+    probes = {
+        "wq": (lambda a, w: torch.einsum("bsd,dhk->bshk", a, w),
+               (x, rand(d, h, hd))),
+        "wk": (lambda a, w: torch.einsum("bsd,dhk->bshk", a, w),
+               (x, rand(d, kv, hd))),
+        "wo": (lambda a, w: torch.einsum("bshk,hkd->bsd", a, w),
+               (o, rand(h, hd, d))),
+        "w_gate": (lambda a, w: torch.einsum("bsd,df->bsf", a, w),
+                   (x, rand(d, f))),
+        "w_down": (lambda a, w: torch.einsum("bsf,fd->bsd", a, w),
+                   (act, rand(f, d))),
+        "lm_head": (lambda a, w: _logits(a, w, cfg), (x, rand(d, v))),
+        "all_reduce": (summed, (x,)),
+    }
+    out = {}
+    for name, (fn, args) in probes.items():
+        eager = fn(*args).clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        out[name] = int((got != eager).sum())
+        del graph
+    return out
 
 
 def _first_tokens_profile(eng, prompts):
@@ -3614,9 +3787,14 @@ def tp_card_rank_main(rank, job_path):
     mark("one-card runs done")
     with open(f"{out}/rank{rank}.json", "w") as f:
         json.dump(res, f)
+    # C6b: the paged engine on one fixed schedule, captured (after a
+    # warm-up run that captures the horizon-1 graph) and later eager
+    eng = engines["paged"]
+    _fixed_schedule_run(eng, prompts, False)
+    fixed_graph, graph_logits = _fixed_schedule_run(eng, prompts, rank == 0)
+    mark("fixed-schedule captured run done")
     # the paged engine again, eager, each step logged; stacks dumped
     # until the process group is gone
-    eng = engines["paged"]
     eng.release_graphs()
     eng._graphs = None
     trace = open(f"{out}/rank{rank}.trace", "w")
@@ -3632,15 +3810,23 @@ def tp_card_rank_main(rank, job_path):
 
     eng.step = logged
     _, toks, _ = _drive(eng, prompts, NEW_TOKENS)
+    eng.step = step
     mark("eager rerun done")
     # the eager path held to the captured run's tokens, teacher-forced
     # (free-running streams part at the first near-tie and stay apart)
     picks, _ = _forced_picks(params, cfg, prompts, res["paged"]["tokens"],
                              None, mesh=mesh)
+    mark("teacher-forced eager run done")
+    fixed_eager, eager_logits = _fixed_schedule_run(eng, prompts, rank == 0)
+    mark("fixed-schedule eager run done")
+    probes = _capture_probes(cfg, job["tp"], mesh.get_group("tp"))
+    mark("capture probes done")
     with open(f"{out}/rank{rank}.eager.json", "w") as f:
         json.dump({"tokens": toks, "forced": float(np.mean(
-            picks == np.array(res["paged"]["tokens"])))}, f)
-    mark("teacher-forced eager run done")
+            picks == np.array(res["paged"]["tokens"]))),
+            "fixed_graph": fixed_graph, "fixed_eager": fixed_eager,
+            "fixed_logits": _first_diverging(graph_logits, eager_logits),
+            "probes": probes}, f)
     dist.barrier()
     mark("barrier passed")
     # NCCL's teardown waits for every graph that captured the group's
@@ -3726,6 +3912,16 @@ def tp_cards_main(n):
                 f"path with the captured tokens {forced:.4f} (gate >= "
                 f"{TP_AGREE}); NCCL_ALGO={os.environ.get('NCCL_ALGO')}, "
                 f"NCCL_PROTO={os.environ.get('NCCL_PROTO')}")
+            fixed_same = e0["fixed_eager"] == e0["fixed_graph"]
+            log(f"[tp-cards] paged, fixed schedule (all submitted first, "
+                f"horizon 1): eager tokens equal to the captured run's: "
+                f"{fixed_same} ("
+                f"{_agreement(e0['fixed_eager'], e0['fixed_graph']):.4f}); "
+                f"captured fixed run equal to the adaptive captured "
+                f"run's tokens: {e0['fixed_graph'] == r0['paged']['tokens']}"
+                f"; first logit snapshot that differs: {e0['fixed_logits']}"
+                f"; graph-vs-eager elements differing per op, by rank: "
+                f"{[json.loads(e)['probes'] for e in eager]}")
         if hung or not (r0 and all(eager)):
             for r in range(n):
                 prog = (read(r, "progress") or "(none)").splitlines()
@@ -4383,6 +4579,1106 @@ def sp_cards_main(n):
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The other model families and the last two mesh axes (ROADMAP A13): the
+# moe, pipeline and vit-t5-mlp phases.
+# ---------------------------------------------------------------------------
+
+# moe: Mixtral-8x7B's published widths cut to MOE_LAYERS of 32 layers (f32
+# master weights and AdamW fit one card), one seeded batch of MOE_BATCH x
+# MOE_SEQ tokens (G = 4096, capacity 1280); (b) MOE_RANKS gloo processes on
+# the card at MOE_RANK_LAYERS layer(s).
+MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 2, 2048, 3
+MOE_RANKS, MOE_RANK_LAYERS = 2, 1
+# The gates of (a) (kernels against the plain attention) and (b) (the ep
+# = 2 and dp = 2 steps against the one-rank step on the same weights):
+# loss and grad norm relative, the min cosine of the checked gradients
+# but the router's, and the router's own. Routing is discrete: rounding
+# that moves a token's gates past a tie, or an earlier token past an
+# expert's capacity, reroutes it, and the router's gradient (a sum over
+# the routed tokens) turns with each rerouted token. So the router gets
+# its own floor, with the share of rerouted choices printed beside; each
+# planted fault of MOE_FAULTS must fail one of the gates.
+MOE_LOSS_RTOL, MOE_NORM_RTOL, MOE_MIN_COS = 2e-3, 2e-2, 0.999
+MOE_ROUTER_MIN_COS = 0.95
+MOE_FAULTS = {"ep": ("combine-unsummed", "router-twice"),
+              "dp": ("local-capacity",)}
+# pipeline: bench.py's flagship widths at 16 layers, batch 8 x 2048 in
+# PP_MICRO microbatches; (b) PP_RANKS gloo processes, 8 layers each.
+PP_MICRO, PP_STEPS, PP_RANKS = 4, 3, 2
+PP_FAULTS = ("handoff-late", "backward-dropped")
+# vit-t5-mlp: ViTConfig() at batch 256, T5Config() at batch 32 x (512
+# source, 128 target), MLPConfig() at batch 256; A13_STEPS timed steps
+# after a warm-up; T5_NEW greedy tokens for T5_SOURCES sources.
+A13_STEPS, T5_NEW, T5_SOURCES = 3, 64, 8
+
+
+def _chunked_cos(a, b, chunk=1 << 26):
+    """Cosine of two same-shaped tensors in f64, a chunk at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    dot = na = nb = 0.0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        dot += (x * y).sum().item()
+        na += (x * x).sum().item()
+        nb += (y * y).sum().item()
+    return dot / max(np.sqrt(na * nb), 1e-300)
+
+
+def _gate(loss, norm, pairs, one_loss, one_norm):
+    """(loss rel. error, norm rel. error, min cosine and its leaf) of
+    (name, got, want) gradient pairs against a one-rank reference."""
+    cos = min((_chunked_cos(g, w), name) for name, g, w in pairs)
+    return (abs(loss - one_loss) / abs(one_loss),
+            abs(norm - one_norm) / abs(one_norm), cos[0], cos[1])
+
+
+def _gate_ok(gate, limits):
+    return gate[0] <= limits[0] and gate[1] <= limits[1] and \
+        gate[2] >= limits[2]
+
+
+def _gate_text(gate):
+    return (f"loss {gate[0]:.3e}, norm {gate[1]:.3e}, min cosine "
+            f"{gate[2]:.6f} ({gate[3]})")
+
+
+def _moe_gate(loss, norm, pairs, one_loss, one_norm):
+    """`_gate` over every checked gradient but the router's, and the
+    router's cosine (the last entry)."""
+    router = [(n, g, w) for n, g, w in pairs if n.endswith("w_router")]
+    gate = _gate(loss, norm, [x for x in pairs if x not in router],
+                 one_loss, one_norm)
+    return gate + (min(_chunked_cos(g, w) for _, g, w in router),)
+
+
+def _moe_ok(gate):
+    return _gate_ok(gate, (MOE_LOSS_RTOL, MOE_NORM_RTOL, MOE_MIN_COS)) \
+        and gate[4] >= MOE_ROUTER_MIN_COS
+
+
+def _moe_text(gate):
+    return _gate_text(gate) + f", router cosine {gate[4]:.6f}"
+
+
+def _moe_cfg(**kw):
+    from ray_tpu_torch.models.moe import MoeConfig
+
+    return dataclasses.replace(MoeConfig.mixtral_8x7b(),
+                               **{"n_layers": MOE_LAYERS, **kw})
+
+
+def moe_batch(cfg, seed=5):
+    rng = np.random.RandomState(seed)
+    return {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1))).cuda()}
+
+
+@contextlib.contextmanager
+def _moe_routes():
+    """Every `_route` call's positions while the block runs (a layer's
+    recompute under remat repeats its call)."""
+    from ray_tpu_torch.models import moe as mm
+
+    real, seen = mm._route, []
+
+    def route(*args):
+        out = real(*args)
+        seen.append((out[2].detach(), out[3].detach()))
+        return out
+
+    with mock.patch.object(mm, "_route", route):
+        yield seen
+
+
+@contextlib.contextmanager
+def _moe_replayed(seen):
+    """`_route` takes the expert choices and capacity positions of the
+    recorded calls ``seen``, in order, and its own gates (so the router's
+    gradient flows as ever): a run with the same routing as the recorded
+    one."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import moe as mm
+
+    calls = iter(seen)
+
+    def route(xf, w_router, cfg, split=None):
+        idx, pos = next(calls)
+        gates = F.softmax(xf.float() @ w_router.float(), dim=-1)
+        weights = gates.gather(1, idx)
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return gates, weights, idx, pos
+
+    with mock.patch.object(mm, "_route", route):
+        yield
+
+
+def _drop_share(cfg, positions, tokens):
+    capacity = max(1, int(cfg.capacity_factor * tokens * cfg.top_k
+                          / cfg.n_experts))
+    first = [p for _, p in positions[:cfg.n_layers]]
+    return float(np.mean([(p >= capacity).float().mean().item()
+                          for p in first])), capacity
+
+
+def _moe_loss_grads(cfg, params, batch, wanted=None, ep=None):
+    """(loss, grad norm, [(name, grad)]) of `moe_loss` on ``params``
+    by plain autograd (the step's loss without the optimizer); ``wanted``
+    limits the gradients to the named leaves."""
+    from ray_tpu_torch.models.moe import moe_loss
+    from ray_tpu_torch.models.training import _tree_map
+
+    tree = _tree_map(lambda p: p.detach().requires_grad_(), params)
+    named = [(n, p) for n, p in _named_leaves(tree)
+             if wanted is None or n in wanted]
+    loss = moe_loss(tree, batch, cfg, ep=ep)
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    norm = torch.nn.utils.get_total_norm(grads).item()
+    return loss.item(), norm, [(n, g) for (n, _), g in zip(named, grads)]
+
+
+def _moe_one_rank(smi):
+    """(a): the cut model's step kernel vs plain attention, then steps
+    over {"dp": 1, "ep": 1} on one NCCL rank. Returns the flash launches
+    of the timed steps."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.models.moe import (moe_flops_per_token, moe_init,
+                                          moe_loss, moe_param_specs)
+    from ray_tpu_torch.parallel import (create_mesh, initialize_distributed,
+                                        tp_group)
+
+    cfg = _moe_cfg()
+    params = moe_init(cfg, seed=0, device="cuda")
+    batch = moe_batch(cfg)
+    G = MOE_BATCH * MOE_SEQ
+    with _plain_attention_forbidden(), _moe_routes() as seen:
+        lk, nk, gk = _moe_loss_grads(cfg, params, batch)
+    drop, capacity = _drop_share(cfg, seen, G)
+    plain = dataclasses.replace(cfg, attn_impl="reference")
+    with _moe_routes() as plain_seen:
+        lr, nr, gr = _moe_loss_grads(plain, params, batch)
+    moved = float(np.mean([(a[0] != b[0]).float().mean().item() for a, b in
+                           zip(seen[:cfg.n_layers],
+                               plain_seen[:cfg.n_layers])]))
+    free = _moe_gate(lk, nk, [(n, a, b) for (n, a), (_, b) in zip(gk, gr)],
+                     lr, nr)
+    del gr
+    # the gate: the plain run on the kernel run's routing, so that the
+    # comparison sees the attention and not rerouted tokens
+    with _moe_replayed(seen):
+        lr, nr, gr = _moe_loss_grads(plain, params, batch)
+    gate = _moe_gate(lk, nk, [(n, a, b) for (n, a), (_, b) in zip(gk, gr)],
+                     lr, nr)
+    del gk, gr
+    torch.cuda.empty_cache()
+    log(f"[moe] (a) Mixtral-8x7B widths (vocab {cfg.vocab_size}, dim "
+        f"{cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, ffn "
+        f"{cfg.ffn_dim}, {cfg.n_experts} experts, top-{cfg.top_k}, "
+        f"capacity factor {cfg.capacity_factor}) at {cfg.n_layers} of 32 "
+        f"layers, {cfg.num_params() / 1e9:.3f} G params ("
+        f"{cfg.active_params() / 1e9:.3f} G active), batch {MOE_BATCH} x "
+        f"{MOE_SEQ}: G = {G}, capacity {capacity}, dropped-token share "
+        f"{drop:.4f}; one step's loss and gradients, kernels vs plain "
+        f"attention on the kernels' routing: {_moe_text(gate)} (limits "
+        f"{MOE_LOSS_RTOL} / {MOE_NORM_RTOL} / {MOE_MIN_COS}, router "
+        f"{MOE_ROUTER_MIN_COS}); each routing its own (printed): "
+        f"{_moe_text(free)}, expert choices that differ {moved:.4f}")
+    assert _moe_ok(gate), f"[moe] (a) parity FAILED {gate}"
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = create_mesh({"dp": 1, "ep": 1})
+        ep = tp_group(mesh, "ep")
+        init_fn, step_fn = make_sharded_train_step(
+            lambda p, b: moe_loss(p, b, cfg, ep=ep),
+            adamw(3e-4, weight_decay=0.0), mesh, moe_param_specs(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        params, state = init_fn(params)
+        with _plain_attention_forbidden():
+            params, state, m = step_fn(params, state, batch)
+            losses = [m["loss"].item()]
+            _zero_flash_counts()
+            times = []
+            for _ in range(MOE_STEPS):
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batch)
+                losses.append(m["loss"].item())
+                times.append(time.perf_counter() - t0)
+            launches = _flash_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert np.isclose(losses[0], lk, rtol=1e-5), (losses[0], lk)
+        assert losses[-1] < losses[0], f"[moe] loss did not fall {losses}"
+        L = cfg.n_layers
+        want = {"fwd": 2 * L * MOE_STEPS, "dq": L * MOE_STEPS,
+                "dkv": L * MOE_STEPS}
+        assert launches == want, f"[moe] launches {launches} != {want}"
+        tok_s = G * MOE_STEPS / sum(times)
+        mfu = tok_s * moe_flops_per_token(cfg, MOE_SEQ) / BF16_FLOPS_PER_S
+        log(f"[moe] (a) make_sharded_train_step over {{'dp': 1, 'ep': 1}} on "
+            f"one NCCL rank, adamw(3e-4): losses "
+            f"{[round(x, 4) for x in losses]} (the first = the parity "
+            f"step's); launches in {MOE_STEPS} steps {launches}; step "
+            f"{np.mean(times) * 1e3:.1f} ms mean; {tok_s:.0f} tokens/s; MFU "
+            f"on active params {mfu:.2%} of 989 TFLOP/s bf16; peak memory "
+            f"{peak / 2**30:.2f} GiB; the one-hot dispatch and combine "
+            f"einsums {4 * G * cfg.n_experts * capacity * cfg.dim / 1e9:.0f}"
+            f" GFLOP a layer forward against the experts' "
+            f"{6 * cfg.n_experts * capacity * cfg.dim * cfg.ffn_dim / 1e12:.2f}"
+            f" TFLOP; on {smi}")
+        del params, state, step_fn
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _moe_fault(fault):
+    """A planted fault of the MoE layer's parallel forms."""
+    from ray_tpu_torch.models import moe as mm
+    from ray_tpu_torch.parallel import data_parallel as dpm
+
+    if fault == "combine-unsummed":      # g after the combine skipped
+        with mock.patch.object(mm, "reduce_from_tp", lambda x, ep: x):
+            yield
+    elif fault == "router-twice":        # the combine weights' f twice
+        real = mm.copy_to_tp
+
+        def twice(x, ep):
+            if x.dim() == 2 and x.shape[1] == 2:         # keep [G, k]
+                return real(real(x, ep), ep)
+            return real(x, ep)
+
+        with mock.patch.object(mm, "copy_to_tp", twice):
+            yield
+    else:                                # each rank's rows on their own
+        assert fault == "local-capacity", fault
+        with mock.patch.object(dpm, "current", lambda: None):
+            yield
+
+
+def _moe_dp_grads(cfg, params, batch, mesh, wanted):
+    """The {"dp": 2} step's loss, norm and gradients without its
+    optimizer (the step's own plan: this rank's rows, the batch split,
+    the weight, the reduction), for the ``wanted`` leaves."""
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.models.moe import moe_loss, moe_param_specs
+    from ray_tpu_torch.parallel.data_parallel import batch_split
+
+    specs = [s for n, s in _named_leaves(moe_param_specs(cfg))
+             if n in wanted]
+    named = [(n, p.detach().requires_grad_()) for n, p in
+             _named_leaves(params) if n in wanted]
+    plan = training._Mesh(mesh, {n: s for (n, _), s in zip(named, specs)},
+                          ("batch", None), None)
+    tree = training._tree_map(lambda p: p.detach(), params)
+    for n, p in named:
+        layer = n.split("/")
+        node = tree
+        for k in layer[:-1]:
+            node = node[k]
+        node[layer[-1]] = p
+    b = plan.batch(batch)
+    with batch_split(plan.batch_view()) as split:
+        loss = moe_loss(tree, b, cfg)
+        weight = plan.weight(b, split.count)
+        grads = torch.autograd.grad(loss * weight, [p for _, p in named])
+        grads = plan.reduce(list(grads))
+    total = plan.total((loss * weight).detach()).item()
+    norm = torch.nn.utils.get_total_norm(grads).item()
+    return total, norm, [(n, g) for (n, _), g in zip(named, grads)]
+
+
+def _moe_ep_step(cfg, params, batch, mesh):
+    """One make_sharded_train_step over {"ep": 2}: loss, norm and the
+    rank's gradient shards (AdamW's first moment / (1 - b1))."""
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.models.moe import moe_loss, moe_param_specs
+    from ray_tpu_torch.parallel import tp_group
+
+    opt = adamw(3e-4, weight_decay=0.0)
+    ep = tp_group(mesh, "ep")
+    init_fn, step_fn = make_sharded_train_step(
+        lambda p, b: moe_loss(p, b, cfg, ep=ep), opt, mesh,
+        moe_param_specs(cfg))
+    p, s = init_fn(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step_fn(p, s, batch)
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    moments = opt.state_tree(s, p)["exp_avg"]
+    grads = [(n, g.detach() / (1 - opt.b1))
+             for n, g in _named_leaves(moments)]
+    return loss, norm, grads, ms
+
+
+def moe_rank_main(rank, job_path):
+    """One rank of the moe phase's (b), started as ``python3
+    chip_smoke.py --moe-rank RANK JOB``: a gloo world of MOE_RANKS
+    processes on the one card, each first computing the one-rank step's
+    loss and gradients itself on the same weights."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.moe import moe_init, moe_param_specs
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.parallel.sharding import local_region
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", init_method=job["store"],
+                            world_size=MOE_RANKS, rank=rank)
+    out = {"rank": rank, "gates": {}, "ms": {}}
+    try:
+        cfg = _moe_cfg(n_layers=MOE_RANK_LAYERS)
+        params = moe_init(cfg, seed=0, device="cuda")
+        batch = moe_batch(cfg)
+        # dp = 2: the router, attention and we_gate gradients (the leaves
+        # whose gradient routing moves), all-reduced over gloo
+        wanted = {n for n, _ in _named_leaves(params)
+                  if not n.startswith(("tok_embed", "lm_head"))
+                  and not n.endswith(("we_up", "we_down"))}
+        one = _moe_loss_grads(cfg, params, batch, wanted)
+        dp_mesh = create_mesh({"dp": MOE_RANKS})
+        for fault in (None,) + MOE_FAULTS["dp"]:
+            with _moe_fault(fault) if fault else contextlib.nullcontext():
+                got = _moe_dp_grads(cfg, params, batch, dp_mesh, wanted)
+            out["gates"][f"dp:{fault or 'sound'}"] = _moe_gate(
+                got[0], got[1], [(n, g, w) for (n, g), (_, w) in
+                                 zip(got[2], one[2])], one[0], one[1])
+            del got
+        del one
+        torch.cuda.empty_cache()
+        # ep = 2: every leaf, each rank's shard against its region of
+        # the one-rank gradient (kept alone)
+        ep_mesh = create_mesh({"ep": MOE_RANKS})
+        specs = dict(_named_leaves(moe_param_specs(cfg)))
+        loss1, norm1, full = _moe_loss_grads(cfg, params, batch)
+        mine = [(n, w[local_region(w.shape, specs[n], ep_mesh)].clone())
+                for n, w in full]
+        del full
+        torch.cuda.empty_cache()
+        for fault in (None,) + MOE_FAULTS["ep"]:
+            with _moe_fault(fault) if fault else contextlib.nullcontext():
+                loss, norm, grads, ms = _moe_ep_step(cfg, params, batch,
+                                                     ep_mesh)
+            pairs = [(n, g, w) for (n, g), (_, w) in zip(grads, mine)]
+            out["gates"][f"ep:{fault or 'sound'}"] = _moe_gate(
+                loss, norm, pairs, loss1, norm1)
+            out["ms"][fault or "sound"] = ms
+            del grads, pairs
+            torch.cuda.empty_cache()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _rank_world(flag, n, label, limit_s=300):
+    """``n`` rank processes of this script (``--<flag> RANK JOB``), the
+    job naming a TCP store, ``n`` and an output directory; returns what
+    each wrote."""
+    import os
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"store": f"tcp://127.0.0.1:{_free_port()}",
+                       "n": n, "out": tmp}, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), f"--{flag}", str(r),
+             job], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(n)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=limit_s)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, \
+                f"[{label}] rank {r} exited {p.returncode}:\n{text[-6000:]}"
+        out = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+    return out
+
+
+def moe_phase(smi):
+    """Mixtral-style MoE: (a) one NCCL rank, (b) ep = 2 and dp = 2 as
+    gloo processes on the card with planted faults. Returns (a)'s flash
+    launches."""
+    launches = _moe_one_rank(smi)
+    ranks = _rank_world("moe-rank", MOE_RANKS, "moe")
+    limits = (MOE_LOSS_RTOL, MOE_NORM_RTOL, MOE_MIN_COS, MOE_ROUTER_MIN_COS)
+    r0 = ranks[0]
+    for r in ranks:
+        for key, gate in r["gates"].items():
+            log(f"[moe] (b) rank {r['rank']} {key}: {_moe_text(gate)}")
+    for axis, faults in MOE_FAULTS.items():
+        for r in ranks:
+            assert _moe_ok(r["gates"][f"{axis}:sound"]), \
+                f"[moe] (b) {axis} = {MOE_RANKS} FAILED on rank {r['rank']}"
+        for fault in faults:
+            assert not all(_moe_ok(r["gates"][f"{axis}:{fault}"])
+                           for r in ranks), \
+                f"[moe] (b) planted fault {fault} passed the gate"
+    log(f"[moe] (b) {MOE_RANKS} rank processes on one card (gloo), Mixtral "
+        f"widths at {MOE_RANK_LAYERS} layer: ep = {MOE_RANKS} (4 experts a "
+        f"rank, make_sharded_train_step) and dp = {MOE_RANKS} (global "
+        f"capacity over the two row shards) against the one-rank step: "
+        f"sound within {limits}; planted faults "
+        f"{sum(MOE_FAULTS.values(), ())} each rejected; ep step "
+        f"{r0['ms']['sound']:.1f} ms (gloo through the host: not a speed); "
+        f"peak " + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB a rank; on {smi}")
+    return launches
+
+
+# ------------------------------------------------------------- pipeline
+
+def _pp_cfg(**kw):
+    from ray_tpu_torch.profile_train import flagship_config
+
+    return flagship_config(**{"remat_policy": "full", **kw})
+
+
+def pp_params(cfg, stages):
+    """The flagship's weights (`llama_init`, seed 0) as the pipeline's
+    tree: the layers stacked per stage, [stages, L / stages, ...]."""
+    from ray_tpu_torch.models.llama import llama_init
+
+    p = llama_init(cfg, seed=0, device="cuda")
+    layers = p.pop("layers")
+    p["stages"] = {k: v.reshape((stages, cfg.n_layers // stages)
+                                + v.shape[1:]) for k, v in layers.items()}
+    return p
+
+
+def pp_specs(params):
+    return {k: ({n: ("pp",) + (None,) * (v.dim() - 1)
+                 for n, v in params["stages"].items()} if k == "stages"
+                else (None,) * params[k].dim()) for k in params}
+
+
+def pp_stage_fn(cfg):
+    """One stage: its decoder layers in turn, each under a checkpoint."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ray_tpu_torch.models.llama import _decoder_layer
+
+    def stage(p, x):
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[0], x.shape[1])
+        per = {n: torch.unbind(w) for n, w in p.items()}
+        for i in range(len(next(iter(per.values())))):
+            layer = {n: ws[i] for n, ws in per.items()}
+            x = checkpoint(_decoder_layer, x, layer, positions, cfg,
+                           use_reentrant=False)
+        return x
+
+    return stage
+
+
+def pp_loss_fn(cfg, pipelined):
+    """Embedding, final norm, head and loss outside the pipeline."""
+    from ray_tpu_torch.models.llama import _nll, _rmsnorm
+
+    def loss_fn(p, b):
+        inputs, targets = b["tokens"][:, :-1], b["tokens"][:, 1:]
+        h = p["tok_embed"][inputs.long()].to(cfg.dtype)
+        h = pipelined(p["stages"], h)
+        h = _rmsnorm(h, p["final_norm"], cfg.norm_eps)
+        return _nll(h, targets, p["lm_head"], cfg).mean()
+
+    return loss_fn
+
+
+def _pp_reference(cfg, batch):
+    """The flagship's one-card loss and gradients (llama_loss, as
+    make_train_step computes them) in the pipeline tree's names."""
+    from ray_tpu_torch.models.llama import llama_init
+
+    params = llama_init(cfg, seed=0, device="cuda")
+    loss, norm, grads = _loss_grads(cfg, params, batch)
+    named = dict(zip([n for n, _ in _named_leaves(params)], grads))
+    out = {(f"stages/{n[len('layers/'):]}" if n.startswith("layers/")
+            else n): g for n, g in named.items()}
+    return loss, norm, out
+
+
+@contextlib.contextmanager
+def _pp_fault(fault):
+    """A planted fault of the pipeline's hand-offs."""
+    from ray_tpu_torch.parallel import pipeline as pl
+    from ray_tpu_torch.parallel.sequence_parallel import Pending
+
+    real = pl._hand_off
+    if fault == "handoff-late":          # a stage takes the previous tick's
+        held = []
+
+        def late(pp, send, dst, like, src):
+            pending = real(pp, send, dst, like, src)
+            if like is None or not torch.is_grad_enabled():
+                return pending
+            got = pending.wait()[0]
+            held.append(got)
+            return Pending([], [held[-2] if len(held) > 1
+                                else torch.zeros_like(got)], None)
+
+        with mock.patch.object(pl, "_hand_off", late):
+            yield
+    else:                                # the backward sends zeros
+        assert fault == "backward-dropped", fault
+
+        def dropped(pp, send, dst, like, src):
+            if send is not None and not torch.is_grad_enabled():
+                send = torch.zeros_like(send)
+            return real(pp, send, dst, like, src)
+
+        with mock.patch.object(pl, "_hand_off", dropped):
+            yield
+
+
+def _pp_step(cfg, batch, mesh, stages, steps=0):
+    """make_sharded_train_step of the pipelined loss over ``mesh``: the
+    first step's loss, norm and the rank's gradients (AdamW's first
+    moment / (1 - b1)), then ``steps`` timed steps (their ms, the share
+    of each step the rank's stages spend in their forward, and the
+    flash launches)."""
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.parallel import make_pipelined_fn
+
+    stage = pp_stage_fn(cfg)
+    busy = [0.0]
+
+    def timed_stage(p, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = stage(p, x)
+        torch.cuda.synchronize()
+        busy[0] += time.perf_counter() - t0
+        return y
+
+    opt = adamw(3e-4, weight_decay=0.0)
+    params = pp_params(cfg, stages)
+    init_fn, step_fn = make_sharded_train_step(
+        pp_loss_fn(cfg, make_pipelined_fn(timed_stage, mesh, PP_MICRO)), opt,
+        mesh, pp_specs(params))
+    p, s = init_fn(params)
+    del params
+    _, _, m = step_fn(p, s, batch)
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    grads = [(n, g.detach() / (1 - opt.b1)) for n, g in
+             _named_leaves(opt.state_tree(s, p)["exp_avg"])]
+    times, shares, losses = [], [], [loss]
+    _zero_flash_counts()
+    for _ in range(steps):
+        busy[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(p, s, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+        shares.append(busy[0] / times[-1])
+    return {"loss": loss, "norm": norm, "grads": grads, "times": times,
+            "busy": shares, "losses": losses, "launches": _flash_counts()}
+
+
+def _pp_gate(got, ref, mesh):
+    from ray_tpu_torch.parallel.sharding import local_region
+
+    pairs = []
+    for n, g in got["grads"]:
+        w = ref[2][n]
+        if n.startswith("stages/"):
+            w = w.reshape(g.shape[:0] + (mesh.mesh.shape[
+                list(mesh.mesh_dim_names).index("pp")], -1) + w.shape[1:])
+            w = w[local_region(w.shape, ("pp",) + (None,) * (w.dim() - 1),
+                               mesh)]
+        pairs.append((n, g, w))
+    return _gate(got["loss"], got["norm"], pairs, ref[0], ref[1])
+
+
+def pp_rank_main(rank, job_path):
+    """One rank of the pipeline phase's (b), started as ``python3
+    chip_smoke.py --pp-rank RANK JOB``: a gloo world of PP_RANKS
+    processes on the one card, pp = PP_RANKS, each rank first computing
+    the one-card step's loss and gradients itself."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import create_mesh
+    from ray_tpu_torch.profile_train import train_batch
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", init_method=job["store"],
+                            world_size=PP_RANKS, rank=rank)
+    out = {"rank": rank, "gates": {}}
+    try:
+        cfg = _pp_cfg()
+        batch = train_batch(cfg)
+        ref = _pp_reference(cfg, batch)
+        mesh = create_mesh({"pp": PP_RANKS})
+        for fault in (None,) + PP_FAULTS:
+            with _pp_fault(fault) if fault else contextlib.nullcontext():
+                got = _pp_step(cfg, batch, mesh, PP_RANKS,
+                               steps=0 if fault else 1)
+            out["gates"][fault or "sound"] = _pp_gate(got, ref, mesh)
+            if not fault:
+                out["ms"], out["busy"] = got["times"][0], got["busy"][0]
+            del got
+            torch.cuda.empty_cache()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def pipeline_phase(smi):
+    """The GPipe pipeline on bench.py's flagship: (a) pp = 1 on one NCCL
+    rank against make_train_step's loss and gradients, timed; (b) pp =
+    PP_RANKS as gloo processes on the card with planted faults. Returns
+    (a)'s flash launches in its timed steps."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.profile_train import BATCH, SEQ, train_batch
+    from ray_tpu_torch.models.llama import llama_flops_per_token
+
+    cfg = _pp_cfg()
+    batch = train_batch(cfg)
+    with _plain_attention_forbidden():
+        ref = _pp_reference(cfg, batch)
+    torch.cuda.empty_cache()
+    limits = (PARITY_LOSS_RTOL, PARITY_NORM_RTOL, PARITY_MIN_COS)
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = create_mesh({"pp": 1})
+        torch.cuda.reset_peak_memory_stats()
+        with _plain_attention_forbidden():
+            got = _pp_step(cfg, batch, mesh, 1, steps=PP_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        gate = _pp_gate(got, ref, mesh)
+    finally:
+        dist.destroy_process_group()
+    del ref
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    # every layer runs once per microbatch (twice forward: remat)
+    want = {"fwd": 2 * L * PP_MICRO * PP_STEPS,
+            "dq": L * PP_MICRO * PP_STEPS, "dkv": L * PP_MICRO * PP_STEPS}
+    tok_s = BATCH * SEQ * PP_STEPS / sum(got["times"])
+    mfu = tok_s * llama_flops_per_token(cfg, SEQ) / BF16_FLOPS_PER_S
+    log(f"[pipeline] (a) bench.py's flagship ({L} layers, full remat) as "
+        f"one stage over {{'pp': 1}} on one NCCL rank, batch {BATCH} x {SEQ}"
+        f" in {PP_MICRO} microbatches, embedding/final norm/head outside: "
+        f"first step against make_train_step's llama_loss: "
+        f"{_gate_text(gate)} (limits {limits}); losses "
+        f"{[round(x, 4) for x in got['losses']]}; launches in {PP_STEPS} "
+        f"steps {got['launches']}; step {np.mean(got['times']) * 1e3:.1f} "
+        f"ms mean, {tok_s:.0f} tokens/s, MFU {mfu:.2%}; stage compute "
+        f"{np.mean(got['busy']):.1%} of the step; peak {peak / 2**30:.2f} "
+        f"GiB; on {smi}")
+    assert _gate_ok(gate, limits), f"[pipeline] (a) FAILED {gate}"
+    assert got["launches"] == want, (got["launches"], want)
+    assert got["losses"][-1] < got["losses"][0], got["losses"]
+    launches = got["launches"]
+    del got
+    torch.cuda.empty_cache()
+    ranks = _rank_world("pp-rank", PP_RANKS, "pipeline")
+    S, T = PP_RANKS, PP_MICRO
+    for r in ranks:
+        for key, g in r["gates"].items():
+            log(f"[pipeline] (b) rank {r['rank']} {key}: {_gate_text(g)}")
+        assert _gate_ok(r["gates"]["sound"], limits), \
+            f"[pipeline] (b) pp = {S} FAILED on rank {r['rank']}"
+    for fault in PP_FAULTS:
+        assert not all(_gate_ok(r["gates"][fault], limits) for r in ranks), \
+            f"[pipeline] (b) planted fault {fault} passed the gate"
+    log(f"[pipeline] (b) {S} rank processes on one card (gloo), pp = {S}, "
+        f"{L // S} layers a stage, {T} microbatches: every rank's loss, "
+        f"norm and gradient shards within {limits} of the one-card step; "
+        f"planted faults {PP_FAULTS} each rejected; step "
+        + ", ".join(f"{r['ms'] * 1e3:.1f}" for r in ranks)
+        + " ms, stage compute "
+        + ", ".join(f"{r['busy']:.1%}" for r in ranks)
+        + f" of it by rank against GPipe's bubble (S - 1) / (T + S - 1) = "
+        f"{(S - 1) / (T + S - 1):.1%} (two processes share the card and "
+        f"gloo hands off through the host: not a speed); peak "
+        + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB a rank; on {smi}")
+    return launches
+
+
+# ------------------------------------------------------------ vit-t5-mlp
+
+def _a13_steps(label, loss_fn, params, specs, batch, mesh, lr):
+    """Warm-up and A13_STEPS timed steps through make_sharded_train_step;
+    returns (losses, ms per step, flash launches, peak bytes)."""
+    from ray_tpu_torch import adamw, make_sharded_train_step
+
+    init_fn, step_fn = make_sharded_train_step(loss_fn, adamw(lr), mesh,
+                                               specs)
+    torch.cuda.reset_peak_memory_stats()
+    p, s = init_fn(params)
+    p, s, m = step_fn(p, s, batch)
+    losses, times = [m["loss"].item()], []
+    _zero_flash_counts()
+    for _ in range(A13_STEPS):
+        t0 = time.perf_counter()
+        p, s, m = step_fn(p, s, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    assert all(np.isfinite(losses)), (label, losses)
+    assert losses[-1] < losses[0], f"{label}: loss did not fall {losses}"
+    return losses, np.mean(times) * 1e3, _flash_counts(), \
+        torch.cuda.max_memory_allocated(), p
+
+
+def _parity(label, loss_fn, cfg, params, batch):
+    """One step's loss and gradients with the kernels against the plain
+    attention, from the same weights and batch."""
+    from ray_tpu_torch.models.training import _tree_map
+
+    out = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="reference")):
+        tree = _tree_map(lambda p: p.detach().requires_grad_(), params)
+        named = _named_leaves(tree)
+        loss = loss_fn(tree, batch, c)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        out.append((loss.item(), torch.nn.utils.get_total_norm(grads).item(),
+                    [(n, g) for (n, _), g in zip(named, grads)]))
+    gate = _gate(out[0][0], out[0][1], [(n, a, b) for (n, a), (_, b) in
+                                        zip(out[0][2], out[1][2])],
+                 out[1][0], out[1][1])
+    limits = (PARITY_LOSS_RTOL, PARITY_NORM_RTOL, PARITY_MIN_COS)
+    log(f"{label}: one step's loss and gradients, kernels vs plain "
+        f"attention: {_gate_text(gate)} (limits {limits})")
+    assert _gate_ok(gate, limits), f"{label}: parity FAILED {gate}"
+
+
+def _t5_generation(cfg, params, src):
+    """t5_generate's greedy tokens against an uncached argmax rollout
+    through t5_forward, in f32 (equal token for token) and in the
+    trained config's bf16 (agreement printed)."""
+    from ray_tpu_torch.models.t5 import t5_forward, t5_generate
+
+    out = {}
+    for name, c in (("f32", dataclasses.replace(cfg, dtype=torch.float32)),
+                    ("bf16", cfg)):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = t5_generate(params, src, c, max_new_tokens=T5_NEW)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            tgt = torch.ones((src.shape[0], 1), dtype=torch.long,
+                             device="cuda")
+            for _ in range(T5_NEW):
+                nxt = t5_forward(params, src, tgt, c)[:, -1].argmax(-1)
+                tgt = torch.cat([tgt, nxt[:, None]], dim=1)
+        out[name] = (float((gen.long() == tgt[:, 1:]).float().mean()), ms)
+    return out
+
+
+def vit_t5_mlp_phase(smi):
+    """ViT, T5 and the MLP at their default configs: parity with the
+    plain attention, steps over {"dp": 1} on one NCCL rank, T5's greedy
+    generation against its uncached rollout, and the flash kernels at
+    the new shapes. Returns the flash launches per model and the flash
+    results."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import mlp, t5, vit
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+
+    fres = flash_phase(A13_FLASH_CASES,
+                       tuple(c[0] for c in A13_FLASH_CASES),
+                       phase="vit-t5-mlp")
+    rng = np.random.RandomState(7)
+    vc, tc, mc = vit.ViTConfig(), t5.T5Config(), mlp.MLPConfig()
+    vb = {"images": torch.from_numpy(rng.rand(256, 32, 32, 3).astype(
+        np.float32)).cuda(), "labels": torch.from_numpy(
+        rng.randint(0, 10, 256)).cuda()}
+    tb = {"src": torch.from_numpy(rng.randint(1, tc.vocab_size, (32, 512))
+                                  ).cuda(),
+          "tgt": torch.from_numpy(rng.randint(1, tc.vocab_size, (32, 129))
+                                  ).cuda()}
+    mb = {"x": torch.from_numpy(rng.rand(256, 784).astype(np.float32)
+                                ).cuda(),
+          "y": torch.from_numpy(rng.randint(0, 10, 256)).cuda()}
+    vp, tp, mp = (vit.vit_init(vc, device="cuda"),
+                  t5.t5_init(tc, device="cuda"),
+                  mlp.mlp_init(mc, device="cuda"))
+    _parity("[vit-t5-mlp] ViTConfig() (dim 192, 6 layers, 6 heads of 32, "
+            "65 tokens), batch 256", vit.vit_loss, vc, vp, vb)
+    _parity("[vit-t5-mlp] T5Config() (vocab 32000, dim 512, 6 + 6 layers, 8 "
+            "heads of 64, ffn 1024), batch 32 x (512 source, 128 target)",
+            t5.t5_loss, tc, tp, tb)
+    # the MLP on the card against the same step on the CPU (f32, TF32 off)
+    from ray_tpu_torch.models.training import _tree_map
+
+    cos = []
+    for dev in ("cuda", "cpu"):
+        tree = _tree_map(lambda p: p.detach().to(dev).requires_grad_(), mp)
+        loss = mlp.mlp_loss(tree, {k: v.to(dev) for k, v in mb.items()}, mc)
+        cos.append((loss.item(), torch.autograd.grad(
+            loss, [p for _, p in _named_leaves(tree)])))
+    mgate = _gate(cos[0][0], torch.nn.utils.get_total_norm(cos[0][1]).item(),
+                  [(str(i), a.cpu(), b) for i, (a, b) in
+                   enumerate(zip(cos[0][1], cos[1][1]))], cos[1][0],
+                  torch.nn.utils.get_total_norm(cos[1][1]).item())
+    log(f"[vit-t5-mlp] MLPConfig() (784-512-512-10, f32): one step on the "
+        f"card against the CPU: {_gate_text(mgate)}")
+    assert _gate_ok(mgate, (1e-5, 1e-5, 0.99999)), mgate
+    del cos
+    launches, res = {}, {}
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = create_mesh({"dp": 1})
+        from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+        with _plain_attention_forbidden():
+            for name, loss_fn, cfg, params, specs, batch, lr in (
+                    ("vit", vit.vit_loss, vc, vp, vit.vit_param_specs(vc), vb,
+                     2e-5),
+                    ("t5", t5.t5_loss, tc, tp, t5.t5_param_specs(tc), tb,
+                     1e-4),
+                    ("mlp", mlp.mlp_loss, mc, mp,
+                     _tree_map(lambda _: (), mp), mb, 1e-4)):
+                losses, ms, counts, peak, trained = _a13_steps(
+                    f"[vit-t5-mlp] {name}",
+                    lambda p, b, c=cfg, f=loss_fn: f(p, b, c), params, specs,
+                    batch, mesh, lr)
+                masks = {m: dict(c) for m, c in fak.mask_launches.items()}
+                launches[name] = (counts, masks)
+                res[name] = trained
+                log(f"[vit-t5-mlp] {name}: make_sharded_train_step over "
+                    f"{{'dp': 1}}, adamw({lr:g}): losses "
+                    f"{[round(x, 4) for x in losses]}; step {ms:.1f} ms "
+                    f"mean; flash launches in {A13_STEPS} steps {counts} "
+                    f"(by mask {masks}); peak {peak / 2**30:.2f} GiB; on "
+                    f"{smi}")
+        L = vc.n_layers
+        assert launches["vit"][0] == {"fwd": 2 * L * A13_STEPS,
+                                      "dq": L * A13_STEPS,
+                                      "dkv": L * A13_STEPS}, launches["vit"]
+        L = 3 * tc.n_layers        # encoder, decoder self, cross
+        assert launches["t5"][0] == {"fwd": 2 * L * A13_STEPS,
+                                     "dq": L * A13_STEPS,
+                                     "dkv": L * A13_STEPS}, launches["t5"]
+        assert launches["mlp"][0] == {"fwd": 0, "dq": 0, "dkv": 0}
+    finally:
+        dist.destroy_process_group()
+    gen = _t5_generation(tc, res["t5"], tb["src"][:T5_SOURCES])
+    log(f"[vit-t5-mlp] t5_generate greedy, {T5_NEW} new tokens for "
+        f"{T5_SOURCES} sources of 512 (the trained weights): against an "
+        f"uncached argmax rollout through t5_forward, f32 agreement "
+        f"{gen['f32'][0]:.4f} (must be 1), bf16 {gen['bf16'][0]:.4f} "
+        f"(printed); generate {gen['f32'][1]:.1f} / {gen['bf16'][1]:.1f} "
+        f"ms")
+    assert gen["f32"][0] == 1.0, gen
+    return launches, fres
+
+
+# --ep-cards N / --pp-cards N: the moe and pipeline phases' models over N
+# cards, one NCCL rank a card.
+EP_CARDS_LAYERS = 8
+
+
+def _timed_steps(step_fn, p, s, batch, steps):
+    p, s, m = step_fn(p, s, batch)
+    losses, times = [m["loss"].item()], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, m = step_fn(p, s, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    return losses, float(np.mean(times) * 1e3)
+
+
+def ep_card_rank_main(rank, job_path):
+    """One rank of ``--ep-cards``: Mixtral's widths at EP_CARDS_LAYERS
+    layers over {"ep": n}, n / 8 of the experts a card; rank 0 then
+    times the one-card step at MOE_LAYERS layers."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.models.moe import moe_init, moe_loss, moe_param_specs
+    from ray_tpu_torch.parallel import (create_mesh, initialize_distributed,
+                                        tp_group)
+
+    with open(job_path) as f:
+        job = json.load(f)
+    n = job["n"]
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(job["store"], n, rank)
+    out = {"rank": rank}
+    try:
+        cfg = _moe_cfg(n_layers=EP_CARDS_LAYERS)
+        batch = moe_batch(cfg)
+        mesh = create_mesh({"ep": n})
+        ep = tp_group(mesh, "ep")
+        init_fn, step_fn = make_sharded_train_step(
+            lambda p, b: moe_loss(p, b, cfg, ep=ep),
+            adamw(3e-4, weight_decay=0.0), mesh, moe_param_specs(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        p, s = init_fn(moe_init(cfg, seed=0, device="cuda"))
+        torch.cuda.empty_cache()
+        out["losses"], out["ms"] = _timed_steps(step_fn, p, s, batch,
+                                                MOE_STEPS)
+        out["peak"] = torch.cuda.max_memory_allocated()
+        del p, s, step_fn
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            from ray_tpu_torch import make_train_step
+
+            one = _moe_cfg()
+            init1, step1 = make_train_step(
+                lambda p, b: moe_loss(p, b, one),
+                adamw(3e-4, weight_decay=0.0))
+            p, s = init1(moe_init(one, seed=0, device="cuda"))
+            out["one_losses"], out["one_ms"] = _timed_steps(
+                step1, p, s, batch, MOE_STEPS)
+            del p, s
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def ep_cards_main(n):
+    """``python3 chip_smoke.py --ep-cards N``: Mixtral's widths at
+    EP_CARDS_LAYERS layers over ep = N cards (NCCL), against one card's
+    step at MOE_LAYERS layers, per layer; the all-reduce bytes the ep
+    layer moves."""
+    name, count, smi = device_phase()
+    if count < n:
+        raise SystemExit(f"--ep-cards {n} needs {n} cards, {count} seen")
+    build_phase()
+    ranks = _rank_world("ep-card-rank", n, "ep-cards", limit_s=400)
+    r0 = ranks[0]
+    cfg = _moe_cfg(n_layers=EP_CARDS_LAYERS)
+    G = MOE_BATCH * MOE_SEQ
+    # per layer: g's forward all-reduce of out [G, d] and f's backward
+    # all-reduces of xf's gradient [G, d] and the combine weights' [G, k]
+    # (twice each under remat: the recompute reruns the forward's)
+    fwd = G * cfg.dim * 2
+    bwd = G * cfg.dim * 2 + G * cfg.top_k * 4
+    for r in ranks:
+        assert r["losses"] == r0["losses"], "ranks disagree"
+    assert r0["losses"][-1] < r0["losses"][0], r0["losses"]
+    log(f"[ep-cards] Mixtral widths at {EP_CARDS_LAYERS} layers over ep = "
+        f"{n} cards (NCCL, {cfg.n_experts // n} experts a card), batch "
+        f"{MOE_BATCH} x {MOE_SEQ}: losses "
+        f"{[round(x, 4) for x in r0['losses']]}; step {r0['ms']:.1f} ms "
+        f"({r0['ms'] / EP_CARDS_LAYERS:.1f} ms a layer) against one card "
+        f"at {MOE_LAYERS} layers {r0['one_ms']:.1f} ms "
+        f"({r0['one_ms'] / MOE_LAYERS:.1f} ms a layer, with the embedding "
+        f"and head); all-reduce bytes a layer a step "
+        f"{(2 * fwd + bwd) / 1e6:.1f}"
+        f" MB (forward {fwd / 1e6:.1f} MB, run twice under remat; backward "
+        f"{bwd / 1e6:.1f} MB); peak "
+        + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB a rank; on {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+
+
+def pp_card_rank_main(rank, job_path):
+    """One rank of ``--pp-cards``: bench.py's flagship over {"pp": n},
+    16 / n layers a card; rank 0 then times the one-card step."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.profile_train import train_batch
+
+    with open(job_path) as f:
+        job = json.load(f)
+    n = job["n"]
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(job["store"], n, rank)
+    out = {"rank": rank}
+    try:
+        cfg = _pp_cfg()
+        batch = train_batch(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        got = _pp_step(cfg, batch, create_mesh({"pp": n}), n,
+                       steps=PP_STEPS)
+        out.update(losses=got["losses"], ms=float(np.mean(got["times"])
+                                                  * 1e3),
+                   busy=float(np.mean(got["busy"])),
+                   peak=torch.cuda.max_memory_allocated())
+        del got
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            from ray_tpu_torch.profile_train import build_trainer
+
+            p, s, step = build_trainer(cfg)
+            out["one_losses"], out["one_ms"] = _timed_steps(step, p, s,
+                                                            batch, PP_STEPS)
+            del p, s
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def pp_cards_main(n):
+    """``python3 chip_smoke.py --pp-cards N``: the flagship over pp = N
+    cards (NCCL), batch 8 x 2048 in PP_MICRO microbatches, against one
+    card's make_train_step; each stage's forward share of the step
+    against GPipe's bubble."""
+    name, count, smi = device_phase()
+    if count < n:
+        raise SystemExit(f"--pp-cards {n} needs {n} cards, {count} seen")
+    build_phase()
+    ranks = _rank_world("pp-card-rank", n, "pp-cards", limit_s=400)
+    r0 = ranks[0]
+    for r in ranks:
+        assert r["losses"] == r0["losses"], "ranks disagree"
+    assert r0["losses"][-1] < r0["losses"][0], r0["losses"]
+    log(f"[pp-cards] bench.py's flagship (16 layers, full remat) over pp = "
+        f"{n} cards (NCCL, {16 // n} layers a stage), batch 8 x 2048 in "
+        f"{PP_MICRO} microbatches: losses "
+        f"{[round(x, 4) for x in r0['losses']]}"
+        f"; step {r0['ms']:.1f} ms against one card's make_train_step "
+        f"{r0['one_ms']:.1f} ms (the same full remat); each rank's stage "
+        f"forward " + ", ".join(f"{r['busy']:.1%}" for r in ranks)
+        + f" of the step (GPipe's bubble (S - 1) / (T + S - 1) = "
+        f"{(n - 1) / (PP_MICRO + n - 1):.1%}); peak "
+        + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB a rank; on {smi}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+
+
 def _kernel_entry(name, source, replaces, launches, res, by_path=None):
     """One kernel's entry of the kernels line: ``launches`` on the main
     path; ``by_path`` the launches of each path that runs the kernel at
@@ -4436,6 +5732,11 @@ def main():
     phase("parity", parity_phase)
     lc_launches, lc_masks, lc_res = phase("long-context",
                                           long_context_phase, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = phase("moe", moe_phase, smi)
+    pp_launches = phase("pipeline", pipeline_phase, smi)
+    vtm_launches, vtm_res = phase("vit-t5-mlp", vit_t5_mlp_phase, smi)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     # the main path is bf16: its flash kernels are the wgmma ones
@@ -4485,6 +5786,28 @@ def main():
             ("flash_fwd", 130, "fwd", "fwd"),
             ("flash_bwd_dq, f32 grads", 192, "dq_f32", "dq"),
             ("flash_bwd_dkv, f32 grads", 239, "dkv_f32", "dkv"))
+    ] + [
+        # the other families' paths, each kernel at its path's shape with
+        # that path's launches in its timed steps: MoE (Mixtral's
+        # attention, b_llama3_8b's shape), the pipeline's microbatch, ViT
+        # (D = 32), T5's encoder and cross-attention (non-causal; timed
+        # at the encoder's shape) and its decoder (causal)
+        _kernel_entry(f"{name} ({label})", sm90_src, f"{flash_py}:{line}",
+                      launches[key], res[key])
+        for label, launches, res in (
+            ("moe, Mixtral [2,32/8,2048,128] causal", moe_launches,
+             fres["b_llama3_8b"]),
+            ("pipeline microbatch [2,12,2048,128] causal", pp_launches,
+             vtm_res["pp_micro"]),
+            ("vit, D=32 [256,6,65,32] non-causal", vtm_launches["vit"][0],
+             vtm_res["vit_d32"]),
+            ("t5 encoder and cross-attention, non-causal [32,8,512,64]",
+             vtm_launches["t5"][1]["non-causal"], vtm_res["t5_enc"]),
+            ("t5 decoder, causal [32,8,128,64]",
+             vtm_launches["t5"][1]["causal"], vtm_res["t5_dec"]))
+        for name, line, key in (("flash_fwd", 130, "fwd"),
+                                ("flash_bwd_dq", 192, "dq"),
+                                ("flash_bwd_dkv", 239, "dkv"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
@@ -4505,5 +5828,17 @@ if __name__ == "__main__":
         sp_card_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--sp-cards"]:
         sp_cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--moe-rank"]:
+        moe_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--pp-rank"]:
+        pp_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--ep-card-rank"]:
+        ep_card_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--ep-cards"]:
+        ep_cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--pp-card-rank"]:
+        pp_card_rank_main(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--pp-cards"]:
+        pp_cards_main(int(sys.argv[2]))
     else:
         main()

@@ -1,12 +1,14 @@
-"""Move a JAX-package Llama param tree, or a LoRA adapter tree, into
-the port's tensors, and the port's param tree back to numpy.
+"""Move a JAX-package param tree — Llama, a LoRA adapter, MoE, ViT, T5,
+the MLP or a pipeline's stacked stages — into the port's tensors, and
+the port's Llama param tree back to numpy.
 
 `ray_tpu.models.llama.llama_init` builds ``{"tok_embed", "layers":
 {name: [L, ...]}, "final_norm", "lm_head"}`` and
 `ray_tpu.models.lora.lora_init` ``{"layers": {name: {"a", "b"}}}``; the
-port keeps the same keys and layouts. Pass the tree as numpy arrays
-(``jax.device_get`` or ``np.asarray`` per leaf): this module imports no
-JAX, so tests hand the same numbers to both packages through it.
+port keeps the same keys and layouts, for every model. Pass the tree as
+numpy arrays (``jax.device_get`` or ``np.asarray`` per leaf): this
+module imports no JAX, so tests hand the same numbers to both packages
+through it.
 """
 
 from __future__ import annotations
@@ -88,3 +90,59 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
         "final_norm": conv(params["final_norm"]),
         "lm_head": conv(params["lm_head"]),
     }
+
+
+def _tree_from_numpy(tree, like, device, dtype, where="params"):
+    """Copy every leaf of the numpy ``tree`` (nested dicts) to ``device``
+    in ``dtype``; ``like`` (a tree of the same keys, or None) checks the
+    structure."""
+    if isinstance(tree, dict):
+        if like is not None and set(tree) != set(like):
+            raise ValueError(f"{where}: keys {sorted(tree)}, want "
+                             f"{sorted(like)}")
+        return {k: _tree_from_numpy(v, None if like is None else like[k],
+                                    device, dtype, f"{where}.{k}")
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32)).to(device=device,
+                                                           dtype=dtype)
+
+
+def moe_params_from_numpy(tree, cfg, *, device="cuda", dtype=None):
+    """`ray_tpu.models.moe.moe_init`'s tree -> the port's, in ``dtype``
+    (default ``cfg.dtype``; training passes torch.float32)."""
+    from ray_tpu_torch.models.moe import moe_logical_specs
+
+    return _tree_from_numpy(tree, moe_logical_specs(cfg),
+                            resolve_device(device), dtype or cfg.dtype)
+
+
+def vit_params_from_numpy(tree, cfg, *, device="cuda", dtype=None):
+    """`ray_tpu.models.vit.vit_init`'s tree -> the port's."""
+    from ray_tpu_torch.models.vit import vit_logical_specs
+
+    return _tree_from_numpy(tree, vit_logical_specs(cfg),
+                            resolve_device(device), dtype or cfg.dtype)
+
+
+def t5_params_from_numpy(tree, cfg, *, device="cuda", dtype=None):
+    """`ray_tpu.models.t5.t5_init`'s tree -> the port's."""
+    from ray_tpu_torch.models.t5 import t5_logical_specs
+
+    return _tree_from_numpy(tree, t5_logical_specs(cfg),
+                            resolve_device(device), dtype or cfg.dtype)
+
+
+def mlp_params_from_numpy(tree, cfg, *, device="cuda", dtype=None):
+    """`ray_tpu.models.mlp.mlp_init`'s ``{"layer{i}": {"w", "b"}}`` ->
+    the port's."""
+    n = len(cfg.hidden) + 1
+    like = {f"layer{i}": {"w": None, "b": None} for i in range(n)}
+    return _tree_from_numpy(tree, like, resolve_device(device),
+                            dtype or cfg.dtype)
+
+
+def stage_params_from_numpy(tree, *, device="cuda",
+                            dtype=torch.float32):
+    """A pipeline's stacked stage tree (`stack_stage_params`: every leaf
+    with a leading stage dim) -> the port's, in ``dtype``."""
+    return _tree_from_numpy(tree, None, resolve_device(device), dtype)

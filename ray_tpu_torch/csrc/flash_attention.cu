@@ -12,7 +12,9 @@
 //   flash_bwd_dkv_kernel <- _flash_bwd's dk/dv call (_bwd_dkv_kernel) plus
 //                           the GQA group sum after it            [B3b]
 // Same contract as ray_tpu_torch/ops/flash_attention.py's plain versions:
-// q [B,H,Sq,D], k/v [B,Hkv,Sk,D] (GQA: q head h reads kv head h/(H/Hkv)),
+// q [B,H,Sq,D], k/v [B,Hkv,Sk,D], D 32, 64 or 128 (the same templates at
+// each D: D / 8 n-tiles of m16n8k16, a depth-D product loop), (GQA: q
+// head h reads kv head h/(H/Hkv)),
 // causal mask `q_offset + qi >= ki` with q_offset = Sk - Sq, -1e30 fills,
 // m/l/acc in f32, a fully masked row written as exactly 0 (row_live =
 // m > -5e29) and, in the backward, p = 0 where lse <= -5e29. Roundings
@@ -544,10 +546,14 @@ cudaError_t bwd_dkv(const Shape& s, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// Instances: f32 inputs and outputs, D 64 or 128, for each kernel. Type
-// codes: 0 float32 (1 bfloat16 is flash_attention_sm90.cu's).
+// Instances: f32 inputs and outputs, D 32, 64 or 128, for each kernel.
+// Type codes: 0 float32 (1 bfloat16 is flash_attention_sm90.cu's).
 #define RTT_DISPATCH_D(D_, ...)          \
   switch (D_) {                          \
+    case 32: {                           \
+      constexpr int kD = 32;             \
+      return __VA_ARGS__;                \
+    }                                    \
     case 64: {                           \
       constexpr int kD = 64;             \
       return __VA_ARGS__;                \

@@ -18,8 +18,8 @@
 // before ds^T.q (a register conversion, the Pallas rounding points); a
 // fully masked row gives o exactly 0 and lse <= -5e29, and the backward
 // takes p = 0 where lse <= -5e29; ds rounded to bf16 before ds.k; dq in
-// bf16 or f32, dk/dv summed over the GQA group, in bf16 or f32. D is 64 or
-// 128; Sq and Sk are any length.
+// bf16 or f32, dk/dv summed over the GQA group, in bf16 or f32. D is 32,
+// 64 or 128; Sq and Sk are any length.
 //
 // What bounds them on this card: operations. At the flagship training
 // shape (B=8, H=12, S=2048, D=128, causal) the forward does 2 products of
@@ -78,6 +78,13 @@
 //   online softmax works in the log2 domain (exp2 with scale * log2 e
 //   folded in; the fill is -1e30 * log2 e so lse = (m2 + log2 l) * ln 2
 //   keeps the natural-log contract, -1e30 for a dead row).
+// - D = 32 (ViT's head dim) runs the D = 64 layout: a 32-column row is 64
+//   bytes, and the tensor map keeps the 64-column, 128-byte swizzled box
+//   over the 32-column tensor, so TMA fills columns 32..63 of every tile
+//   with zeros (no copy on the host). The s products run over the real
+//   depth (2 k-steps of 16), the p.v, p^T.dO, ds^T.q and ds.k products
+//   at N = 64, whose columns past 32 come out zero and are never stored;
+//   stores and row strides use the real D. sm_scale is the caller's.
 // - A mbarrier wait that spins for seconds traps, so a lost phase is a
 //   launch error and not a hung card.
 // Left for later: overlapping one warpgroup's softmax with the other's
@@ -104,6 +111,12 @@ constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBox = 64;        // bf16 columns in one 128-byte swizzled row
 constexpr int kRowBytes = 128;  // bytes of one such row
+
+// The columns a tile of head dim D holds in shared memory: a D = 32 tile
+// fills one 64-column box, its columns past D zero (TMA's fill).
+__host__ __device__ constexpr int padded(int D) {
+  return D < kBox ? kBox : D;
+}
 
 // Tiles (rows). The s products are m64n64: kFwdKV and kBwdQ stay 64.
 constexpr int kFwdQ = 128, kFwdKV = 64, kFwdStages = 4;
@@ -403,8 +416,8 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 template <int D>
 struct FwdSmem {
-  static constexpr int kQBytes = kFwdQ * D * 2;    // the q tile
-  static constexpr int kKVBytes = kFwdKV * D * 2;  // one k or v tile
+  static constexpr int kQBytes = kFwdQ * padded(D) * 2;    // the q tile
+  static constexpr int kKVBytes = kFwdKV * padded(D) * 2;  // one k or v
   static constexpr int kBars = kQBytes + kFwdStages * 2 * kKVBytes;
   static constexpr size_t bytes = kBars + 8 * (1 + 2 * kFwdStages) + 1024;
 };
@@ -450,14 +463,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0 && n_kv > 0) {
       mbar_expect_tx(bar_q, Sm::kQBytes);
-      for (int hf = 0; hf < D / kBox; ++hf)
+      for (int hf = 0; hf < padded(D) / kBox; ++hf)
         tma_load_3d(q_s + hf * kFwdQ * kRowBytes, &tm_q, bar_q, hf * kBox,
                     q0, qh);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kFwdStages;
         if (j >= kFwdStages) mbar_wait(empty(s), (j / kFwdStages - 1) & 1);
         mbar_expect_tx(full(s), 2 * Sm::kKVBytes);
-        for (int hf = 0; hf < D / kBox; ++hf) {
+        for (int hf = 0; hf < padded(D) / kBox; ++hf) {
           tma_load_3d(k_s(s) + hf * kFwdKV * kRowBytes, &tm_k, full(s),
                       hf * kBox, j * kFwdKV, kh);
           tma_load_3d(v_s(s) + hf * kFwdKV * kRowBytes, &tm_v, full(s),
@@ -475,9 +488,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                               : kv_tiles(min(r0 + 64, Sq) - 1, q_offset, Sk,
                                          kFwdKV, is_causal);
   const float scale2 = scale * kLog2e;
-  float acc[D / 2];
+  constexpr int DP = padded(D);
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f};
 
   if (n_kv > 0) mbar_wait(bar_q, 0);
@@ -527,14 +541,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       uint32_t pa[kFwdKV / 16][4];
       to_a(pa, sc);  // p rounded to v's type (bf16) before p.v
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
-      product_rs<D, kFwdKV / 16>(acc, pa, v_s(s), kFwdKV);
+      product_rs<DP, kFwdKV / 16>(acc, pa, v_s(s), kFwdKV);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -563,8 +577,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 struct DkvSmem {
-  static constexpr int kKVBytes = kBwdKV * D * 2;  // k or v (resident)
-  static constexpr int kQBytes = kBwdQ * D * 2;    // one q or dO tile
+  static constexpr int kKVBytes = kBwdKV * padded(D) * 2;  // k or v
+  static constexpr int kQBytes = kBwdQ * padded(D) * 2;    // q or dO tile
   static constexpr int kVecBytes = kBwdQ * 4;      // lse or delta of a tile
   static constexpr int kPBytes = kBwdKV * kBwdQ * 4;  // one f32 p tile
   static constexpr int kStages = 2 * kKVBytes;     // q/dO stages start here
@@ -633,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0) {
       mbar_expect_tx(bar_kv, 2 * Sm::kKVBytes);
-      for (int hf = 0; hf < D / kBox; ++hf) {
+      for (int hf = 0; hf < padded(D) / kBox; ++hf) {
         tma_load_3d(k_s + hf * kBwdKV * kRowBytes, &tm_k, bar_kv, hf * kBox,
                     k0, kh);
         tma_load_3d(v_s + hf * kBwdKV * kRowBytes, &tm_v, bar_kv, hf * kBox,
@@ -666,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (it >= kBwdStages) mbar_wait(empty(s), (it / kBwdStages - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(full(s), 2 * Sm::kQBytes);
-        for (int hf = 0; hf < D / kBox; ++hf) {
+        for (int hf = 0; hf < padded(D) / kBox; ++hf) {
           tma_load_3d(q_s(s) + hf * kBwdQ * kRowBytes, &tm_q, full(s),
                       hf * kBox, q0, qh);
           tma_load_3d(do_s(s) + hf * kBwdQ * kRowBytes, &tm_do, full(s),
@@ -695,9 +709,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = warp / 4, w = warp % 4, g = lane >> 2, t = lane & 3;
   const int tid = threadIdx.x & 127;
   const float scale2 = scale * kLog2e;
-  float acc[D / 2];  // dv (warpgroup 0) or dk (warpgroup 1)
+  constexpr int DP = padded(D);
+  float acc[DP / 2];  // dv (warpgroup 0) or dk (warpgroup 1)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
   for (int it = 0; it < n_steps; ++it) {
@@ -776,7 +791,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(acc);
     fence_regs(a);
     wgmma_fence();
-    product_rs<D, kBwdQ / 16>(acc, a, wg == 0 ? do_s(s) : q_s(s), kBwdQ);
+    product_rs<DP, kBwdQ / 16>(acc, a, wg == 0 ? do_s(s) : q_s(s), kBwdQ);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -800,8 +815,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 struct DqSmem {
-  static constexpr int kQBytes = kDqQ * D * 2;    // q or dO (resident)
-  static constexpr int kKVBytes = kDqKV * D * 2;  // one k or v tile
+  static constexpr int kQBytes = kDqQ * padded(D) * 2;    // q or dO
+  static constexpr int kKVBytes = kDqKV * padded(D) * 2;  // one k or v
   static constexpr int kStages = 2 * kQBytes;     // k/v stages start here
   static constexpr int kBars = kStages + kDqStages * 2 * kKVBytes;
   static constexpr size_t bytes = kBars + 8 * (1 + 2 * kDqStages) + 1024;
@@ -850,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (warp == kConsumers / 32) {  // producer
     if (lane == 0 && n_kv > 0) {
       mbar_expect_tx(bar_q, 2 * Sm::kQBytes);
-      for (int hf = 0; hf < D / kBox; ++hf) {
+      for (int hf = 0; hf < padded(D) / kBox; ++hf) {
         tma_load_3d(q_s + hf * kDqQ * kRowBytes, &tm_q, bar_q, hf * kBox, q0,
                     qh);
         tma_load_3d(do_s + hf * kDqQ * kRowBytes, &tm_do, bar_q, hf * kBox,
@@ -860,7 +875,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = j % kDqStages;
         if (j >= kDqStages) mbar_wait(empty(s), (j / kDqStages - 1) & 1);
         mbar_expect_tx(full(s), 2 * Sm::kKVBytes);
-        for (int hf = 0; hf < D / kBox; ++hf) {
+        for (int hf = 0; hf < padded(D) / kBox; ++hf) {
           tma_load_3d(k_s(s) + hf * kDqKV * kRowBytes, &tm_k, full(s),
                       hf * kBox, j * kDqKV, kh);
           tma_load_3d(v_s(s) + hf * kDqKV * kRowBytes, &tm_v, full(s),
@@ -891,9 +906,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     lse2[r] = row_lse * kLog2e;
     row_delta[r] = row < Sq ? delta[(size_t)qh * Sq + row] : 0.f;
   }
-  float acc[D / 2];
+  constexpr int DP = padded(D);
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   if (n_kv > 0) mbar_wait(bar_q, 0);
   for (int j = 0; j < n_kv; ++j) {
@@ -937,7 +953,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(acc);
       fence_regs(da);
       wgmma_fence();
-      product_rs<D, kDqKV / 16>(acc, da, k_s(s), kDqKV);
+      product_rs<DP, kDqKV / 16>(acc, da, k_s(s), kDqKV);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -984,7 +1000,8 @@ EncodeTiled encoder() {
 }
 
 // Map of a [heads][S][D] bf16 tensor read in boxes of 64 columns x `rows`
-// rows x 1 head, 128-byte swizzled; rows past S read as zeros.
+// rows x 1 head, 128-byte swizzled; rows past S, and columns past D (D =
+// 32: the box is wider than the row), read as zeros.
 int map_rows(CUtensorMap* map, const void* ptr, int heads, int S, int D,
              int rows) {
   EncodeTiled fn = encoder();
@@ -1097,6 +1114,8 @@ int ray_tpu_torch_flash_sm90_fwd(const void* q, const void* k, const void* v,
                                  int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (D == 32) return fwd<32>(q, k, v, o, l, B, H, Hkv, Sq, Sk, scale,
+                              causal, st);
   if (D == 64) return fwd<64>(q, k, v, o, l, B, H, Hkv, Sq, Sk, scale,
                               causal, st);
   if (D == 128) return fwd<128>(q, k, v, o, l, B, H, Hkv, Sq, Sk, scale,
@@ -1116,6 +1135,8 @@ int ray_tpu_torch_flash_sm90_bwd_dkv(const void* q, const void* k,
 #define RTT_DKV(D_, OT_)                                                    \
   return bwd_dkv<D_, OT_>(q, k, v, dout, l, dl, dk, dv, B, H, Hkv, Sq, Sk, \
                           scale, causal, st)
+  if (D == 32 && out_dtype == 1) RTT_DKV(32, bf16);
+  if (D == 32 && out_dtype == 0) RTT_DKV(32, float);
   if (D == 64 && out_dtype == 1) RTT_DKV(64, bf16);
   if (D == 64 && out_dtype == 0) RTT_DKV(64, float);
   if (D == 128 && out_dtype == 1) RTT_DKV(128, bf16);
@@ -1136,6 +1157,8 @@ int ray_tpu_torch_flash_sm90_bwd_dq(const void* q, const void* k,
 #define RTT_DQ(D_, OT_)                                                    \
   return bwd_dq<D_, OT_>(q, k, v, dout, l, dl, dq, B, H, Hkv, Sq, Sk,     \
                          scale, causal, st)
+  if (D == 32 && out_dtype == 1) RTT_DQ(32, bf16);
+  if (D == 32 && out_dtype == 0) RTT_DQ(32, float);
   if (D == 64 && out_dtype == 1) RTT_DQ(64, bf16);
   if (D == 64 && out_dtype == 0) RTT_DQ(64, float);
   if (D == 128 && out_dtype == 1) RTT_DQ(128, bf16);

@@ -245,14 +245,9 @@ def llama_param_specs(cfg: LlamaConfig, rules=None) -> Params:
     """Tree of partition specs (tuples of mesh-axis names, see
     `parallel.sharding.logical_to_mesh`) for the param tree under the
     given rules (default `DEFAULT_RULES`)."""
-    from ray_tpu_torch.parallel.sharding import logical_to_mesh
+    from ray_tpu_torch.parallel.sharding import logical_tree_to_mesh
 
-    def specs(tree):
-        if isinstance(tree, dict):
-            return {k: specs(v) for k, v in tree.items()}
-        return logical_to_mesh(tree, rules)
-
-    return specs(llama_logical_specs(cfg))
+    return logical_tree_to_mesh(llama_logical_specs(cfg), rules)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,

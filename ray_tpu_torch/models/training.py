@@ -31,10 +31,19 @@ batch, and the step runs the collectives the data axes imply:
   gathered sequence for any other ``attn_impl``; a model given no sp
   group there raises), and the loss weight,
   the mask count and the gradient all-reduce run over sp as over any
-  batch axis.
+  batch axis;
+- ``ep`` and ``pp`` split the model, as tp does: a leaf split over the
+  expert axis (MoE's expert weights) or the stage axis (a pipeline's
+  stacked stages) stays split, and the loss_fn runs the matching layer
+  (`moe_loss(..., ep=tp_group(mesh, "ep"))`, whose f and g make each
+  rank's gradient its own experts'; `parallel.pipeline.
+  make_pipelined_fn`, whose stages hand activations on point to point).
+  The batch is replicated over both.
 
-Expert and pipeline axes of size > 1 raise NotImplementedError naming
-their ROADMAP item.
+While the loss_fn runs, the step publishes its batch split
+(`parallel.data_parallel`): a model that needs a quantity over the
+global batch (MoE's capacity and load-balancing means, a pad-masked
+mean's count) reduces it over the batch ranks there.
 """
 
 from __future__ import annotations
@@ -46,13 +55,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch.models.llama import resolve_device
+from ray_tpu_torch.parallel.data_parallel import BatchSplit, batch_split
 from ray_tpu_torch.parallel.sequence_parallel import splitting
 
 Pytree = Any
 
-# mesh axes the step cannot split yet, and the ROADMAP item that adds them
-_UNPORTED_AXES = {"ep": "A13 (expert parallelism)",
-                  "pp": "A13 (pipeline parallelism)"}
+# mesh axes that split the model's compute: a leaf split over one keeps
+# its shard (never all-gathered), and its gradient is the shard's
+_MODEL_AXES = ("tp", "ep", "pp")
 
 
 def _leaves(tree: Pytree) -> List[Any]:
@@ -177,8 +187,12 @@ class _OneCard:
     def gather(self, leaves):
         return leaves
 
-    def weight(self, batch):
+    def weight(self, batch, count=None):
         return None
+
+    def batch_view(self) -> BatchSplit:
+        """The batch split the loss_fn sees (`parallel.data_parallel`)."""
+        return BatchSplit(None, 0, 1)
 
     def reduce(self, grads):
         return grads
@@ -200,10 +214,10 @@ def _step(loss_fn, optimizer: AdamW, params: Pytree, opt_state,
     """One step of either builder: ``plan`` supplies the collectives."""
     batch = plan.batch(batch)
     leaves = _leaves(params)
-    weight = plan.weight(batch)
     full = plan.gather(leaves)
-    with splitting(plan.sp):
+    with splitting(plan.sp), batch_split(plan.batch_view()) as split:
         loss = loss_fn(_unflatten(params, full), batch)
+    weight = plan.weight(batch, split.count)
     if weight is not None:
         loss = loss * weight
     grads = plan.reduce(torch.autograd.grad(loss, full))
@@ -275,9 +289,9 @@ class _Mesh(_OneCard):
     names (``self.split[i]``: (dim, axes) pairs; ``self.leaf_axes[i]``
     all of them). The batch is split over the axes its spec names
     (``self.batch_axes``, any size, so that the gradient all-reduce runs
-    even in a world of one rank). The tp axis is never gathered: a tp
-    shard is what the rank computes with, and its gradient is the
-    shard's."""
+    even in a world of one rank). The model axes (tp, ep, pp) are never
+    gathered: such a shard is what the rank computes with, and its
+    gradient is the shard's."""
 
     def __init__(self, mesh, param_specs, batch_logical, rules):
         from ray_tpu_torch.parallel.sharding import (logical_to_mesh,
@@ -286,11 +300,6 @@ class _Mesh(_OneCard):
 
         self.mesh = mesh
         self.sizes = mesh_axis_sizes(mesh)
-        for ax, item in _UNPORTED_AXES.items():
-            if self.sizes.get(ax, 1) > 1:
-                raise NotImplementedError(
-                    f"make_sharded_train_step over {ax}={self.sizes[ax]}: "
-                    f"not ported yet, ROADMAP {item}")
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         super().__init__(mesh_device(mesh))
         self.local_batch = batch_sharding_fn(mesh, batch_logical, rules)
@@ -310,10 +319,10 @@ class _Mesh(_OneCard):
             for spec in _leaves(param_specs)]
         for split in self.split:
             for _, axes in split:
-                if "tp" in axes and len(axes) > 1:
+                if set(axes) & set(_MODEL_AXES) and len(axes) > 1:
                     raise NotImplementedError(
-                        f"a dimension split over {axes}: tp shares a "
-                        "dimension with another axis")
+                        f"a dimension split over {axes}: a model axis "
+                        "shares a dimension with another axis")
         self.leaf_axes = [
             tuple(a for a in mesh.mesh_dim_names
                   if any(a in axes for _, axes in split))
@@ -324,6 +333,12 @@ class _Mesh(_OneCard):
                 g for leaf in self.leaf_axes
                 for g in (self._unsplit(leaf), leaf)]:
             self._group(axes)
+        # this rank's rows are the batch_rank-th block of the global
+        # batch: the batch axes' coordinates, the first the most major
+        self.batch_rank = 0
+        for a in self.batch_axes:
+            self.batch_rank = self.batch_rank * self.sizes[a] + self.coord[a]
+        self.batch_ranks = math.prod(self.sizes[a] for a in self.batch_axes)
 
     def batch(self, batch):
         """This rank's region of each leaf. When sp splits the
@@ -369,7 +384,8 @@ class _Mesh(_OneCard):
 
         full = []
         for leaf, split in zip(leaves, self.split):
-            split = [(d, axes) for d, axes in split if axes != ("tp",)]
+            split = [(d, axes) for d, axes in split
+                     if axes[0] not in _MODEL_AXES]
             if not split:
                 full.append(leaf)
                 continue
@@ -385,16 +401,30 @@ class _Mesh(_OneCard):
             full.append(x.contiguous().requires_grad_(True))
         return full
 
-    def weight(self, batch):
+    def batch_view(self) -> BatchSplit:
+        group = self._group(self.batch_axes) if self.batch_ranks > 1 \
+            else None
+        if group is not None:
+            import torch.distributed as dist
+
+            # the group's rank order is the batch's block order
+            assert dist.get_group_rank(group, dist.get_rank()) == \
+                self.batch_rank
+        return BatchSplit(group, self.batch_rank, self.batch_ranks,
+                          dict(self.sizes))
+
+    def weight(self, batch, count=None):
         """This rank's share of the global loss, for a loss_fn that is a
         token mean as `llama_loss` is: the mean over its rows, or with a
-        "mask" leaf ``sum(nll * mask) / max(sum(mask), 1)``. Weighted so,
+        "mask" leaf ``sum(nll * mask) / max(sum(mask), 1)``, or a mean
+        over the ``count`` the loss_fn reported (`data_parallel.
+        count_tokens`: T5's live labels) in the same form. Weighted so,
         the summed gradient is that of the loss over the global batch,
-        whatever mask count each shard holds."""
-        n = math.prod(self.sizes[a] for a in self.batch_axes)
-        if "mask" not in batch:
-            return 1.0 / n
-        count = batch["mask"].to(torch.float32).sum()
+        whatever count each shard holds."""
+        if count is None and "mask" in batch:
+            count = batch["mask"].to(torch.float32).sum()
+        if count is None:
+            return 1.0 / self.batch_ranks
         total = self._all_reduce(count.clone(), self.batch_axes)
         return count.clamp(min=1) / total.clamp(min=1)
 
@@ -417,7 +447,7 @@ class _Mesh(_OneCard):
                         dist.reduce_scatter_tensor(shard, part,
                                                    group=self._group((a,)))
                         g = shard.movedim(0, dim)
-                    elif a != "tp":               # same data: own block
+                    elif a not in _MODEL_AXES:    # same data: own block
                         block = g.shape[dim] // n
                         g = g.narrow(dim, self.coord[a] * block, block)
             out.append(self._all_reduce(g.contiguous(),

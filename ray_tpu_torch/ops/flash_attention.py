@@ -169,7 +169,8 @@ def flash_attention(q: torch.Tensor,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
     """q: [B,H,Sq,D]; k,v: [B,Hkv,Sk,D] (GQA when Hkv < H). -> [B,H,Sq,D],
-    differentiable in q, k and v.
+    differentiable in q, k and v. On the card D is 32, 64 or 128
+    (`flash_attention_kernel.HEAD_DIMS`); the plain versions take any D.
 
     block_q/block_k are validated as positive and otherwise ignored: on
     the TPU they sized the Pallas kernel's VMEM tiles, while the CUDA

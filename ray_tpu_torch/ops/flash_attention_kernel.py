@@ -52,7 +52,7 @@ def _count(kernel: str, causal: bool) -> None:
     mask_launches["causal" if causal else "non-causal"][kernel] += 1
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -9,7 +9,10 @@ compiler: the tp axis runs as explicit Megatron layers instead
 (`tensor_parallel`: `TPGroup`, f and g, the vocab-parallel ends and
 `local_heads`), passed down to the model as its ``tp=`` argument, and
 the sp axis as explicit rotations and all-to-alls (`sequence_parallel`:
-`SPGroup`), passed down as ``sp=``.
+`SPGroup`), passed down as ``sp=``; the pp axis runs the GPipe schedule
+with point-to-point hand-offs (`pipeline`), and the ep axis reuses the
+tp layer's f and g over its own group (`models.moe`). Inside a train
+step a model reads the batch split from `data_parallel`.
 """
 
 from ray_tpu_torch.parallel.bootstrap import (
@@ -34,6 +37,8 @@ from ray_tpu_torch.parallel.sharding import (
     shard_pytree,
     spec_for,
 )
+from ray_tpu_torch.parallel.pipeline import (make_pipelined_fn,
+                                             stack_stage_params)
 from ray_tpu_torch.parallel.sequence_parallel import SPGroup, sp_group
 from ray_tpu_torch.parallel.tensor_parallel import (
     TPGroup,
@@ -64,12 +69,14 @@ __all__ = [
     "local_heads",
     "local_mesh",
     "logical_to_mesh",
+    "make_pipelined_fn",
     "mesh_shape_for",
     "prune_rules_for_mesh",
     "reduce_from_tp",
     "shard_pytree",
     "sp_group",
     "spec_for",
+    "stack_stage_params",
     "tp_group",
     "vocab_cross_entropy",
     "vocab_embed",

@@ -126,6 +126,14 @@ def logical_to_mesh(logical_axes: Sequence[Optional[str]],
     return tuple(out)
 
 
+def logical_tree_to_mesh(tree, rules: Optional[LogicalAxisRules] = None):
+    """`logical_to_mesh` over every leaf of a nested dict of logical-axis
+    tuples (a model's ``*_logical_specs``)."""
+    if isinstance(tree, dict):
+        return {k: logical_tree_to_mesh(v, rules) for k, v in tree.items()}
+    return logical_to_mesh(tree, rules)
+
+
 def spec_for(*logical_axes: Optional[str],
              rules: Optional[LogicalAxisRules] = None) -> PartitionSpec:
     return logical_to_mesh(logical_axes, rules)

@@ -38,8 +38,8 @@ LR, STEPS = 1e-3, 3
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 
-# world -> (axis sizes, through create_hybrid_mesh, axes that must
-# refuse, the mesh the checkpoint is restored under)
+# world -> (axis sizes, through create_hybrid_mesh, model axes (ep, pp)
+# that must build a step, the mesh the checkpoint is restored under)
 WORLDS = {
     "dp2": ({"dp": 2}, False, [{"pp": 2}, {"ep": 2}], None),
     "fsdp2": ({"fsdp": 2}, False, [{"ep": 2}, {"pp": 2}], {"dp": 2}),
@@ -81,7 +81,7 @@ def _inputs(cfg):
 def _start_world(tmp, name, inputs):
     """Start the world's ranks; returns a function that waits for them
     and reads what each rank wrote."""
-    axes, hybrid, unported, restore_mesh = WORLDS[name]
+    axes, hybrid, model_axes, restore_mesh = WORLDS[name]
     world = int(np.prod(list(axes.values())))
     npz = os.path.join(tmp, "inputs.npz")
     np.savez(npz, **{f"params/{k}": v for k, v in
@@ -92,7 +92,8 @@ def _start_world(tmp, name, inputs):
         json.dump({"world": world, "store": f"file://{tmp}/store",
                    "mesh": axes, "hybrid": hybrid, "inputs": npz,
                    "out": tmp, "lr": LR, "steps": STEPS,
-                   "unported": unported, "restore_mesh": restore_mesh}, f)
+                   "model_axes": model_axes,
+                   "restore_mesh": restore_mesh}, f)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [TESTS, REPO, os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
@@ -156,7 +157,8 @@ def test_sharded_step_matches_jax(tmp_path, request, name):
     and the port's one-card step's; the params the world saves (each
     rank its own region) restore whole, in both packages, to JAX's; a
     masked batch whose shards hold 16, ~8, 0 and 0 tokens gives JAX's
-    global masked mean; ep/pp axes refuse, naming their item. Also
+    global masked mean; ep/pp axes build a step, whose first step over
+    the llama specs (nothing split over them) is the one-card step's. Also
     on each world: a step without donation leaves its inputs and gives
     the donated step's metrics; a replicated batch over split params
     gives the one-card step's; `auto_mesh` puts every rank on fsdp and
@@ -192,9 +194,10 @@ def test_sharded_step_matches_jax(tmp_path, request, name):
             [1, 1, 1, len(ranks), 1, 1, 1]).tolist()
         assert out["local_mesh"] == [np.full([1] * 7, r).tolist(),
                                      list(AXIS_ORDER)]
-        assert len(out["refused"]) == len(WORLDS[name][2])
-    for msg in ranks[0]["refused"]:
-        assert "ROADMAP A13" in msg, msg
+        assert len(out["model_axes"]) == len(WORLDS[name][2])
+        for metrics in out["model_axes"]:
+            np.testing.assert_allclose(metrics, out["one_card"][0],
+                                       rtol=1e-5)
     assert dict(zip(ranks[0]["names"], np.array(ranks[0]["ranks"]).shape)) \
         == {a: axes.get(a, 1) for a in AXIS_ORDER}
 

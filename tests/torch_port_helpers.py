@@ -131,8 +131,9 @@ def rank_main():
     step on the global ``tokens`` batch, the same steps of the one-card
     `make_train_step`, one sharded step without donation, one with the
     batch replicated, one on the masked batch, builds `auto_mesh` and
-    `local_mesh`, checks
-    that each axis of ``unported`` refuses, saves its params and AdamW
+    `local_mesh`, takes one step over each mesh of ``model_axes`` (an
+    ep or pp axis the llama specs do not split: the batch and every leaf
+    replicated over it), saves its params and AdamW
     state to ``out/ckpt``, and with ``restore_mesh`` restores both under
     that mesh and takes one more step there and on its own mesh. It
     writes what it saw to ``out/rank<k>.json``."""
@@ -232,13 +233,13 @@ def rank_main():
     _, _, m = m_step(mp, ms, masked)
     out["masked"] = [m["loss"].item(), m["grad_norm"].item()]
 
-    out["refused"] = []
-    for axes in job["unported"]:
-        try:
-            training.make_sharded_train_step(
-                loss_fn, opt, create_mesh(axes, device_type="cpu"), specs)
-        except NotImplementedError as e:
-            out["refused"].append(str(e))
+    out["model_axes"] = []
+    for axes in job["model_axes"]:
+        a_init, a_step = training.make_sharded_train_step(
+            loss_fn, opt, create_mesh(axes, device_type="cpu"), specs)
+        ap, as_ = a_init(fresh())
+        _, _, m = a_step(ap, as_, batch)
+        out["model_axes"].append([m["loss"].item(), m["grad_norm"].item()])
 
     ckpt = job["out"] + "/ckpt"
     state_specs = opt.state_specs(specs)
