@@ -769,6 +769,67 @@ def _check_run(label, cfg, eng, toks, run, plain=False,
     return s
 
 
+def _sanitized_rerun(label, eng, prompts, want, smi):
+    """The engine, after its timed run, serves the prompts again with the
+    runtime sanitizer armed (strict, sync debug mode "error"): no new
+    dispatch key or capture, no unexpected transfer or sync, the same
+    tokens. Then a stray ``.item()`` planted in its decode dispatch must
+    raise `SanitizerError` (the engine is not used after it)."""
+    from ray_tpu_torch._private.sanitize import SanitizerError
+
+    def rerun():
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+        while eng.pending():
+            eng.step()
+        toks = [eng.pop_result(i) for i in ids]
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0
+
+    plain, plain_wall = rerun()
+    san = eng.arm_sanitizer()
+    try:
+        toks, wall = rerun()
+    finally:
+        eng.disarm_sanitizer()
+    st = san.stats()
+    log(f"[serve] {label}, sanitizer armed: new keys {st['retraces']}, "
+        f"unexpected transfers {st['unexpected_transfers']}, unexpected "
+        f"syncs {st['unexpected_syncs']} (sync debug mode "
+        f"{'error' if st['sync_debug'] else 'off'}), expected pulls "
+        f"{st['expected_pulls']}, async copies {st['expected_async']}; "
+        f"tokens equal to the unsanitized run: {toks == want}; wall "
+        f"{wall:.3f} s against {plain_wall:.3f} s unsanitized (both "
+        f"warm); on {smi}")
+    assert st["sync_debug"] and st["watched"], st
+    assert san.total_retraces() == 0, st
+    assert st["unexpected_transfers"] == st["unexpected_syncs"] == 0, st
+    assert st["expected_pulls"] == st["expected_async"] > 0, st
+    assert toks == want == plain, f"{label}: sanitized tokens differ"
+    dispatch = eng._dispatch_decode
+
+    def stray(*args, **kw):
+        eng._last_logits[0, 0].item()
+        return dispatch(*args, **kw)
+
+    eng._dispatch_decode = stray
+    eng.arm_sanitizer()
+    try:
+        eng.submit(prompts[0], NEW_TOKENS)
+        raised = None
+        try:
+            while eng.pending():
+                eng.step()
+        except SanitizerError as e:
+            raised = e
+    finally:
+        eng.disarm_sanitizer()
+        del eng._dispatch_decode
+    log(f"[serve] {label}, planted stray .item() in the decode dispatch: "
+        f"{'raised SanitizerError' if raised else 'NOT caught'}")
+    assert raised is not None, f"{label}: the planted pull was not caught"
+
+
 def _time_dispatch(eng):
     """One H=8 decode dispatch of a served (now idle) paged engine: host
     clock to completion of its loop run eagerly and of its captured
@@ -817,7 +878,7 @@ def serve_phase(smi, cfg, params):
         f"max_new_tokens {NEW_TOKENS}, 8 slots, max_len 2048, greedy")
 
     # One timed run each (A B C D), then one profiled run each.
-    tokens, runs, rates = {}, {}, {}
+    tokens, runs, rates, kept = {}, {}, {}, {}
     main_launches = None
     for i, (label, paged, depth) in enumerate(SERVE_RUNS):
         eng, toks, run = _serve(params, cfg, prompts, paged=paged,
@@ -845,8 +906,14 @@ def serve_phase(smi, cfg, params):
                 f" time per replay back to back {t['card']:.2f} ms = "
                 f"{t['card'] / 8:.3f} ms per decode iteration, "
                 f"{64e3 / t['card']:.1f} tokens/s at 8 rows")
+        if depth == 2:
+            kept[label] = eng
         del eng
         torch.cuda.empty_cache()
+    for label, eng in kept.items():
+        _sanitized_rerun(label, eng, prompts, tokens[label], smi)
+    kept.clear()
+    torch.cuda.empty_cache()
     for label, paged, depth in SERVE_RUNS:
         _, toks, prof = _serve(params, cfg, prompts, paged=paged,
                                depth=depth, profile=True)
@@ -3604,7 +3671,15 @@ def tp_phase(smi, cfg, holder, serve_tokens):
 # A rank that has not finished within TP_CARDS_LIMIT_S of its start is
 # killed; from its eager rerun on, each rank dumps its threads' stacks
 # every TP_CARDS_TRACE_S into its trace file, which the parent prints.
+# The paged engine's eager rerun must give the captured run's tokens,
+# TP_CARDS_AGREE of them, free-running and on the fixed schedule (the
+# prefill's filler rows are no longer written back, so replay and eager
+# compute on the same bytes; ROADMAP C6b); the teacher-forced run (a
+# fresh engine that prefills in KVMEM_CHUNK-token chunks and is fed the
+# captured tokens, so its bf16 products have other shapes) keeps
+# TP_AGREE.
 TP_CARDS_LIMIT_S, TP_CARDS_TRACE_S = 300, 20
+TP_CARDS_AGREE = 1.0
 
 
 def _fixed_schedule_run(eng, prompts, snapshot):
@@ -3900,23 +3975,25 @@ def tp_cards_main(n):
             for other in ranks[1:]:
                 assert json.loads(other)[label]["tokens"] == x["tokens"]
         eager = [read(r, "eager.json") for r in range(n)]
-        forced = None
+        agree = None
         if r0 and all(eager):
             e0 = json.loads(eager[0])
             same = e0["tokens"] == r0["paged"]["tokens"]
-            forced = e0["forced"]
+            agree = (_agreement(e0["tokens"], r0["paged"]["tokens"]),
+                     e0["forced"],
+                     _agreement(e0["fixed_eager"], e0["fixed_graph"]))
             log(f"[tp-cards] paged, eager rerun: finished on every rank; "
                 f"tokens equal to the captured run's: {same} ("
-                f"{_agreement(e0['tokens'], r0['paged']['tokens']):.4f} "
-                f"free-running); teacher-forced agreement of the eager "
-                f"path with the captured tokens {forced:.4f} (gate >= "
-                f"{TP_AGREE}); NCCL_ALGO={os.environ.get('NCCL_ALGO')}, "
+                f"{agree[0]:.4f} free-running, gate >= {TP_CARDS_AGREE});"
+                f" teacher-forced agreement of a chunked-prefill eager "
+                f"engine with the captured tokens {agree[1]:.4f} (gate >= "
+                f"{TP_AGREE}); "
+                f"NCCL_ALGO={os.environ.get('NCCL_ALGO')}, "
                 f"NCCL_PROTO={os.environ.get('NCCL_PROTO')}")
             fixed_same = e0["fixed_eager"] == e0["fixed_graph"]
             log(f"[tp-cards] paged, fixed schedule (all submitted first, "
                 f"horizon 1): eager tokens equal to the captured run's: "
-                f"{fixed_same} ("
-                f"{_agreement(e0['fixed_eager'], e0['fixed_graph']):.4f}); "
+                f"{fixed_same} ({agree[2]:.4f}, gate >= {TP_CARDS_AGREE}); "
                 f"captured fixed run equal to the adaptive captured "
                 f"run's tokens: {e0['fixed_graph'] == r0['paged']['tokens']}"
                 f"; first logit snapshot that differs: {e0['fixed_logits']}"
@@ -3935,7 +4012,8 @@ def tp_cards_main(n):
                     f"{text[-4000:]}")
         assert r0 and all(eager) and not hung, \
             f"[tp-cards] FAILED (hung: {hung})"
-        assert forced >= TP_AGREE, forced
+        assert min(agree[0], agree[2]) >= TP_CARDS_AGREE, agree
+        assert agree[1] >= TP_AGREE, agree
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
 
@@ -5694,6 +5772,312 @@ def _kernel_entry(name, source, replaces, launches, res, by_path=None):
     return out
 
 
+# The rllib phase (ROADMAP A14a), f32 with TF32 off: (a) PPO in local
+# mode on CartPole with the JAX test's configuration and learning gate
+# (tests/test_rllib.py test_ppo_learns_cartpole_local), learner and env
+# runner on the card; (b) one training_step of each algorithm on a fixed
+# seeded input (rollout, offline log or two-agent rollout), on the card
+# against the port on the CPU: the first update's gradients and loss
+# metrics (`compute_gradients` on the same minibatch and weights) within
+# the CPU tests' tolerance against JAX (|card - CPU| <= RL_GRAD_ATOL +
+# RL_GRAD_RTOL |CPU| elementwise), and the weights after the step within
+# RL_STEP_ATOL x lr per optimizer update (Adam's first steps move a weight
+# by about lr * sign(g), so this gate sees only sign flips); two planted
+# faults must fail the gradient gate: TF32 left on, and PPO's advantages
+# left unstandardized (which must fail the weight gate too). ES's step
+# runs its perturbed greedy rollouts on the runner's device (c): the
+# returns equal the CPU's, or the trajectories part only where the CPU's
+# logit gap is below RL_NEAR_TIE; with equal returns the weights after
+# its host update are within 1e-6 of the CPU's.
+RL_ITERS, RL_STEP_ATOL, RL_NEAR_TIE = 12, 0.01, 1e-4
+RL_GRAD_RTOL, RL_GRAD_ATOL = 1e-5, 1e-6
+RL_ALGOS = ("ppo", "a2c", "appo", "impala", "bc", "marwil",
+            "multi_agent_ppo")
+
+
+def _rl_rollout(n=128, seed=7):
+    """A fixed CartPole-shaped rollout (three episodes, one terminated)
+    and its runner bootstraps."""
+    from ray_tpu_torch.rllib.utils.sample_batch import SampleBatch
+
+    rng = np.random.RandomState(seed)
+    eps = np.repeat([0, 1, 2], [50, 40, 38]).astype(np.int64)
+    terms = np.zeros(n, bool)
+    terms[49] = True
+    return SampleBatch({
+        "obs": rng.randn(n, 4).astype(np.float32),
+        "next_obs": rng.randn(n, 4).astype(np.float32),
+        "actions": rng.randint(0, 2, n).astype(np.int64),
+        "rewards": np.ones(n, np.float32),
+        "terminateds": terms, "truncateds": np.zeros(n, bool),
+        "eps_id": eps,
+        "action_logp": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+        "vf_preds": rng.randn(n).astype(np.float32)}), {1: 0.25, 2: -0.5}
+
+
+def _rl_fixed_step(name, device):
+    """One training_step of algorithm ``name`` on ``device`` with its
+    input fixed: {"flat": the learners' weights after it as flat f32,
+    "n": updates taken, "lr", "grads": each learner's first-update
+    gradients (`compute_gradients` before that update) as flat f32,
+    "metrics": their loss metrics, in sorted key order}."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.core.rl_module import ravel_tree, tree_leaves
+    from ray_tpu_torch.rllib.utils.sample_batch import SampleBatch
+
+    rng = np.random.RandomState(0)
+    log_ = {"obs": rng.randn(512, 4).astype(np.float32),
+            "actions": rng.randint(0, 2, 512),
+            "rewards": np.ones(512, np.float32),
+            "terminateds": rng.rand(512) < 0.05}
+    make = {
+        "ppo": lambda: rllib.PPOConfig().training(
+            train_batch_size=128, minibatch_size=64, num_epochs=2),
+        "a2c": lambda: rllib.A2CConfig().training(train_batch_size=128),
+        "appo": lambda: rllib.APPOConfig().training(train_batch_size=128),
+        "impala": lambda: rllib.IMPALAConfig().training(
+            train_batch_size=128),
+        "bc": lambda: rllib.BCConfig().offline_data(dataset=log_).training(
+            train_batch_size=128),
+        "marwil": lambda: rllib.MARWILConfig().offline_data(
+            dataset=log_).training(train_batch_size=128),
+        "multi_agent_ppo": lambda: rllib.MultiAgentPPOConfig().environment(
+            "TwoAgentGrid").training(train_batch_size=128,
+                                     minibatch_size=64, num_epochs=2),
+    }[name]()
+    if make.env is None:
+        make = make.environment("CartPole-v1")
+    algo = make.learners(device=device).debugging(seed=5).build_algo()
+    batch, boot = _rl_rollout()
+    group = algo.env_runner_group
+    group.sample_with_bootstraps = \
+        lambda n, epsilon=0.0: [(SampleBatch(batch), dict(boot))]
+    if name == "multi_agent_ppo":
+        grid = _rl_grid_rollout()
+        group.sample_multi = lambda n: [grid]
+        learners = list(algo.learners.values())
+    else:
+        learners = [algo.learner_group.learner]
+    count, first = [0], []
+    for lr_ in learners:
+        update, taken = lr_.update, []
+
+        def counted(b, lr_=lr_, update=update, taken=taken):
+            if not taken:
+                first.append(lr_.compute_gradients(b))
+            taken.append(1)
+            count[0] += 1
+            return update(b)
+        lr_.update = counted
+    if name == "multi_agent_ppo":
+        algo.step()
+    else:
+        algo.training_step()
+    flat = np.concatenate([ravel_tree(lr_.get_weights())[0]
+                           for lr_ in learners])
+    grads = np.concatenate([g.detach().cpu().numpy().ravel()
+                            for tree, _ in first for g in tree_leaves(tree)])
+    metrics = np.array([m[k] for _, m in first for k in sorted(m)],
+                       np.float64)
+    return {"flat": flat, "n": count[0], "lr": algo.config.lr,
+            "grads": grads, "metrics": metrics}
+
+
+def _rl_grid_rollout():
+    """A fixed two-agent TwoAgentGrid rollout: ({module: {agent: batch}},
+    {agent: bootstrap})."""
+    from ray_tpu_torch.rllib.env.registry import make_env
+    from ray_tpu_torch.rllib.utils.sample_batch import SampleBatch
+
+    env = make_env("TwoAgentGrid")
+    rng = np.random.RandomState(3)
+    out = {}
+    for j, aid in enumerate(env.agent_ids):
+        n = 64
+        dim = env.observation_space_of(aid).shape[0]
+        out[aid] = {aid: SampleBatch({
+            "obs": rng.rand(n, dim).astype(np.float32),
+            "actions": rng.randint(0, env.action_space_of(aid).n, n),
+            "rewards": rng.randn(n).astype(np.float32),
+            "terminateds": np.arange(n) == 31,
+            "eps_id": np.repeat([j * 10, j * 10 + 1], 32),
+            "action_logp": np.log(rng.uniform(0.2, 0.6, n)).astype(
+                np.float32),
+            "vf_preds": rng.randn(n).astype(np.float32)})}
+    return out, {aid: 0.5 for aid in env.agent_ids}
+
+
+def _rl_tol_ratio(got, want):
+    """The largest |got - want| / (RL_GRAD_ATOL + RL_GRAD_RTOL |want|):
+    at most 1 passes the gradient gate."""
+    return float(np.max(np.abs(got - want)
+                        / (RL_GRAD_ATOL + RL_GRAD_RTOL * np.abs(want))))
+
+
+def _rl_step_gates(card, cpu):
+    """(weight difference, its tolerance, gradient ratio, metrics ratio)
+    of one fixed step on the card against the CPU."""
+    return (float(np.abs(card["flat"] - cpu["flat"]).max()),
+            RL_STEP_ATOL * card["lr"] * card["n"],
+            _rl_tol_ratio(card["grads"], cpu["grads"]),
+            _rl_tol_ratio(card["metrics"], cpu["metrics"]))
+
+
+def _rl_es_step(device):
+    """ES's training_step on ``device``: its perturbed greedy rollouts run
+    the runner's module there, each greedy step recorded. Returns
+    (weights after the step as flat f32, the step's metrics, the
+    perturbations' returns, [(obs, actions, logit gap)] per policy step,
+    the perturbations' seconds)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.core.rl_module import ravel_tree
+
+    algo = (rllib.ESConfig().environment("CartPole-v1")
+            .training(num_perturbations=3, es_stdev=0.1)
+            .learners(device=device).debugging(seed=11).build_algo())
+    group = algo.env_runner_group
+    r = group._local_runner
+    assert r.device.type == device
+    infer, rec, out = r._infer_batch, [], {}
+
+    def recorded(obs):
+        got = infer(obs)
+        with torch.no_grad():
+            lg = r.module.forward_train(r._obs_tensor(obs))[
+                "action_dist_inputs"].cpu().numpy()
+        rec.append((obs.copy(), got["actions"].copy(),
+                    float(np.abs(lg[:, 1] - lg[:, 0]).min())))
+        return got
+
+    evaluate = group.evaluate_perturbations
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["returns"] = evaluate(*args)
+        torch.cuda.synchronize()
+        out["secs"] = time.perf_counter() - t0
+        return out["returns"]
+
+    r._infer_batch, group.evaluate_perturbations = recorded, timed
+    metrics = algo.training_step()
+    return (ravel_tree(algo.learner_group.get_weights())[0], metrics,
+            out["returns"], rec, out["secs"])
+
+
+def rllib_phase(smi):
+    """The rllib phase (see RL_* above); at most ~60 s."""
+    from ray_tpu_torch.rllib.algorithms import ppo as ppo_mod
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+
+    t_phase = time.perf_counter()
+    # (a) PPO learns CartPole on the card
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0)
+            .training(train_batch_size=512, minibatch_size=128,
+                      num_epochs=6, lr=3e-4)
+            .debugging(seed=3).build_algo())
+    assert algo.learner_group.learner.device.type == "cuda"
+    assert algo.env_runner_group._local_runner.device.type == "cuda"
+    sample, update = (algo.env_runner_group.sample_with_bootstraps,
+                      algo.learner_group.update)
+    spent = {"sample": 0.0, "update": 0.0, "updates": 0}
+
+    def timed_sample(*a, **kw):
+        t0 = time.perf_counter()
+        out = sample(*a, **kw)
+        spent["sample"] += time.perf_counter() - t0
+        return out
+
+    def timed_update(b):
+        t0 = time.perf_counter()
+        out = update(b)              # ends on the metrics' host copy
+        spent["update"] += time.perf_counter() - t0
+        spent["updates"] += 1
+        return out
+
+    algo.env_runner_group.sample_with_bootstraps = timed_sample
+    algo.learner_group.update = timed_update
+    returns = []
+    t0 = time.perf_counter()
+    for _ in range(RL_ITERS):
+        returns.append(algo.train()["episode_return_mean"])
+    wall = time.perf_counter() - t0
+    finite = [r for r in returns if np.isfinite(r)]
+    steps = algo.env_runner_group.aggregate_metrics()["num_env_steps"]
+    log(f"[rllib] (a) PPO, CartPole, local mode, learner and runner on the "
+        f"card: episode return mean by iteration "
+        f"{[round(r, 2) for r in returns]} (gate: best > first + 20); "
+        f"{spent['updates']} minibatch updates, "
+        f"{spent['update'] / spent['updates'] * 1e3:.3f} ms each (host "
+        f"clock, the metrics' copy included); {steps} env steps at "
+        f"{steps / spent['sample']:.1f} steps/s while sampling; "
+        f"{wall:.2f} s for {RL_ITERS} iterations; on {smi}")
+    assert finite and max(finite) > finite[0] + 20, returns
+    # (b) one training_step per algorithm, card against CPU
+    rows, failed = [], []
+    cpu = {name: _rl_fixed_step(name, "cpu") for name in RL_ALGOS}
+    for name in RL_ALGOS:
+        card = _rl_fixed_step(name, "cuda")
+        err, tol, g, m = _rl_step_gates(card, cpu[name])
+        rows.append(f"{name} grads {g:.3g}, metrics {m:.3g} of the "
+                    f"tolerance; weights {err:.3g} (tol {tol:.3g}, "
+                    f"{card['n']} updates)")
+        if not (err <= tol and g <= 1 and m <= 1):
+            failed.append(name)
+    faults = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        faults["TF32 on"] = _rl_step_gates(_rl_fixed_step("ppo", "cuda"),
+                                           cpu["ppo"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    with mock.patch.object(ppo_mod, "standardize", lambda x: x):
+        faults["PPO advantages unstandardized"] = _rl_step_gates(
+            _rl_fixed_step("ppo", "cuda"), cpu["ppo"])
+    frows = [f"{k}: grads {g:.3g} of the tolerance, weights {e:.3g} (tol "
+             f"{t:.3g})" for k, (e, t, g, _) in faults.items()]
+    log(f"[rllib] (b) one training_step on a fixed input, the card against "
+        f"the CPU (gradient gate |card - CPU| <= {RL_GRAD_ATOL:g} + "
+        f"{RL_GRAD_RTOL:g} |CPU|): {'; '.join(rows)}; planted faults: "
+        f"{'; '.join(frows)}")
+    assert not failed, failed
+    tf32 = faults["TF32 on"]
+    assert tf32[2] > 1, f"TF32 on NOT rejected: {tf32}"
+    unstd = faults["PPO advantages unstandardized"]
+    assert unstd[2] > 1 and unstd[0] > unstd[1], \
+        f"unstandardized advantages NOT rejected: {unstd}"
+    # the V-trace scan's loop (ROADMAP A17) at a 512-step rollout
+    from ray_tpu_torch.rllib.algorithms.impala import vtrace_scan
+
+    x = torch.rand(3, 512, device="cuda")
+    vt_ms = _time_ms(lambda: vtrace_scan(x[0], x[1], x[2], 0.99), 5)
+    log(f"[rllib] V-trace scan, T = 512, as a loop of small kernels: "
+        f"{vt_ms:.3f} ms (CUDA events); on {smi}")
+    # (b) ES and (c): ES's step, its perturbations on the card and the CPU
+    card, cpu_es = _rl_es_step("cuda"), _rl_es_step("cpu")
+    first, gap = None, None
+    for i, (c, g) in enumerate(zip(card[3], cpu_es[3])):
+        assert np.array_equal(c[0], g[0]) or first is not None, i
+        if not np.array_equal(c[1], g[1]):
+            first, gap = i, g[2]
+            break
+    same = card[2] == cpu_es[2]
+    es_err = float(np.abs(card[0] - cpu_es[0]).max())
+    log(f"[rllib] (c) ES evaluate_perturbations, 3 seeds x 2 signs: card "
+        f"{card[2]}, CPU {cpu_es[2]}; first differing greedy action: "
+        f"{'none' if first is None else f'step {first}, CPU logit gap {gap:.3g}'}"
+        f"; card {card[4]:.3f} s for {len(card[3])} policy steps; (b) es: "
+        f"weights after the step {es_err:.3g} from the CPU's (tol 1e-06)")
+    if same:
+        assert es_err <= 1e-6 and card[1] == cpu_es[1], (es_err, card[1])
+    else:
+        assert first is not None and gap < RL_NEAR_TIE, (first, gap)
+    log(f"[time] rllib {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     spent = {}
 
@@ -5737,6 +6121,7 @@ def main():
     moe_launches = phase("moe", moe_phase, smi)
     pp_launches = phase("pipeline", pipeline_phase, smi)
     vtm_launches, vtm_res = phase("vit-t5-mlp", vit_t5_mlp_phase, smi)
+    phase("rllib", rllib_phase, smi)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     # the main path is bf16: its flash kernels are the wgmma ones

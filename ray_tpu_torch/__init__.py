@@ -16,8 +16,14 @@ the CPU) or `make_train_step` on one card (adapters only:
 `make_lora_train_step`), with attention forward and backward on
 hand-written Hopper flash-attention kernels
 (`csrc/flash_attention_sm90.cu`), and checkpoints the sharded state in
-the JAX package's layout (`train/array_checkpoint.py`). Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+the JAX package's layout (`train/array_checkpoint.py`). The engine can
+run under the runtime sanitizer (``sanitize=True`` or
+``RAY_TPU_SANITIZE=1``, `_private/sanitize.py`): after warm-up, a new
+decode key or capture, or a device-to-host pull or sync outside the
+engine's two choke points, is an error. `ray_tpu_torch.rllib` trains RL
+policies (PPO, A2C, APPO, IMPALA, BC, MARWIL, multi-agent PPO, ES/ARS)
+with a `TorchLearner` on the card. Entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 
 Importing the package builds nothing and touches no device: each kernel
 is compiled by `ray_tpu_torch._build` at its first launch.

@@ -144,6 +144,10 @@ class AdapterPool:
         self.hits = 0
         self.prefetches = 0
         self.evictions = 0
+        # the staged tensors' signatures every commit has seen (the slot
+        # is not part of one): a new one after warm-up is a new program,
+        # which an armed sanitizer counts
+        self.commit_keys: set = set()
 
     def _tp_cuts(self, mesh, rules) -> Dict[str, Tuple[object, object]]:
         """name -> (in, out) slices (or, for kv heads replicated over tp,
@@ -373,6 +377,9 @@ class AdapterPool:
         so each is marked as used by this stream: the caching allocator
         then keeps its memory from reuse until the commit has run."""
         cur = torch.cuda.current_stream(self.device) if self._cuda else None
+        self.commit_keys.add(tuple(
+            (name, k, tuple(x.shape), x.dtype)
+            for name, ab in staged.tensors.items() for k, x in ab.items()))
         if staged.event is not None:
             cur.wait_event(staged.event)
         for name, ab in staged.tensors.items():

@@ -34,8 +34,9 @@ splits each prompt into chunks, one per step, interleaved with decode.
 Admission binds a request to its slot row and prefills its prompt:
 same-length-bucket admissions share one batched prefill (`_prefill_rows`
 / `_prefill_rows_paged`), padded to a power of two rows by repeating the
-last, which runs the shared `forward_cached_rows` math one layer at a
-time over row views of the cache. The last-prompt logits stay on the
+last (the filler is computed, not written back), which runs the shared
+`forward_cached_rows` math one layer at a time over row views of the
+cache. The last-prompt logits stay on the
 device in `_last_logits`; the decode loop samples the first token from
 them.
 
@@ -120,13 +121,19 @@ decode loop is captured only when the group's collectives can be
 (NCCL); a handoff payload is made whole over tp, so any engine imports
 it.
 
-Not ported yet, raising NotImplementedError that names its ROADMAP.md
-item: the runtime sanitizer (A14).
+The runtime sanitizer (``sanitize=``, ``RAY_TPU_SANITIZE=1``,
+`ray_tpu_torch._private.sanitize`): once armed (after
+``RAY_TPU_SANITIZE_WARMUP`` steps, or by `arm_sanitizer`) a new decode
+dispatch key, a new CUDA-graph capture or a new adapter-commit signature
+counts as a retrace, and a device->host pull outside `_device_get` /
+`_host_async` raises `SanitizerError` (or is counted); on the card a
+synchronizing CUDA op outside them raises too (sync debug mode).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -134,6 +141,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import sanitize as _sanitize
 from ray_tpu_torch.models.block_pool import BlockPool
 from ray_tpu_torch.models.engine_metrics import (EngineMetrics,
                                                  NullEngineMetrics)
@@ -174,12 +182,6 @@ def _pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (ROADMAP.md, Queue A "
-        f"item {item})")
-
-
 # ---------------------------------------------------------------------------
 # Device->host transfer funnels
 # ---------------------------------------------------------------------------
@@ -203,7 +205,15 @@ def _host_async(x: torch.Tensor) -> _HostBlock:
     card: a ``non_blocking`` copy into pinned host memory and an event
     recorded after it, so the host never waits here. The pinned buffer
     comes from PyTorch's caching host allocator, which records the copy
-    on it and does not hand it out again before the copy is done."""
+    on it and does not hand it out again before the copy is done. An
+    armed sanitizer counts it as an expected async copy."""
+    san = _sanitize.active()
+    if san is not None:
+        return san.expected_copy_async(lambda: _copy_to_host(x))
+    return _copy_to_host(x)
+
+
+def _copy_to_host(x: torch.Tensor) -> _HostBlock:
     if not x.is_cuda:
         return _HostBlock(x, None)
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -219,10 +229,26 @@ def _device_get(x: _HostBlock) -> np.ndarray:
     through here so the engine counts host syncs
     (`host_syncs_per_token`) and tests can wrap it to GATE the transfer
     budget: one pull per dispatched block, and under the async pipeline
-    the next dispatch is issued BEFORE this wait."""
-    if x.event is not None:
-        x.event.synchronize()
-    return x.data.numpy()
+    the next dispatch is issued BEFORE this wait. When a runtime
+    sanitizer is armed the pull is marked EXPECTED: any pull outside
+    this funnel (and `_host_wait`) trips its interposition."""
+    return _pull(x, lambda t: t.numpy())
+
+
+def _host_wait(x: _HostBlock) -> torch.Tensor:
+    """`_device_get`'s wait for a copy that stays a host tensor (a
+    handoff's pages and logits); an expected pull likewise."""
+    return _pull(x, lambda t: t)
+
+
+def _pull(x: _HostBlock, read: Callable[[torch.Tensor], Any]):
+    def get():
+        if x.event is not None:
+            x.event.synchronize()
+        return read(x.data)
+
+    san = _sanitize.active()
+    return get() if san is None else san.expected_get(get)
 
 
 # ---------------------------------------------------------------------------
@@ -232,18 +258,20 @@ def _device_get(x: _HostBlock) -> np.ndarray:
 class _DenseRows:
     """Layer-at-a-time row view of one dense cache tensor for prefill:
     ``view[i]`` gathers layer i's [N, max_len, KV, D] rows ``rows``;
-    ``view[i] = x`` scatters them back (each row only modified its own
-    suffix slots)."""
+    ``view[i] = x`` scatters the first ``n`` back (each row only
+    modified its own suffix slots; the power-of-two filler rows past
+    ``n`` repeat the last real row and are not written back)."""
 
-    def __init__(self, cache: torch.Tensor, rows: torch.Tensor):
+    def __init__(self, cache: torch.Tensor, rows: torch.Tensor, n: int):
         self.cache = cache
         self.rows = rows.long()
+        self.n = n
 
     def __getitem__(self, i: int) -> torch.Tensor:
         return self.cache[i][self.rows]
 
     def __setitem__(self, i: int, view: torch.Tensor) -> None:
-        self.cache[i][self.rows] = view
+        self.cache[i][self.rows[:self.n]] = view[:self.n]
 
 
 class _PagedRows:
@@ -251,15 +279,20 @@ class _PagedRows:
     ``view[i]`` gathers layer i's [N, MB*T, KV, D] rows through the
     block tables ``bt`` [N, MB]; ``view[i] = x`` scatters them back.
     Because MB*T == max_len, the view has the dense cache row's shape.
-    The whole-view write-back is safe: each row only modifies its own
-    suffix slots (shared prefix blocks sit below its start and are
-    rewritten with the bytes just gathered), and duplicate table
-    entries are shared blocks (same bytes), padded rows (same values)
-    or the null block (garbage nobody reads)."""
+    The whole-view write-back of the first ``n`` rows is safe: each row
+    only modifies its own suffix slots (shared prefix blocks sit below
+    its start and are rewritten with the bytes just gathered), and
+    duplicate table entries are shared blocks (same bytes) or the null
+    block (garbage nobody reads). The power-of-two filler rows past
+    ``n`` repeat the last real row and are NOT written back: on the card
+    a GEMM need not give bit-equal results for equal rows, and a
+    scatter with duplicate indices keeps whichever write lands last, so
+    the pool's bytes would vary from run to run (ROADMAP C6b)."""
 
-    def __init__(self, pool: torch.Tensor, bt: torch.Tensor):
+    def __init__(self, pool: torch.Tensor, bt: torch.Tensor, n: int):
         self.pool = pool
         self.bt = bt.long()
+        self.n = n
 
     def __getitem__(self, i: int) -> torch.Tensor:
         blk = self.pool[i][self.bt]                # [N, MB, T, KV, D]
@@ -267,8 +300,8 @@ class _PagedRows:
 
     def __setitem__(self, i: int, view: torch.Tensor) -> None:
         T = self.pool.shape[2]
-        self.pool[i][self.bt] = view.reshape(
-            view.shape[0], -1, T, *view.shape[2:])
+        self.pool[i][self.bt[:self.n]] = view[:self.n].reshape(
+            self.n, -1, T, *view.shape[2:])
 
 
 class _QuantPagedRows(_PagedRows):
@@ -282,8 +315,9 @@ class _QuantPagedRows(_PagedRows):
     byte-identical."""
 
     def __init__(self, pool: torch.Tensor, scales: torch.Tensor,
-                 bt: torch.Tensor, valid: torch.Tensor, qspec: KVQuantSpec):
-        super().__init__(pool, bt)
+                 bt: torch.Tensor, valid: torch.Tensor, qspec: KVQuantSpec,
+                 n: int):
+        super().__init__(pool, bt, n)
         self.scales = scales
         self.qspec = qspec
         N, MB = bt.shape
@@ -297,13 +331,13 @@ class _QuantPagedRows(_PagedRows):
         return x.reshape(x.shape[0], -1, *x.shape[3:])
 
     def __setitem__(self, i: int, view: torch.Tensor) -> None:
-        T = self.pool.shape[2]
-        x = view.float().reshape(view.shape[0], -1, T, *view.shape[2:])
-        x = torch.where(self.live, x, 0.0)
-        s = block_scale(x.abs().amax(dim=(2, 4)), self.qspec)  # [N,MB,KV]
-        raw(self.pool[i])[self.bt] = raw(
+        T, n = self.pool.shape[2], self.n
+        x = view[:n].float().reshape(n, -1, T, *view.shape[2:])
+        x = torch.where(self.live[:n], x, 0.0)
+        s = block_scale(x.abs().amax(dim=(2, 4)), self.qspec)  # [n,MB,KV]
+        raw(self.pool[i])[self.bt[:n]] = raw(
             quantize(x, s[:, :, None, :, None], self.qspec))
-        self.scales[i][self.bt] = s
+        self.scales[i][self.bt[:n]] = s
 
 
 def _prefill_views(params: Params, prompts: torch.Tensor, cache,
@@ -313,21 +347,21 @@ def _prefill_views(params: Params, prompts: torch.Tensor, cache,
                    row_slot: Optional[torch.Tensor] = None,
                    tp: Optional[TPGroup] = None) -> None:
     """N same-bucket chunks [N, Cb] run `forward_cached_rows` over the
-    row views ``cache``, and each row's last-real-token logits land in
-    ``last_logits[rows]``. Filler tokens past a chunk's true length
+    row views ``cache``, and each real row's last-real-token logits land
+    in ``last_logits[rows]``. Filler tokens past a chunk's true length
     write K/V beyond its frontier, which every later mask excludes until
     the next chunk or decode overwrites them; only the logits at
-    ``last_idx`` are read. ``rows`` may repeat (power-of-two padding
-    repeats the last row verbatim): duplicate scatters write identical
-    values. ``adapters`` / ``row_slot`` (the adapter pool's stacks and
+    ``last_idx`` are read. Rows past the views' ``n`` are power-of-two
+    filler (the last real row repeated): they are computed, never
+    written. ``adapters`` / ``row_slot`` (the adapter pool's stacks and
     this batch's per-chunk slot lane [N]) add the rows' LoRA deltas.
     Under ``tp`` only the rows' last-token logits are gathered whole."""
     logits = _rows_logits(params, prompts, cache, starts, cfg, adapters,
                           row_slot, tp)
-    n = prompts.shape[0]
-    last_logits[rows.long()] = gather_logits(
-        logits[torch.arange(n, device=logits.device), last_idx.long()], tp,
-        cfg.vocab_size)
+    n = cache["k"].n
+    last_logits[rows[:n].long()] = gather_logits(
+        logits[torch.arange(n, device=logits.device), last_idx[:n].long()],
+        tp, cfg.vocab_size)
 
 
 @torch.no_grad()
@@ -336,12 +370,14 @@ def _prefill_rows(params: Params, prompts: torch.Tensor, cache,
                   starts: torch.Tensor, last_idx: torch.Tensor,
                   cfg: LlamaConfig, adapters: Optional[Params] = None,
                   row_slot: Optional[torch.Tensor] = None,
-                  tp: Optional[TPGroup] = None) -> None:
+                  tp: Optional[TPGroup] = None, *,
+                  n_real: int) -> None:
     """Batched admission prefill into the dense cache, in place: row
     ``rows[n]`` of the cache takes chunk n at offset ``starts[n]`` (0
-    cold, the copied prefix warm, the chunk frontier chunked)."""
-    views = {"k": _DenseRows(cache["k"], rows),
-             "v": _DenseRows(cache["v"], rows)}
+    cold, the copied prefix warm, the chunk frontier chunked); the
+    first ``n_real`` rows are real, the rest power-of-two filler."""
+    views = {"k": _DenseRows(cache["k"], rows, n_real),
+             "v": _DenseRows(cache["v"], rows, n_real)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
                    last_idx, cfg, adapters, row_slot, tp)
 
@@ -357,18 +393,23 @@ def _prefill_rows_paged(params: Params, prompts: torch.Tensor,
                         qspec: Optional[KVQuantSpec] = None,
                         adapters: Optional[Params] = None,
                         row_slot: Optional[torch.Tensor] = None,
-                        tp: Optional[TPGroup] = None) -> None:
+                        tp: Optional[TPGroup] = None, *,
+                        n_real: int) -> None:
     """Batched admission prefill into the pool, in place, through the
-    rows' block tables ``bt`` [N, MB]. A quantized pool (``qspec`` and
+    rows' block tables ``bt`` [N, MB]; the first ``n_real`` rows are
+    real, the rest power-of-two filler. A quantized pool (``qspec`` and
     the f32 scale slabs) runs the same math on the dequantized f32 view
     and requantizes it on write-back over each row's valid slots
     ``[0, starts + last_idx + 1)``."""
     if qspec is None:
-        views = {"k": _PagedRows(pool_k, bt), "v": _PagedRows(pool_v, bt)}
+        views = {"k": _PagedRows(pool_k, bt, n_real),
+                 "v": _PagedRows(pool_v, bt, n_real)}
     else:
         valid = starts + last_idx + 1
-        views = {"k": _QuantPagedRows(pool_k, scale_k, bt, valid, qspec),
-                 "v": _QuantPagedRows(pool_v, scale_v, bt, valid, qspec)}
+        views = {"k": _QuantPagedRows(pool_k, scale_k, bt, valid, qspec,
+                                      n_real),
+                 "v": _QuantPagedRows(pool_v, scale_v, bt, valid, qspec,
+                                      n_real)}
     _prefill_views(params, prompts, views, last_logits, rows, starts,
                    last_idx, cfg, adapters, row_slot, tp)
 
@@ -893,6 +934,7 @@ class _DecodeGraphs:
         self.side = self._side_streams[device]
         self.graphs: Dict[tuple, tuple] = {}   # key -> (graph, toks, B2)
         self.replays = 0
+        self.captures = 0      # every capture, recaptures included
 
     def run(self, key: tuple, fn: Callable[[], torch.Tensor]
             ) -> torch.Tensor:
@@ -903,6 +945,15 @@ class _DecodeGraphs:
             pak.launches += b2_calls
             self.replays += 1
             return toks
+        # first use: an armed sanitizer reports the capture as a new key
+        # (the engine's `captures` counter), not the syncs it makes
+        san = _sanitize.active()
+        with (san.expected() if san is not None
+              else contextlib.nullcontext()):
+            return self._capture(key, fn)
+
+    def _capture(self, key: tuple, fn: Callable[[], torch.Tensor]
+                 ) -> torch.Tensor:
         cur = torch.cuda.current_stream(self.device)
         self.side.wait_stream(cur)
         with torch.cuda.stream(self.side):
@@ -914,15 +965,20 @@ class _DecodeGraphs:
         with torch.cuda.graph(graph, pool=self.pool):
             static = fn()
         self.graphs[key] = (graph, static, pak.launches - before)
+        self.captures += 1
         pak.launches = before
         return toks
 
     def release(self) -> None:
-        """Wait for the card, then free every captured graph."""
+        """Wait for the card, then free every captured graph. Later
+        captures go to a fresh memory pool: once its last graph is
+        reset, the caching allocator refuses a capture into the old
+        one (an internal assert in `capture_begin`)."""
         torch.cuda.synchronize(self.device)
         for graph, _, _ in self.graphs.values():
             graph.reset()
         self.graphs.clear()
+        self.pool = torch.cuda.graph_pool_handle()
 
 
 # ---------------------------------------------------------------------------
@@ -1159,8 +1215,6 @@ class DecodeEngine:
                     "lora= and draft_params= are mutually exclusive: the "
                     "speculative draft/verify rounds do not carry per-row "
                     "adapter deltas")
-        if sanitize:
-            raise _unported("the runtime sanitizer (sanitize=)", "A14")
         self.cfg = cfg
         self.device = params["tok_embed"].device
         self.B = batch_slots
@@ -1196,6 +1250,16 @@ class DecodeEngine:
         self.trace = resolve_tracer(trace, engine_id=self.engine_id,
                                     clock=clock)
         self.metrics.on_tp_degree(self.tp_degree)
+        # Runtime sanitizer (_private/sanitize.py): `sanitize=` takes a
+        # Sanitizer, True (build a strict one), False (force off), or
+        # None (RAY_TPU_SANITIZE decides). It stays disarmed through the
+        # first `_san_warmup` steps (first-use keys and captures are
+        # expected during warm-up); `arm_sanitizer()` arms it on demand.
+        self.sanitizer = _sanitize.resolve(sanitize)
+        self._san_steps = 0
+        self._san_warmup = _sanitize.warmup_steps()
+        # every decode dispatch key seen: the port's compile cache
+        self._dispatch_keys: set = set()
 
         self.paged = paged
         L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -1511,7 +1575,11 @@ class DecodeEngine:
         if not is_split(self._tp):
             return self._clock()
         now = torch.tensor([self._clock()], dtype=torch.float64)
-        return float(collective("broadcast", now, self._tp, host=True)[0])
+        now = collective("broadcast", now, self._tp, host=True)
+        # a host tensor read on the host: an armed sanitizer lets it by
+        san = _sanitize.active()
+        with san.expected() if san is not None else contextlib.nullcontext():
+            return float(now[0])
 
     def _heads_whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """A host tensor of this rank's kv heads (along ``dim``) made
@@ -1859,6 +1927,10 @@ class DecodeEngine:
         if horizon is not None and horizon < 1:
             raise ValueError("horizon must be >= 1")
         self.steps_total += 1
+        if self.sanitizer is not None and not self.sanitizer.armed:
+            self._san_steps += 1
+            if self._san_steps > self._san_warmup:
+                self.arm_sanitizer()
         emitted: Dict[int, List[int]] = {}
         # Flush the pipeline before any admission / prefill: those read
         # row and slot state and write the cache from the host side, so
@@ -2000,14 +2072,15 @@ class DecodeEngine:
             parts.append(self._bt)
             if self.spec_enabled:
                 parts.append(self._bt_d)
-        buf = torch.empty((self._din.numel() - lo,), dtype=torch.int64,
-                          pin_memory=self.device.type == "cuda")
-        a = buf.numpy()
+        a = np.empty((self._din.numel() - lo,), np.int64)
         o = 0
         for x in parts:
             x = np.asarray(x).reshape(-1)
             a[o:o + x.size] = x
             o += x.size
+        buf = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            buf = buf.pin_memory()
         self._din[lo:].copy_(buf, non_blocking=True)
 
     def _decode_body(self, H: int, greedy: bool) -> torch.Tensor:
@@ -2118,10 +2191,12 @@ class DecodeEngine:
         self._stage_inputs(run_ahead, w_row)
         all_greedy = bool(self._row_greedy.all())
         body = functools.partial(self._spec_body, W, all_greedy)
+        key = ("spec", W, all_greedy)
+        self._dispatch_keys.add(key)
         if self._graphs is None:
             toks = body()
         else:
-            toks = self._graphs.run(("spec", W, all_greedy), body)
+            toks = self._graphs.run(key, body)
         self._ring.append(_InflightStep(
             _host_async(toks), W + 1, list(rows), run_ahead, spec=True,
             w_max=W, w_row=np.array(w_row, np.int64)))
@@ -2149,6 +2224,7 @@ class DecodeEngine:
         self._stage_inputs(run_ahead)
         all_greedy = bool(self._row_greedy.all())
         body = functools.partial(self._decode_body, H, all_greedy)
+        self._dispatch_keys.add((H, all_greedy))
         if self._graphs is None:
             toks = body()
         else:
@@ -2281,6 +2357,42 @@ class DecodeEngine:
         """`begin_drain()` + run to empty."""
         self.begin_drain()
         return self.run()
+
+    # -- runtime sanitizer -------------------------------------------------
+
+    def arm_sanitizer(self):
+        """Snapshot the key counters and arm the runtime sanitizer: from
+        this call on, a new decode dispatch key, a new CUDA-graph
+        capture, a new adapter-commit signature or any device->host pull
+        outside `_device_get`/`_host_async` is a violation (raised in
+        strict mode, tallied otherwise); on the card so is a
+        synchronizing CUDA op. Builds a strict sanitizer on the fly if
+        the engine was constructed without one. Perf gates call this
+        after warm-up; under RAY_TPU_SANITIZE=1 it fires automatically
+        after RAY_TPU_SANITIZE_WARMUP (default 8) steps."""
+        if self.sanitizer is None:
+            self.sanitizer = _sanitize.Sanitizer(label=self.engine_id)
+        keys = self._dispatch_keys
+        self.sanitizer.watch("decode_keys", lambda: len(keys))
+        if self._graphs is not None:
+            graphs = self._graphs
+            self.sanitizer.watch("decode_captures", lambda: graphs.captures)
+        if self.adapter_pool is not None:
+            commits = self.adapter_pool.commit_keys
+            self.sanitizer.watch("_adapter_commit", lambda: len(commits))
+        self.sanitizer.arm(self.device)
+        return self.sanitizer
+
+    def disarm_sanitizer(self) -> None:
+        """Restore the un-sanitized fast path (interposition off)."""
+        if self.sanitizer is not None:
+            self.sanitizer.disarm()
+
+    def sanitizer_stats(self) -> Dict[str, Any]:
+        """Snapshot of the sanitizer plane; {} when sanitizing is off."""
+        if self.sanitizer is None:
+            return {}
+        return self.sanitizer.stats()
 
     def release_graphs(self) -> None:
         """Free the decode loop's captured CUDA graphs, after the card
@@ -2860,9 +2972,9 @@ class DecodeEngine:
                 prompts[i, :len(toks)] = toks
                 rows[i] = row
                 last_idx[i] = len(toks) - 1
-            prompts[n:] = prompts[n - 1]    # filler: repeat the last row,
-            rows[n:] = rows[n - 1]          # whose duplicate scatters
-            last_idx[n:] = last_idx[n - 1]  # write identical values
+            prompts[n:] = prompts[n - 1]    # filler: repeat the last row
+            rows[n:] = rows[n - 1]          # (computed, not written back)
+            last_idx[n:] = last_idx[n - 1]
             args = (self._dev(rows), self._dev(np.zeros_like(rows)),
                     self._dev(last_idx), self.draft_cfg)
             if self.paged:
@@ -2871,11 +2983,11 @@ class DecodeEngine:
                     self._pool_dv, self._d_last_logits,
                     self._dev(self._bt_d[rows]), *args,
                     scale_k=self._scale_dk, scale_v=self._scale_dv,
-                    qspec=self.kv_quant_spec, tp=self._d_tp)
+                    qspec=self.kv_quant_spec, tp=self._d_tp, n_real=n)
             else:
                 _prefill_rows(self.draft_params, self._dev(prompts),
                               self._d_cache, self._d_last_logits, *args,
-                              tp=self._d_tp)
+                              tp=self._d_tp, n_real=n)
             self.spec_prefill_dispatches += 1
             if self.trace.enabled:
                 self.trace.add("spec_draft_prefill", t0,
@@ -3168,10 +3280,7 @@ class DecodeEngine:
             parts = _swap_out_gather(self._pool_tensors(), self._dev(bids))
             blocks = [_host_async(x) for x in
                       parts + [self._last_logits[row].clone()]]
-            for b in blocks:
-                if b.event is not None:
-                    b.event.synchronize()
-            host = [b.data for b in blocks]
+            host = [_host_wait(b) for b in blocks]
             # under tp the payload is made whole, as a one-card engine's
             host[:-1] = [self._heads_whole(x, 3 if x.dim() == 5 else 2)
                          for x in host[:-1]]
@@ -3357,9 +3466,9 @@ class DecodeEngine:
                 starts[i] = st.pos
                 last_idx[i] = C - 1
                 real += C
-            prompts[n:] = prompts[n - 1]   # filler: repeat the last row,
-            rows[n:] = rows[n - 1]         # whose duplicate scatters
-            starts[n:] = starts[n - 1]     # write identical values
+            prompts[n:] = prompts[n - 1]   # filler: repeat the last row
+            rows[n:] = rows[n - 1]         # (computed, not written back)
+            starts[n:] = starts[n - 1]
             last_idx[n:] = last_idx[n - 1]
             args = (self._dev(rows), self._dev(starts), self._dev(last_idx),
                     self.cfg)
@@ -3375,10 +3484,12 @@ class DecodeEngine:
                     self._pool_v, self._last_logits,
                     self._dev(self._bt[rows]), *args,
                     scale_k=self._scale_k, scale_v=self._scale_v,
-                    qspec=self.kv_quant_spec, tp=self._tp, **lora)
+                    qspec=self.kv_quant_spec, tp=self._tp, n_real=n,
+                    **lora)
             else:
                 _prefill_rows(self.params, self._dev(prompts), self.cache,
-                              self._last_logits, *args, tp=self._tp, **lora)
+                              self._last_logits, *args, tp=self._tp,
+                              n_real=n, **lora)
             self.prefill_dispatches += 1
             padded = n_pad * Cb - real
             self.prefill_real_tokens += real

@@ -161,10 +161,22 @@ def test_recompute_preemption_keeps_greedy_tokens(weights):
 @pytest.mark.parametrize("knob", [{"sanitize": True}],
                          ids=lambda k: next(iter(k)))
 def test_out_of_slice_knobs_raise(weights, knob):
+    """``sanitize=`` is ported (it raised NotImplementedError before):
+    the engine builds a strict sanitizer, and once it is armed a stray
+    pull raises `SanitizerError` instead."""
+    from ray_tpu_torch._private.sanitize import SanitizerError
+
     _, tp = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
-                     paged=True, kv_block_tokens=T, **knob)
+    eng = DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
+                       paged=True, kv_block_tokens=T, **knob)
+    assert eng.sanitizer is not None and eng.sanitizer.strict
+    assert not eng.sanitizer.armed
+    eng.arm_sanitizer()
+    try:
+        with pytest.raises(SanitizerError):
+            torch.ones(2).tolist()
+    finally:
+        eng.disarm_sanitizer()
 
 
 def test_engine_argument_checks(weights):
@@ -186,3 +198,51 @@ def test_engine_argument_checks(weights):
         DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN, tp=2)
     assert DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
                         tp=1).stats()["tp_degree"] == 1.0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_prefill_filler_rows_not_written_back(weights, paged):
+    """Pins ROADMAP C6b: a batched prefill pads its rows to a power of
+    two by repeating the last real row; the filler is computed but not
+    written back. On the card a GEMM does not promise bit-equal results
+    for equal rows, and a scatter with duplicate indices keeps whichever
+    write lands last, so a written-back filler made the cache bytes vary
+    from run to run. Here the filler rows carry another prompt (the
+    worst case of a non-equal duplicate): the real rows' cache bytes and
+    last logits equal those of the prefill whose filler repeats the last
+    row, and writing the filler back (``n_real=len(rows)``) would not."""
+    from ray_tpu_torch.models import engine as tengine
+
+    _, tp = weights
+    rng = np.random.RandomState(5)
+    prompts = rng.randint(1, TCFG.vocab_size, (4, 8)).astype(np.int64)
+    rows = torch.tensor([0, 1, 1, 1])
+    starts = torch.zeros(4, dtype=torch.long)
+    last_idx = torch.tensor([7, 5, 5, 5])
+    bt = torch.tensor([[1, 2, 0, 0, 0, 0, 0, 0], [3, 4, 0, 0, 0, 0, 0, 0]])
+
+    def run(p, n_real):
+        eng = DecodeEngine(tp, TCFG, batch_slots=2, max_len=MAX_LEN,
+                           paged=paged, kv_block_tokens=T)
+        args = (rows, starts, last_idx, TCFG)
+        if paged:
+            tengine._prefill_rows_paged(
+                eng.params, torch.from_numpy(p), eng._pool_k, eng._pool_v,
+                eng._last_logits, bt[rows], *args, n_real=n_real)
+            kv = [eng._pool_k, eng._pool_v]
+        else:
+            tengine._prefill_rows(eng.params, torch.from_numpy(p),
+                                  eng.cache, eng._last_logits, *args,
+                                  n_real=n_real)
+            kv = [eng.cache["k"], eng.cache["v"]]
+        return [x.clone() for x in kv + [eng._last_logits]]
+
+    same = prompts.copy()
+    same[2:] = same[1]                 # the engine's filler
+    other = same.copy()
+    other[2:] = prompts[2:]            # a filler that is not bit-equal
+    want = run(same, 2)
+    for got, ref in zip(run(other, 2), want):
+        assert torch.equal(got, ref)
+    written = run(other, len(rows))
+    assert not all(torch.equal(g, r) for g, r in zip(written, want))

@@ -227,7 +227,8 @@ def test_prefill_writeback_matches_jax(mode):
     pool = to_torch(pages)
     slab = torch.from_numpy(scales.copy())
     view = tengine._QuantPagedRows(pool, slab, torch.from_numpy(bt),
-                                   torch.from_numpy(valid), tq.resolve_kv_quant(mode))
+                                   torch.from_numpy(valid), tq.resolve_kv_quant(mode),
+                                   len(bt))
     want_p, want_s = jnp.asarray(pages), jnp.asarray(scales)
     for i in range(L):
         got = view[i]                           # [N, MB*T, KV, D] f32

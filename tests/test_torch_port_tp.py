@@ -477,6 +477,21 @@ def test_tp_mid_flight_drain(worlds, world):
         assert d["tokens"] == d["solo"]
 
 
+@pytest.mark.parametrize("world", ["tp2", "tp4"])
+def test_tp_gate_sanitizer_steady_decode(worlds, world):
+    """The "tp" combo of the sanitizer gate (tests/test_perf_gates.py):
+    after two warm passes, an armed pass at tp adds no dispatch key,
+    pulls nothing outside the choke points, and emits the one-card
+    engine's tokens on every rank."""
+    ranks, _ = worlds[world]
+    for out in ranks:
+        s = out["sanitize"]
+        assert s["error"] is None, s["error"]
+        assert s["retraces"] == {} and s["unexpected"] == 0
+        assert s["pulls"] > 0 and "decode_keys" in s["watched"]
+        assert s["tokens"] == s["solo"]
+
+
 def test_tp_host_transfer_bytes_flat(worlds):
     """The token block is replicated: the bytes each drain pulls are the
     same at tp = 1 and tp = 4, and so is the number of pulls."""

@@ -80,6 +80,29 @@ def nest_tree(flat):
     return out
 
 
+def listify(tree):
+    """`nest_tree`'s dicts keyed "0", "1", ... back into lists (JAX's
+    layout of an RLlib module's layers)."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(k.isdigit() for k in tree):
+        return [listify(tree[str(i)]) for i in range(len(tree))]
+    return {k: listify(v) for k, v in tree.items()}
+
+
+def flat_layers(tree, prefix=""):
+    """`flat_tree` over dicts and lists: {"pi": [{"w": x}]} ->
+    {"pi/0/w": x}."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_layers(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
 class FakeClock:
     """A deterministic clock that tests advance by hand, injected as an
     engine's, fleet's or autoscaler's ``clock``."""
@@ -146,6 +169,8 @@ def rank_main():
     with open(sys.argv[1]) as f:
         job = json.load(f)
     rank = int(sys.argv[2])
+    if "rllib" in job:
+        return _rllib_ddp_rank(job, rank)
 
     from ray_tpu_torch.convert import params_from_numpy
     from ray_tpu_torch.models import llama, training
@@ -269,6 +294,43 @@ def rank_main():
     dist.destroy_process_group()
 
 
+def _rllib_ddp_rank(job, rank):
+    """A world of RLlib learners (``job["rllib"]``: the learner class's
+    name in `ray_tpu_torch.rllib.algorithms.ppo`, its config and module
+    sizes): the rank loads the seeded weights, takes one
+    `TorchLearner.update_ddp` step on its contiguous shard of the batch
+    and writes its weights (flat, in ravel order) and metrics."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import initialize_distributed
+    from ray_tpu_torch.rllib.algorithms import ppo
+    from ray_tpu_torch.rllib.core.rl_module import (DiscreteMLPModule,
+                                                    RLModuleSpec,
+                                                    ravel_tree)
+
+    die_with_parent()
+    spec = job["rllib"]
+    initialize_distributed(job["store"], job["world"], rank,
+                           device_type="cpu")
+    data = dict(np.load(job["inputs"]))
+    tree = listify(nest_tree({k[len("params/"):]: v for k, v in data.items()
+                              if k.startswith("params/")}))
+    learner = getattr(ppo, spec["learner"])(
+        RLModuleSpec(DiscreteMLPModule, spec["obs_dim"],
+                     spec["num_actions"], spec["model"]),
+        spec["config"], device="cpu")
+    learner.set_weights(tree)
+    batch = {k[len("batch/"):]: v for k, v in data.items()
+             if k.startswith("batch/")}
+    n = len(batch["obs"]) // job["world"]
+    shard = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    metrics = learner.update_ddp(shard)
+    flat, _ = ravel_tree(learner.get_weights())
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump({"flat": flat.tolist(), "metrics": metrics}, f)
+    dist.destroy_process_group()
+
+
 class _ProductFlops:
     """Counts the FLOPs of every matrix product dispatched while it is
     active (mm, bmm, addmm, baddbmm: 2 * output size * contraction)."""
@@ -360,6 +422,35 @@ def _tp_specials(job, params, cfg, tp, out):
     from ray_tpu_torch.util import metrics as tmetrics
 
     prompts = job["special_prompts"]
+    # the runtime sanitizer on steady decode at tp (the "tp" combo of
+    # tests/test_perf_gates.py::test_gate_sanitizer_steady_decode): two
+    # warm passes, then an armed one; the same workload on one card
+    from ray_tpu_torch._private.sanitize import SanitizerError
+
+    def san_pass(e):
+        ids = [e.submit(p, 10) for p in ([5, 6, 7], [9, 8, 7, 6, 5])]
+        got = e.run()
+        return [got[i] for i in ids]
+
+    eng = DecodeEngine(params, cfg, batch_slots=2, max_len=64, tp=tp,
+                       decode_horizon=4)
+    san_pass(eng)
+    san_pass(eng)
+    san = eng.arm_sanitizer()
+    try:
+        armed, error = san_pass(eng), None
+    except SanitizerError as e:
+        armed, error = None, str(e)
+    finally:
+        eng.disarm_sanitizer()
+    st = san.stats()
+    out["sanitize"] = {
+        "tokens": armed, "error": error, "retraces": st["retraces"],
+        "unexpected": st["unexpected_transfers"],
+        "pulls": st["expected_pulls"], "watched": st["watched"],
+        "solo": san_pass(DecodeEngine(params, cfg, batch_slots=2,
+                                      max_len=64, decode_horizon=4))}
+
     # begin_drain with run-ahead blocks in flight
     eng = DecodeEngine(params, cfg, batch_slots=2, max_len=64, tp=tp,
                        pipeline_depth=2, decode_horizon=4)
