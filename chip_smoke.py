@@ -284,6 +284,23 @@ Phases, each of which must pass:
                on one NCCL rank with their launches, and t5_generate's
                greedy tokens against an uncached argmax rollout through
                t5_forward (f32: equal; bf16: agreement printed).
+ 20. rllib   — f32, TF32 off, learner and runner on the card: (a) PPO
+               learns CartPole; (b) one training_step of every ported
+               algorithm (on-policy, imitation, DQN with and without
+               PER, DDPG, TD3, SAC, CQL) on a fixed input, card against
+               the CPU: first-update gradients and metrics (SAC and CQL
+               in float64), weights and target weights, with three
+               planted faults (TF32 on, PPO's advantages unstandardized,
+               a target synced in place) that must fail; the V-trace
+               loop timed; (c) ES's perturbed rollouts; (d) DQN learns
+               GridWorld (rolling > 0.3, greedy > 0.9). Prints ms per
+               update and env steps/s.
+ 21. train-data — the device pieces of Train, Data and channels: a
+               seeded source's batches on the card through pinned
+               memory (and 4 dp ranks' regions) equal to the source,
+               TorchPredictor from a dict and an array checkpoint, and
+               f32 / bf16 tensors through DeviceChannel over a host queue
+               back bit-equal. Prints GB/s and ms.
 `--ep-cards N` and `--pp-cards N` run the moe and pipeline models over N
 cards (NCCL, one rank process a card) beside one card's step.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
@@ -5789,10 +5806,27 @@ def _kernel_entry(name, source, replaces, launches, res, by_path=None):
 # returns equal the CPU's, or the trajectories part only where the CPU's
 # logit gap is below RL_NEAR_TIE; with equal returns the weights after
 # its host update are within 1e-6 of the CPU's.
+# The off-policy family (ROADMAP A14b) adds rows to (b): DQN (uniform and
+# prioritized replay), DDPG, TD3, SAC and CQL, each on a fixed rollout
+# (CQL: a fixed offline log) through its seeded replay buffer, every loss
+# draw fed the same seeded numpy noise on both devices through the
+# learner's noise seam; the target weights after the step are gated as
+# the weights are. SAC's and CQL's gradient gate runs in float64 on both
+# devices (`_rl_grads64`): their squashed log-prob log(1 - tanh^2 + 1e-6)
+# cancels ~4 digits in f32 where a sample saturates, so two correct f32
+# tanh implementations an ulp apart part there by ~1e-3 (the CPU tests
+# see it between XLA and torch). A target made without a copy (the sync
+# then writes the online weights in place) must fail the target gate.
+# (d) DQN learns GridWorld at tests/test_rllib.py test_dqn_learns_
+# gridworld's configuration, learner and runner on the card: 40
+# iterations, the rolling return > 0.3 and 3 greedy episodes > 0.9.
 RL_ITERS, RL_STEP_ATOL, RL_NEAR_TIE = 12, 0.01, 1e-4
 RL_GRAD_RTOL, RL_GRAD_ATOL = 1e-5, 1e-6
 RL_ALGOS = ("ppo", "a2c", "appo", "impala", "bc", "marwil",
-            "multi_agent_ppo")
+            "multi_agent_ppo", "dqn", "dqn_per", "ddpg", "td3", "sac",
+            "cql")
+RL_GRADS64 = ("sac", "cql")
+RL_DQN_ITERS = 40
 
 
 def _rl_rollout(n=128, seed=7):
@@ -5815,12 +5849,67 @@ def _rl_rollout(n=128, seed=7):
         "vf_preds": rng.randn(n).astype(np.float32)}), {1: 0.25, 2: -0.5}
 
 
+def _rl_offpolicy_rollout(discrete, n=256, seed=11):
+    """A fixed rollout for the replay buffers: CartPole's spaces
+    (discrete) or Pendulum's."""
+    from ray_tpu_torch.rllib.utils.sample_batch import SampleBatch
+
+    rng = np.random.RandomState(seed)
+    dim = 4 if discrete else 3
+    out = {"obs": rng.randn(n, dim).astype(np.float32),
+           "next_obs": rng.randn(n, dim).astype(np.float32),
+           "rewards": rng.randn(n).astype(np.float32),
+           "terminateds": rng.rand(n) < 0.05,
+           "truncateds": np.zeros(n, bool),
+           "eps_id": np.repeat(np.arange(4), n // 4).astype(np.int64)}
+    out["actions"] = (rng.randint(0, 2, n) if discrete else
+                      rng.uniform(-2, 2, (n, 1)).astype(np.float32))
+    return SampleBatch(out)
+
+
+def _rl_noise(name, shape, kind, update):
+    """The seeded draw ``name`` of update ``update``: the same numbers on
+    every device."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(f"{update}:{name}".encode()))
+    return (rng.standard_normal(shape, np.float32) if kind == "normal"
+            else rng.random(shape, np.float32))
+
+
+def _rl_grads64(learner, batch):
+    """The learner's loss metrics and gradients evaluated in float64 on
+    its current weights and target, ``batch`` and its installed noise:
+    (gradient tree, metrics) as `compute_gradients` gives them."""
+    import copy
+
+    from ray_tpu_torch.rllib.core.rl_module import _nest, tree_paths
+
+    ref = copy.copy(learner)
+    ref.module = copy.deepcopy(learner.module).double()
+    ref.target_module = copy.deepcopy(learner.target_module).double()
+    ref.noise = lambda name, shape, kind="normal": learner.noise(
+        name, shape, kind).double()
+    tb = {k: torch.as_tensor(np.asarray(v, np.float64)
+                             if np.asarray(v).dtype.kind == "f"
+                             else np.asarray(v), device=learner.device)
+          for k, v in batch.items()}
+    loss, metrics = ref.loss_fn(tb, None)
+    paths = tree_paths(ref.module)
+    grads = torch.autograd.grad(loss, [p for _, p in paths],
+                                allow_unused=True, materialize_grads=True)
+    metrics = dict(metrics, total_loss=loss)
+    return (_nest([(path, g) for (path, _), g in zip(paths, grads)]),
+            {k: v.detach().cpu().numpy() for k, v in metrics.items()})
+
+
 def _rl_fixed_step(name, device):
     """One training_step of algorithm ``name`` on ``device`` with its
     input fixed: {"flat": the learners' weights after it as flat f32,
-    "n": updates taken, "lr", "grads": each learner's first-update
-    gradients (`compute_gradients` before that update) as flat f32,
-    "metrics": their loss metrics, in sorted key order}."""
+    "target": the target weights after it (off-policy), "n": updates
+    taken, "lr", "grads": each learner's first-update gradients
+    (`compute_gradients` before that update; float64 for RL_GRADS64) as
+    flat f32, "metrics": their loss metrics, in sorted key order}."""
     from ray_tpu_torch import rllib
     from ray_tpu_torch.rllib.core.rl_module import ravel_tree, tree_leaves
     from ray_tpu_torch.rllib.utils.sample_batch import SampleBatch
@@ -5830,6 +5919,8 @@ def _rl_fixed_step(name, device):
             "actions": rng.randint(0, 2, 512),
             "rewards": np.ones(512, np.float32),
             "terminateds": rng.rand(512) < 0.05}
+    box = _rl_offpolicy_rollout(False, n=1024, seed=12)
+    learn = dict(num_steps_sampled_before_learning_starts=128)
     make = {
         "ppo": lambda: rllib.PPOConfig().training(
             train_batch_size=128, minibatch_size=64, num_epochs=2),
@@ -5844,6 +5935,21 @@ def _rl_fixed_step(name, device):
         "multi_agent_ppo": lambda: rllib.MultiAgentPPOConfig().environment(
             "TwoAgentGrid").training(train_batch_size=128,
                                      minibatch_size=64, num_epochs=2),
+        "dqn": lambda: rllib.DQNConfig().training(
+            target_network_update_freq=1, **learn),
+        "dqn_per": lambda: rllib.DQNConfig().training(
+            prioritized_replay=True, **learn),
+        "ddpg": lambda: rllib.DDPGConfig().environment("Pendulum")
+        .training(**learn),
+        "td3": lambda: rllib.TD3Config().environment("Pendulum")
+        .training(**learn),
+        "sac": lambda: rllib.SACConfig().environment("Pendulum")
+        .training(**learn),
+        "cql": lambda: rllib.CQLConfig().environment("Pendulum")
+        .offline_data(dataset={
+            "obs": box["obs"], "actions": box["actions"],
+            "rewards": box["rewards"], "next_obs": box["next_obs"],
+            "terminateds": box["terminateds"]}),
     }[name]()
     if make.env is None:
         make = make.environment("CartPole-v1")
@@ -5852,6 +5958,8 @@ def _rl_fixed_step(name, device):
     group = algo.env_runner_group
     group.sample_with_bootstraps = \
         lambda n, epsilon=0.0: [(SampleBatch(batch), dict(boot))]
+    fixed = _rl_offpolicy_rollout(name.startswith("dqn"))
+    group.sample = lambda n, epsilon=0.0: SampleBatch(fixed)
     if name == "multi_agent_ppo":
         grid = _rl_grid_rollout()
         group.sample_multi = lambda n: [grid]
@@ -5861,13 +5969,17 @@ def _rl_fixed_step(name, device):
     count, first = [0], []
     for lr_ in learners:
         update, taken = lr_.update, []
+        lr_.set_noise(lambda name, shape, kind, taken=taken: _rl_noise(
+            name, shape, kind, len(taken)))
 
         def counted(b, lr_=lr_, update=update, taken=taken):
             if not taken:
-                first.append(lr_.compute_gradients(b))
+                first.append(_rl_grads64(lr_, b) if name in RL_GRADS64
+                             else lr_.compute_gradients(b))
+            out = update(b)
             taken.append(1)
             count[0] += 1
-            return update(b)
+            return out
         lr_.update = counted
     if name == "multi_agent_ppo":
         algo.step()
@@ -5877,10 +5989,14 @@ def _rl_fixed_step(name, device):
                            for lr_ in learners])
     grads = np.concatenate([g.detach().cpu().numpy().ravel()
                             for tree, _ in first for g in tree_leaves(tree)])
-    metrics = np.array([m[k] for _, m in first for k in sorted(m)],
-                       np.float64)
-    return {"flat": flat, "n": count[0], "lr": algo.config.lr,
-            "grads": grads, "metrics": metrics}
+    metrics = np.concatenate([np.ravel(m[k]) for _, m in first
+                              for k in sorted(m)]).astype(np.float64)
+    out = {"flat": flat, "n": count[0], "lr": algo.config.lr,
+           "grads": grads, "metrics": metrics}
+    if hasattr(learners[0], "target_module"):
+        out["target"] = ravel_tree(
+            learners[0].get_state()["target_params"])[0]
+    return out
 
 
 def _rl_grid_rollout():
@@ -5915,12 +6031,15 @@ def _rl_tol_ratio(got, want):
 
 
 def _rl_step_gates(card, cpu):
-    """(weight difference, its tolerance, gradient ratio, metrics ratio)
-    of one fixed step on the card against the CPU."""
+    """(weight difference, its tolerance, gradient ratio, metrics ratio,
+    target weight difference: 0 without a target) of one fixed step on
+    the card against the CPU."""
+    target = (float(np.abs(card["target"] - cpu["target"]).max())
+              if "target" in cpu else 0.0)
     return (float(np.abs(card["flat"] - cpu["flat"]).max()),
             RL_STEP_ATOL * card["lr"] * card["n"],
             _rl_tol_ratio(card["grads"], cpu["grads"]),
-            _rl_tol_ratio(card["metrics"], cpu["metrics"]))
+            _rl_tol_ratio(card["metrics"], cpu["metrics"]), target)
 
 
 def _rl_es_step(device):
@@ -5965,8 +6084,61 @@ def _rl_es_step(device):
             out["returns"], rec, out["secs"])
 
 
+def _rl_dqn_gridworld(smi):
+    """(d): DQN on GridWorld at the JAX test's configuration, learner and
+    runner on the card."""
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig
+
+    algo = (DQNConfig()
+            .environment("GridWorld-v0", env_config={"size": 3})
+            .training(train_batch_size=64, lr=5e-4, gamma=0.95,
+                      num_steps_sampled_before_learning_starts=200,
+                      target_network_update_freq=100,
+                      epsilon_decay_steps=1500,
+                      rollout_fragment_length=100)
+            .debugging(seed=1).build_algo())
+    learner = algo.learner_group.learner
+    assert learner.device.type == "cuda"
+    assert algo.env_runner_group._local_runner.device.type == "cuda"
+    sample, update = algo.env_runner_group.sample, learner.update
+    spent = {"sample": 0.0, "update": 0.0, "updates": 0}
+
+    def timed_sample(*a, **kw):
+        t0 = time.perf_counter()
+        out = sample(*a, **kw)
+        spent["sample"] += time.perf_counter() - t0
+        return out
+
+    def timed_update(b):
+        t0 = time.perf_counter()
+        out = update(b)              # ends on the metrics' host copy
+        spent["update"] += time.perf_counter() - t0
+        spent["updates"] += 1
+        return out
+
+    algo.env_runner_group.sample, learner.update = timed_sample, timed_update
+    t0 = time.perf_counter()
+    for _ in range(RL_DQN_ITERS):
+        result = algo.step()
+    wall = time.perf_counter() - t0
+    ret = result.get("episode_return_mean", float("nan"))
+    greedy = algo.evaluate(num_episodes=3)["evaluation"][
+        "episode_return_mean"]
+    steps = algo.env_runner_group.aggregate_metrics()["num_env_steps"]
+    log(f"[rllib] (d) DQN, GridWorld 3x3, local mode, learner and runner "
+        f"on the card: rolling return {ret:.4g} (gate > 0.3), greedy "
+        f"{greedy:.4g} over 3 episodes (gate > 0.9); {spent['updates']} "
+        f"updates, {spent['update'] / spent['updates'] * 1e3:.3f} ms each "
+        f"(host clock, the metrics' copy included); {steps} env steps at "
+        f"{steps / spent['sample']:.1f} steps/s while sampling; {wall:.2f} s "
+        f"for {RL_DQN_ITERS} iterations; on {smi}")
+    assert np.isfinite(ret) and ret > 0.3, result
+    assert greedy > 0.9, greedy
+
+
 def rllib_phase(smi):
     """The rllib phase (see RL_* above); at most ~60 s."""
+    from ray_tpu_torch.rllib.algorithms import off_policy
     from ray_tpu_torch.rllib.algorithms import ppo as ppo_mod
     from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
 
@@ -6016,14 +6188,17 @@ def rllib_phase(smi):
     assert finite and max(finite) > finite[0] + 20, returns
     # (b) one training_step per algorithm, card against CPU
     rows, failed = [], []
+    t_b = time.perf_counter()
     cpu = {name: _rl_fixed_step(name, "cpu") for name in RL_ALGOS}
     for name in RL_ALGOS:
         card = _rl_fixed_step(name, "cuda")
-        err, tol, g, m = _rl_step_gates(card, cpu[name])
-        rows.append(f"{name} grads {g:.3g}, metrics {m:.3g} of the "
-                    f"tolerance; weights {err:.3g} (tol {tol:.3g}, "
+        err, tol, g, m, terr = _rl_step_gates(card, cpu[name])
+        f64 = " (float64)" if name in RL_GRADS64 else ""
+        target = f", target {terr:.3g}" if "target" in card else ""
+        rows.append(f"{name} grads{f64} {g:.3g}, metrics {m:.3g} of the "
+                    f"tolerance; weights {err:.3g}{target} (tol {tol:.3g}, "
                     f"{card['n']} updates)")
-        if not (err <= tol and g <= 1 and m <= 1):
+        if not (err <= tol and terr <= tol and g <= 1 and m <= 1):
             failed.append(name)
     faults = {}
     try:
@@ -6037,18 +6212,26 @@ def rllib_phase(smi):
     with mock.patch.object(ppo_mod, "standardize", lambda x: x):
         faults["PPO advantages unstandardized"] = _rl_step_gates(
             _rl_fixed_step("ppo", "cuda"), cpu["ppo"])
-    frows = [f"{k}: grads {g:.3g} of the tolerance, weights {e:.3g} (tol "
-             f"{t:.3g})" for k, (e, t, g, _) in faults.items()]
+    with mock.patch.object(off_policy.TargetNetworkLearner, "_make_target",
+                           lambda self: self.module):
+        faults["SAC target synced in place"] = _rl_step_gates(
+            _rl_fixed_step("sac", "cuda"), cpu["sac"])
+    frows = [f"{k}: grads {g:.3g} of the tolerance, weights {e:.3g}, "
+             f"target {te:.3g} (tol {t:.3g})"
+             for k, (e, t, g, _, te) in faults.items()]
     log(f"[rllib] (b) one training_step on a fixed input, the card against "
         f"the CPU (gradient gate |card - CPU| <= {RL_GRAD_ATOL:g} + "
         f"{RL_GRAD_RTOL:g} |CPU|): {'; '.join(rows)}; planted faults: "
-        f"{'; '.join(frows)}")
+        f"{'; '.join(frows)}; {time.perf_counter() - t_b:.1f} s; on {smi}")
     assert not failed, failed
     tf32 = faults["TF32 on"]
     assert tf32[2] > 1, f"TF32 on NOT rejected: {tf32}"
     unstd = faults["PPO advantages unstandardized"]
     assert unstd[2] > 1 and unstd[0] > unstd[1], \
         f"unstandardized advantages NOT rejected: {unstd}"
+    in_place = faults["SAC target synced in place"]
+    assert in_place[4] > in_place[1], \
+        f"target synced in place NOT rejected: {in_place}"
     # the V-trace scan's loop (ROADMAP A17) at a 512-step rollout
     from ray_tpu_torch.rllib.algorithms.impala import vtrace_scan
 
@@ -6075,7 +6258,176 @@ def rllib_phase(smi):
         assert es_err <= 1e-6 and card[1] == cpu_es[1], (es_err, card[1])
     else:
         assert first is not None and gap < RL_NEAR_TIE, (first, gap)
+    _rl_dqn_gridworld(smi)
     log(f"[time] rllib {time.perf_counter() - t_phase:.1f} s")
+
+
+# The train-data phase (ROADMAP A14d): the device pieces of Train, Data
+# and channels on the card. (a) `iter_device_batches` puts a seeded
+# duck-typed source (CIFAR-scale rows: a [3, 32, 32] f32 image, a label,
+# an id; TD_ROWS rows in batches of TD_BATCH) on the card through pinned
+# memory, each batch equal to the source's rows, and each of 4 dp ranks'
+# regions equal to its block of the batch; (b) `TorchPredictor` on the
+# card from a dict checkpoint and from an array checkpoint (with a
+# template), against the float64 product (1e-5 of its max); (c)
+# `DeviceChannel` carries f32 and bf16 card tensors through a host
+# channel (a `multiprocessing` queue: a pipe and its feeder thread) and
+# back on the card, bit-equal. The HF piece is CPU-only: the card's
+# machine has no transformers.
+TD_ROWS, TD_BATCH, TD_RANKS = 16384, 256, 4
+
+
+class _TDSource:
+    """A duck-typed Data source: seeded columns, batched in order."""
+
+    def __init__(self, n, seed=0):
+        rng = np.random.default_rng(seed)
+        self.cols = {"image": rng.random((n, 3, 32, 32), np.float32),
+                     "label": rng.integers(0, 10, n),
+                     "id": np.arange(n, dtype=np.int64)}
+        self.n = n
+
+    def iter_batches(self, *, batch_size=256, batch_format="numpy"):
+        for i in range(0, self.n, batch_size):
+            yield {k: v[i:i + batch_size] for k, v in self.cols.items()}
+
+
+class _DictCheckpoint:
+    """A checkpoint directory with `to_directory` / `to_dict`."""
+
+    FILE = "_dict_checkpoint.pkl"
+
+    def __init__(self, path):
+        self.path = path
+
+    def to_directory(self):
+        return self.path
+
+    def to_dict(self):
+        import os
+        import pickle
+
+        with open(os.path.join(self.path, self.FILE), "rb") as f:
+            return pickle.load(f)
+
+
+class _QueueChannel:
+    """A host channel over a `multiprocessing` queue."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self._q = multiprocessing.Queue()
+
+    def write(self, value, timeout=None):
+        self._q.put(value, timeout=timeout)
+
+    def read(self, timeout=None):
+        return self._q.get(timeout=timeout)
+
+    def close(self):
+        self._q.close()
+        self._q.join_thread()
+
+
+def train_data_phase(smi):
+    """The train-data phase (see TD_* above); a few seconds."""
+    import os
+    import pickle
+    import tempfile
+
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.experimental.channel import DeviceChannel
+    from ray_tpu_torch.train.array_checkpoint import save_pytree
+    from ray_tpu_torch.train.predictor import TorchPredictor
+
+    t_phase = time.perf_counter()
+    # (a) ingest
+    src = _TDSource(TD_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(iter_device_batches(src, batch_size=TD_BATCH))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nbytes = sum(v.nbytes for v in src.cols.values())
+    for i, b in enumerate(got):
+        for k, v in b.items():
+            assert v.device.type == "cuda", k
+            want = src.cols[k][i * TD_BATCH:(i + 1) * TD_BATCH]
+            assert np.array_equal(v.cpu().numpy(), want), (i, k)
+    block = TD_BATCH // TD_RANKS
+    for r in range(TD_RANKS):
+        for i, b in enumerate(iter_device_batches(
+                src, batch_size=TD_BATCH, mesh={"dp": TD_RANKS},
+                spec=("dp",), coordinate={"dp": r})):
+            lo = i * TD_BATCH + r * block
+            assert np.array_equal(b["id"].cpu().numpy(),
+                                  np.arange(lo, lo + block)), (r, i)
+            assert np.array_equal(b["image"].cpu().numpy(),
+                                  src.cols["image"][lo:lo + block]), (r, i)
+    log(f"[train-data] (a) iter_device_batches: {TD_ROWS} rows in "
+        f"{len(got)} batches of {TD_BATCH} ({nbytes / 1e6:.1f} MB) on the "
+        f"card in {secs * 1e3:.1f} ms ({nbytes / secs / 1e9:.2f} GB/s, "
+        f"pinned + non-blocking, the source's slicing included), equal to "
+        f"the source; {TD_RANKS} dp ranks' regions equal to their blocks; "
+        f"on {smi}")
+    # (b) the predictor from both checkpoint kinds
+    rng = np.random.default_rng(1)
+    params = {"w": rng.standard_normal((3 * 32 * 32, 10), np.float32),
+              "b": rng.standard_normal(10, np.float32)}
+    x = got[0]["image"].reshape(TD_BATCH, -1)
+    want = (x.cpu().numpy().astype(np.float64) @ params["w"] + params["b"])
+
+    def apply(p, batch):
+        return batch["x"] @ p["w"] + p["b"]
+
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "dict")
+        os.makedirs(d)
+        with open(os.path.join(d, _DictCheckpoint.FILE), "wb") as f:
+            pickle.dump({"params": params}, f)
+        a = os.path.join(tmp, "array")
+        save_pytree(params, a)
+        template = {k: torch.zeros(v.shape) for k, v in params.items()}
+        for kind, pred in (
+                ("dict", TorchPredictor.from_checkpoint(
+                    _DictCheckpoint(d), apply_fn=apply)),
+                ("array", TorchPredictor.from_checkpoint(
+                    _DictCheckpoint(a), apply_fn=apply, template=template))):
+            assert pred._params["w"].device.type == "cuda"
+            out = pred.predict({"x": x.cpu().numpy()})["predictions"]
+            errs[kind] = float(np.abs(out - want).max() / np.abs(want).max())
+    log(f"[train-data] (b) TorchPredictor on the card, dict and array "
+        f"checkpoints: max error {errs} of the float64 product's max "
+        f"(gate 1e-5); on {smi}")
+    assert max(errs.values()) <= 1e-5, errs
+    # (c) the device channel
+    host = _QueueChannel()
+    chan = DeviceChannel(host)
+    try:
+        for shape, dtype in (((1024, 1024), torch.float32),
+                             ((4096, 2048), torch.bfloat16)):
+            t = torch.randn(shape, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(2)
+                            ).to(dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chan.write(t)
+            back = chan.read(timeout=60)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            assert back.device.type == "cuda" and back.dtype == dtype
+            assert torch.equal(back, t), dtype
+            log(f"[train-data] (c) DeviceChannel {list(shape)} {dtype}: "
+                f"card -> host queue -> card bit-equal, {ms:.2f} ms "
+                f"({t.numel() * t.element_size() / ms / 1e6:.2f} GB/s "
+                f"round trip, host clock); on {smi}")
+        chan.write({"step": 3})
+        assert chan.read(timeout=10) == {"step": 3}
+    finally:
+        chan.close()
+    log(f"[time] train-data {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -6122,6 +6474,7 @@ def main():
     pp_launches = phase("pipeline", pipeline_phase, smi)
     vtm_launches, vtm_res = phase("vit-t5-mlp", vit_t5_mlp_phase, smi)
     phase("rllib", rllib_phase, smi)
+    phase("train-data", train_data_phase, smi)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     # the main path is bf16: its flash kernels are the wgmma ones

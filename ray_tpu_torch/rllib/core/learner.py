@@ -16,7 +16,11 @@ adam(lr))`` written out on the parameter list:
 Subclasses implement ``loss_fn(batch, generator) -> (loss, metrics)``
 over the module's own parameters (JAX's ``loss_fn(params, batch, rng)``
 with the params bound). A parameter the loss does not reach gets a zero
-gradient, as ``jax.grad`` gives it.
+gradient, as ``jax.grad`` gives it. Every random draw a loss makes goes
+through `TorchLearner.noise`: the learner's device generator by
+default, or a source installed with `set_noise` that returns given
+arrays (JAX's threefry bits cannot be reproduced, so tests feed the JAX
+loss's own draws through it).
 
 ``update_ddp`` is the data-parallel step: local gradients flattened in
 ``ravel_pytree``'s order, averaged with one all-reduce over a
@@ -43,13 +47,19 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 def to_tensors(batch: Dict[str, Any], device: torch.device
                ) -> Dict[str, torch.Tensor]:
-    """A numpy column batch on ``device`` (dtypes kept)."""
-    return {k: torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items()}
+    """A numpy column batch on ``device``: float64 columns (a runner's
+    rewards) become float32, as ``jnp.asarray`` makes them without x64;
+    other dtypes are kept."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        out[k] = torch.as_tensor(v.astype(np.float32) if v.dtype == np.float64
+                                 else v, device=device)
+    return out
 
 
 def _tensor(x, device) -> torch.Tensor:
-    x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    x = x if torch.is_tensor(x) else torch.as_tensor(np.array(x))
     return x.to(device=device, dtype=torch.float32)
 
 
@@ -88,6 +98,7 @@ class TorchLearner:
         self.params: List[torch.nn.Parameter] = [
             p for _, p in tree_paths(self.module)]
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._noise = None
         self._init_opt()
 
     def _init_opt(self) -> None:
@@ -102,6 +113,26 @@ class TorchLearner:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (scalar loss, metrics dict of tensors)."""
         raise NotImplementedError
+
+    def noise(self, name: str, shape, kind: str = "normal"
+              ) -> torch.Tensor:
+        """One random draw of a loss: ``kind`` "normal" (standard) or
+        "uniform" (in [0, 1)), f32 on the learner's device. ``name``
+        says which draw of the loss it is, for an installed source."""
+        shape = tuple(int(n) for n in shape)
+        if self._noise is not None:
+            x = _tensor(self._noise(name, shape, kind), self.device)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"noise {name!r}: shape {tuple(x.shape)} "
+                                 f"!= {shape}")
+            return x
+        draw = torch.randn if kind == "normal" else torch.rand
+        return draw(shape, generator=self._gen, device=self.device)
+
+    def set_noise(self, source) -> None:
+        """Install ``source(name, shape, kind) -> array`` in place of the
+        generator (None restores it)."""
+        self._noise = source
 
     # ---- update paths ----
 

@@ -88,9 +88,14 @@ def _mlp(sizes: Sequence[int],
 
 
 def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor,
-               final_activation: bool = False) -> torch.Tensor:
+               final_activation: bool = False,
+               frozen: bool = False) -> torch.Tensor:
+    """The MLP on ``x``; ``frozen`` takes its weights detached (JAX's
+    ``stop_gradient`` on the params: gradients reach ``x`` only)."""
     for i, layer in enumerate(layers):
-        x = x @ layer.w + layer.b
+        w, b = (layer.w.detach(), layer.b.detach()) if frozen \
+            else (layer.w, layer.b)
+        x = x @ w + b
         if i < len(layers) - 1 or final_activation:
             x = torch.tanh(x)
     return x
@@ -201,11 +206,15 @@ class SACModule(RLModule):
         mu, log_std = torch.chunk(_mlp_apply(self.pi, obs), 2, dim=-1)
         return mu, torch.clamp(log_std, self.LOG_STD_MIN, self.LOG_STD_MAX)
 
-    def sample_action(self, obs, generator):
-        """Reparameterized tanh-squashed sample + its log-prob."""
+    def sample_action(self, obs, generator=None, eps=None):
+        """Reparameterized tanh-squashed sample + its log-prob. ``eps``
+        is the standard normal draw (a learner passes its `noise`);
+        without it one is drawn from ``generator``."""
         mu, log_std = self.pi_dist(obs)
         std = torch.exp(log_std)
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=mu.device)
         tanh_a = torch.tanh(mu + std * eps)
         # Gaussian logp with tanh change-of-variables correction.
         gauss_logp = (-0.5 * (eps ** 2 + 2 * log_std
@@ -214,10 +223,12 @@ class SACModule(RLModule):
         action = tanh_a * self.action_scale + self.action_center
         return action, gauss_logp - correction
 
-    def q_values(self, obs, action):
+    def q_values(self, obs, action, frozen=False):
+        """Both critics; ``frozen`` detaches their weights (a loss that
+        trains the actor through them)."""
         x = torch.cat([obs, action], dim=-1)
-        return (_mlp_apply(self.q1, x)[..., 0],
-                _mlp_apply(self.q2, x)[..., 0])
+        return (_mlp_apply(self.q1, x, frozen=frozen)[..., 0],
+                _mlp_apply(self.q2, x, frozen=frozen)[..., 0])
 
     def forward_train(self, obs):
         mu, log_std = self.pi_dist(obs)
@@ -263,10 +274,12 @@ class DDPGModule(RLModule):
         return (torch.tanh(_mlp_apply(self.pi, obs)) * self.action_scale
                 + self.action_center)
 
-    def q_values(self, obs, action):
+    def q_values(self, obs, action, frozen=False):
+        """Both critics; ``frozen`` detaches their weights (a loss that
+        trains the actor through them)."""
         x = torch.cat([obs, action], dim=-1)
-        return (_mlp_apply(self.q1, x)[..., 0],
-                _mlp_apply(self.q2, x)[..., 0])
+        return (_mlp_apply(self.q1, x, frozen=frozen)[..., 0],
+                _mlp_apply(self.q2, x, frozen=frozen)[..., 0])
 
     def forward_train(self, obs):
         return {"actions": self.action(obs)}

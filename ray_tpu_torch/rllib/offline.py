@@ -109,13 +109,15 @@ class JsonReader:
         return {k: np.concatenate(v) for k, v in cols.items()}
 
     def as_dataset(self, parallelism: int = 8):
-        """A Data-library Dataset of per-step rows. The Data library is
-        not ported: pass `read_all()`'s column dict to
-        ``offline_data(dataset=...)`` instead."""
+        """A Data-library Dataset of per-step rows. The port has no
+        Dataset (its Data piece, `ray_tpu_torch.data`, moves the batches
+        of any source with ``iter_batches`` onto a device): pass
+        `read_all()`'s column dict to ``offline_data(dataset=...)``
+        instead."""
         raise NotImplementedError(
-            "JsonReader.as_dataset needs the Data library, which is not "
-            "ported to ray_tpu_torch yet (ROADMAP.md, Queue A item A14d); "
-            "use read_all()")
+            "JsonReader.as_dataset needs a Dataset, which needs the actor "
+            "runtime the port does not have yet (ROADMAP.md, Queue A item "
+            "A14e); use read_all()")
 
 
 def collect_experiences(algorithm, path: str, steps_per_round: int = 512,
