@@ -301,6 +301,18 @@ Phases, each of which must pass:
                TorchPredictor from a dict and an array checkpoint, and
                f32 / bf16 tensors through DeviceChannel over a host queue
                back bit-equal. Prints GB/s and ms.
+ 22. rllib-c — QMIX, AlphaZero and DreamerV3 on the card, f32, TF32 off:
+               (a) one fixed update of each (DreamerV3: a whole train
+               with seeded Gumbel draws), card against the CPU: float64
+               gradients, metrics, weights, QMIX's target, DreamerV3's
+               slow critic and return EMA; (b) three planted faults that
+               must fail (QMIX's mixer without abs, DreamerV3's
+               straight-through without its stop-gradient, AlphaZero's
+               value head without tanh); (c) QMIX solves CoopPress,
+               DreamerV3's world model learns CartPole, AlphaZero beats
+               random at TicTacToe, at the JAX tests' settings. Prints
+               ms per update, train call, predictor call and game, and
+               env steps/s.
 `--ep-cards N` and `--pp-cards N` run the moe and pipeline models over N
 cards (NCCL, one rank process a card) beside one card's step.
 The line before the last is a JSON object {"kernels": [...]} (a kernel
@@ -6430,6 +6442,435 @@ def train_data_phase(smi):
     log(f"[time] train-data {time.perf_counter() - t_phase:.1f} s")
 
 
+# The rllib-c phase (ROADMAP A14c): QMIX, AlphaZero and DreamerV3 on the
+# card, f32, TF32 off. (a) One fixed update of each, the card against the
+# port on the CPU from the same weights: QMIX's update and soft target
+# sync (its target moved off the online weights) on a seeded 128-row
+# batch; AlphaZero's update on a seeded 128-row batch; DreamerV3's whole
+# `train` (world-model step, imagination on the stepped model, actor and
+# critic steps, slow-critic and return-normalization EMAs) on a seeded
+# batch of RLC_DV3_BT sequences with the same seeded Gumbel draws
+# installed on both devices (RLC_DV3_BT is cut from the default 16 x 16
+# so that an f32 near-tie between the devices' samples, which would move
+# a latent, stays unlikely among ~1,700 samples). Loss metrics (and
+# ret_lo / ret_hi) within RL_GRAD_ATOL + RL_GRAD_RTOL |CPU|; weights,
+# targets and the slow critic within RL_STEP_ATOL x lr; the first
+# update's gradients in float64 on both devices (DreamerV3: the world
+# model's, and the actor's and critic's on its posterior features),
+# where the order of f32 products would decide, within the same
+# tolerance. (b) Three planted faults must each be rejected: QMIX's
+# mixer without abs (the monotonicity gate: every dQ_tot/dQ_a >= 0 on
+# RLC_MONO_ROWS seeded rows), DreamerV3's straight-through sample without
+# the stop-gradient on probs (the gradient gate), AlphaZero's value head
+# without tanh (the metric and gradient gates). (c) Learning on the card
+# at the JAX tests' own settings: QMIX solves CoopPress (greedy return >
+# 6.5 after 40 steps, tests/test_rllib_qmix.py), DreamerV3's world-model
+# loss falls below 0.7 of its first value in 30 steps on CartPole with
+# its entropy in (0, ln 2] (tests/test_dreamerv3.py), AlphaZero after 25
+# iterations loses <= 0.15 and wins >= 0.75 of 30 games against random
+# (tests/test_rllib_alphazero.py). (d) Times: a QMIX update, an
+# AlphaZero predictor call (one uncached state: a forward and one copy
+# to the host) and self-play game, a DreamerV3 train call, and
+# DreamerV3's env steps/s.
+RLC_DV3_BT = (4, 8)
+RLC_MONO_ROWS = 512
+RLC_QMIX_STEPS, RLC_DV3_STEPS, RLC_AZ_ITERS = 40, 30, 25
+
+
+def _rlc_noise(name, shape, kind):
+    """The seeded draw ``name``: the same numbers on every device."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if kind == "normal":
+        return rng.standard_normal(shape, np.float32)
+    u = rng.random(shape, np.float32)
+    if kind == "gumbel":
+        return -np.log(-np.log(np.maximum(u, np.finfo(np.float32).tiny)))
+    return u
+
+
+def _rlc_f64(batch, device):
+    """A numpy batch as float64 (float columns) tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v, np.float64)
+                               if np.asarray(v).dtype.kind == "f"
+                               else np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def _rlc_grads(loss, module):
+    from ray_tpu_torch.rllib.core.rl_module import tree_paths
+
+    grads = torch.autograd.grad(loss, [p for _, p in tree_paths(module)],
+                                allow_unused=True, materialize_grads=True)
+    return [g.detach().cpu().numpy().ravel() for g in grads]
+
+
+def _rlc_flat(*modules):
+    from ray_tpu_torch.rllib.core.rl_module import params_to_numpy, ravel_tree
+
+    return np.concatenate([ravel_tree(params_to_numpy(m))[0]
+                           for m in modules])
+
+
+def _rlc_qmix(device):
+    """QMIX's fixed update on ``device``: {"grads" (float64), "metrics",
+    "flat": {part: flat weights}, "atol": {part: tolerance}}."""
+    import copy
+
+    from ray_tpu_torch.rllib.algorithms.qmix import QMIXConfig
+    from ray_tpu_torch.rllib.env.multi_agent_env import CoopPress
+
+    algo = (QMIXConfig().environment(CoopPress, env_config={"episode_len": 8})
+            .learners(device=device).debugging(seed=4).build_algo())
+    assert algo.device.type == device
+    with torch.no_grad():
+        for t in algo.target_module.parameters():
+            t.copy_(t * 0.9 + 0.01)
+    rng = np.random.RandomState(21)
+    n = algo.config.train_batch_size
+    batch = {"obs": rng.randn(n, 2, 2).astype(np.float32),
+             "actions": rng.randint(0, 2, (n, 2)).astype(np.int32),
+             "rewards": rng.randn(n).astype(np.float32),
+             "next_obs": rng.randn(n, 2, 2).astype(np.float32),
+             "dones": (rng.rand(n) < 0.2).astype(np.float32)}
+    ref = copy.copy(algo)
+    ref.module = copy.deepcopy(algo.module).double()
+    ref.target_module = copy.deepcopy(algo.target_module).double()
+    loss64, _ = ref._loss(_rlc_f64(batch, device))
+    grads = np.concatenate(_rlc_grads(loss64, ref.module))
+    m = algo._update(batch)
+    algo._sync_target(algo.config.tau)
+    atol = RL_STEP_ATOL * algo.config.lr
+    return {"grads": grads,
+            "metrics": np.array([float(m[k]) for k in sorted(m)]),
+            "flat": {"weights": _rlc_flat(algo.module),
+                     "target": _rlc_flat(algo.target_module)},
+            "atol": {"weights": atol, "target": atol}}
+
+
+def _rlc_az(device):
+    """AlphaZero's fixed update on ``device`` (as `_rlc_qmix`)."""
+    import copy
+
+    from ray_tpu_torch.rllib.algorithms.alphazero import AlphaZeroConfig
+
+    algo = AlphaZeroConfig().learners(device=device).debugging(
+        seed=4).build_algo()
+    assert algo.device.type == device
+    rng = np.random.RandomState(22)
+    n = algo.config.train_batch_size
+    batch = {"obs": rng.randint(-1, 2, (n, 9)).astype(np.float32),
+             "pi": rng.dirichlet(np.ones(9), n).astype(np.float32),
+             "z": rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32)}
+    ref = copy.copy(algo)
+    ref.module = copy.deepcopy(algo.module).double()
+    loss64, _ = ref._loss(_rlc_f64(batch, device))
+    grads = np.concatenate(_rlc_grads(loss64, ref.module))
+    m = algo._update(batch)
+    return {"grads": grads,
+            "metrics": np.array([float(m[k]) for k in sorted(m)]),
+            "flat": {"weights": _rlc_flat(algo.module)},
+            "atol": {"weights": RL_STEP_ATOL * algo.config.lr}}
+
+
+def _rlc_dv3_learner(device):
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import (DreamerV3Config,
+                                                          DreamerV3Learner)
+
+    cfg = (DreamerV3Config().environment("CartPole-v1")
+           .learners(device=device).debugging(seed=4).to_dict())
+    learner = DreamerV3Learner(4, 2, cfg)
+    assert learner.device.type == device
+    return learner
+
+
+def _rlc_dv3_batch():
+    b, t = RLC_DV3_BT
+    rng = np.random.RandomState(23)
+    first = np.zeros((b, t), np.float32)
+    first[:, 0] = 1.0
+    first[0, t // 2] = 1.0
+    return {"obs": rng.randn(b, t, 4).astype(np.float32),
+            "actions": rng.randint(0, 2, (b, t)).astype(np.int32),
+            "rewards": rng.rand(b, t).astype(np.float32),
+            "terminateds": (rng.rand(b, t) < 0.05).astype(np.float32),
+            "is_first": first}
+
+
+def _rlc_dv3(device):
+    """DreamerV3's fixed train on ``device``: {"grads" (float64: world
+    model, then actor and critic on its posterior features), "metrics"
+    (ret_lo / ret_hi last), "flat": {wm, actor, critic, slow_critic},
+    "atol": per part}."""
+    import copy
+
+    from ray_tpu_torch.rllib.core.learner import to_tensors
+
+    learner = _rlc_dv3_learner(device)
+    learner.set_noise(_rlc_noise)
+    batch = _rlc_dv3_batch()
+    ref = copy.copy(learner)
+    for part in ("wm", "actor", "critic", "slow_critic"):
+        setattr(ref, part, copy.deepcopy(getattr(learner, part)).double())
+    wm_loss, feat, _ = ref._wm_loss(_rlc_f64(batch, device))
+    grads = _rlc_grads(wm_loss, ref.wm)
+    a_loss, c_loss, _, _, _ = ref._ac_losses(
+        feat.detach().reshape(-1, feat.shape[-1]))
+    grads += _rlc_grads(a_loss, ref.actor) + _rlc_grads(c_loss, ref.critic)
+    m = learner.train_step(to_tensors(batch, learner.device))
+    metrics = [float(m[k]) for k in sorted(m)]
+    metrics += [float(learner.ret_lo), float(learner.ret_hi)]
+    cfg = learner.cfg
+    return {"grads": np.concatenate(grads), "metrics": np.array(metrics),
+            "flat": {p: _rlc_flat(getattr(learner, p))
+                     for p in ("wm", "actor", "critic", "slow_critic")},
+            "atol": {"wm": RL_STEP_ATOL * cfg["model_lr"],
+                     "actor": RL_STEP_ATOL * cfg["actor_lr"],
+                     "critic": RL_STEP_ATOL * cfg["critic_lr"],
+                     "slow_critic": RL_STEP_ATOL * cfg["critic_lr"]}}
+
+
+def _rlc_gates(card, cpu):
+    """{"grads": share of the gradient tolerance, "metrics": share of the
+    metric tolerance, each weight part: its largest difference over its
+    tolerance}: at most 1 passes."""
+    out = {"grads": _rl_tol_ratio(card["grads"], cpu["grads"]),
+           "metrics": _rl_tol_ratio(card["metrics"], cpu["metrics"])}
+    for part, atol in card["atol"].items():
+        out[part] = float(np.abs(card["flat"][part]
+                                 - cpu["flat"][part]).max()) / atol
+    return out
+
+
+def _rlc_mix_no_abs(self, agent_q, state):
+    """A planted fault: QMIX's mixer with its hypernetwork weights
+    unconstrained (no abs)."""
+    from ray_tpu_torch.rllib.core.rl_module import _mlp_apply
+
+    w1 = _mlp_apply(self.hyper_w1, state).reshape(-1, self.n_agents,
+                                                  self.embed)
+    b1 = _mlp_apply(self.hyper_b1, state)
+    hidden = torch.nn.functional.elu(
+        torch.einsum("ba,bae->be", agent_q, w1) + b1)
+    w2 = _mlp_apply(self.hyper_w2, state)
+    b2 = _mlp_apply(self.hyper_b2, state)[..., 0]
+    return torch.einsum("be,be->b", hidden, w2) + b2
+
+
+def _rlc_latent_no_stop_gradient(self, logits, gumbel=None):
+    """A planted fault: DreamerV3's straight-through sample without the
+    stop-gradient on probs."""
+    F = torch.nn.functional
+    logits = logits.reshape(*logits.shape[:-1], self.G, self.C)
+    probs = 0.99 * torch.softmax(logits, -1) + 0.01 / self.C
+    logp = torch.log(probs)
+    if gumbel is None:
+        return None, logp
+    onehot = F.one_hot(torch.argmax(logp + gumbel, -1), self.C).to(
+        probs.dtype)
+    st = onehot + probs - probs
+    return st.reshape(*st.shape[:-2], self.G * self.C), logp
+
+
+def _rlc_value_no_tanh(self, obs):
+    """A planted fault: AlphaZero's value head without tanh."""
+    from ray_tpu_torch.rllib.core.rl_module import _mlp_apply
+
+    feat = _mlp_apply(self.torso, obs, final_activation=True)
+    return _mlp_apply(self.pi, feat), _mlp_apply(self.v, feat)[..., 0]
+
+
+def _rlc_negative_share(module):
+    """The share of dQ_tot/dQ_a < 0 over RLC_MONO_ROWS seeded rows (the
+    mixer's monotonicity; 0 passes)."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    q = torch.randn((RLC_MONO_ROWS, module.n_agents), device="cuda",
+                    generator=gen).requires_grad_(True)
+    state = torch.randn((RLC_MONO_ROWS, module.hyper_w1[0].w.shape[0]),
+                        device="cuda", generator=gen)
+    d = torch.autograd.grad(module.mix(q, state).sum(), q)[0]
+    return float((d < 0).float().mean())
+
+
+def _rlc_fmt(gates):
+    return ", ".join(f"{k} {v:.3g}" for k, v in gates.items())
+
+
+def _rlc_learn_qmix(smi):
+    from ray_tpu_torch.rllib.algorithms.qmix import QMIXConfig
+    from ray_tpu_torch.rllib.env.multi_agent_env import CoopPress
+
+    algo = (QMIXConfig().environment(CoopPress, env_config={"episode_len": 8})
+            .debugging(seed=0).build_algo())
+    assert algo.device.type == "cuda"
+    t0 = time.perf_counter()
+    for _ in range(RLC_QMIX_STEPS):
+        result = algo.step()
+    wall = time.perf_counter() - t0
+    ev = algo.evaluate(num_episodes=10)["evaluation"]["episode_return_mean"]
+    batch = dict(algo._replay.sample(algo.config.train_batch_size))
+    upd_ms = _time_ms(lambda: algo._update(batch), 20)
+    log(f"[rllib-c] (c) QMIX, CoopPress, {RLC_QMIX_STEPS} steps on the card "
+        f"(TF32 off): td_loss {result['td_loss']:.4g}, greedy return "
+        f"{ev:.4g} over 10 episodes (gate > 6.5; optimum 8.0); "
+        f"{wall:.2f} s; (d) an update (128 rows, clip + Adam, the batch's "
+        f"copy to the card included) {upd_ms:.3f} ms (CUDA events); on {smi}")
+    assert np.isfinite(result["td_loss"]), result
+    assert ev > 6.5, ev
+
+
+def _rlc_learn_dv3(smi):
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3Config
+    from ray_tpu_torch.rllib.core.learner import to_tensors
+
+    algo = (DreamerV3Config().environment("CartPole-v1")
+            .env_runners(num_envs_per_runner=4)
+            .training(env_steps_per_iteration=32,
+                      train_updates_per_iteration=2,
+                      num_steps_before_learning=200)
+            .debugging(seed=2).build_algo())
+    assert algo.device.type == "cuda"
+    learner, train_step = algo.learner, algo.learner.train_step
+    spent = {"train": 0.0, "n": 0}
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        spent["train"] += time.perf_counter() - t0
+        spent["n"] += 1
+        return out
+
+    learner.train_step = timed
+    first = last = None
+    t0 = time.perf_counter()
+    for _ in range(RLC_DV3_STEPS):
+        r = algo.step()
+        if "wm_loss" in r:
+            first = r["wm_loss"] if first is None else first
+            last = r["wm_loss"]
+    wall = time.perf_counter() - t0
+    learner.train_step = train_step
+    steps = algo._env_steps
+    batch = to_tensors(algo.replay.sample(algo.config.batch_size_sequences,
+                                          algo.config.sequence_length),
+                       learner.device)
+    train_ms = _time_ms(lambda: train_step(batch), 5)
+    log(f"[rllib-c] (c) DreamerV3, CartPole, {RLC_DV3_STEPS} steps on the "
+        f"card (TF32 off): world-model loss {first:.4g} -> {last:.4g} "
+        f"({last / first:.3f} of the first; gate < 0.7), imagined return "
+        f"{r['imagined_return']:.4g}, actor entropy "
+        f"{r['actor_entropy']:.4g} (gate in (0, ln 2]); {wall:.2f} s; (d) "
+        f"{steps} env steps at {steps / (wall - spent['train']):.1f} steps/s "
+        f"(the wall less the {spent['n']} train calls); a train call "
+        f"(16 x 16 sequences, horizon 10) {train_ms:.3f} ms (CUDA events); "
+        f"on {smi}")
+    assert first is not None and last < 0.7 * first, (first, last)
+    assert np.isfinite(r["imagined_return"]), r
+    assert 0.0 < r["actor_entropy"] <= np.log(2) + 1e-3, r
+
+
+def _rlc_learn_az(smi):
+    from ray_tpu_torch.rllib.algorithms.alphazero import AlphaZeroConfig
+
+    algo = AlphaZeroConfig().debugging(seed=0).build_algo()
+    assert algo.device.type == "cuda"
+    pre_net = algo.play_vs_random(30, simulations=4)
+    game, games = algo._self_play_game, []
+
+    def timed_game():
+        t0 = time.perf_counter()
+        out = game()
+        games.append(time.perf_counter() - t0)
+        return out
+
+    algo._self_play_game = timed_game
+    t0 = time.perf_counter()
+    for _ in range(RLC_AZ_ITERS):
+        result = algo.step()
+    wall = time.perf_counter() - t0
+    post_full = algo.play_vs_random(30)
+    post_net = algo.play_vs_random(30, simulations=4)
+    # one uncached state per call: a forward and one copy to the host
+    pred, boards = algo._predictor, []
+    state = algo.game.initial_state()
+    for a in (4, 0, 8, 2, 6):
+        boards.append(state)
+        state = algo.game.next_state(state, a)
+    pred(boards[0])
+    t1 = time.perf_counter()
+    for i in range(200):
+        pred.set_params(algo.module)
+        pred(boards[i % len(boards)])
+    pred_ms = (time.perf_counter() - t1) / 200 * 1e3
+    log(f"[rllib-c] (c) AlphaZero, TicTacToe, {RLC_AZ_ITERS} iterations on "
+        f"the card (TF32 off): policy_loss {result['policy_loss']:.4g}; "
+        f"against random over 30 games {post_full} (gate: loss_rate <= "
+        f"0.15, win_rate >= 0.75); at 4 simulations, untrained {pre_net}, "
+        f"trained {post_net} (reported); {wall:.2f} s; (d) a self-play game "
+        f"{np.mean(games) * 1e3:.1f} ms (mean of {len(games)}, host clock), "
+        f"a predictor call on an uncached state {pred_ms:.4f} ms (host "
+        f"clock, the copy to the host included); on {smi}")
+    assert np.isfinite(result["policy_loss"]), result
+    assert post_full["loss_rate"] <= 0.15, post_full
+    assert post_full["win_rate"] >= 0.75, post_full
+
+
+def rllib_c_phase(smi):
+    """The rllib-c phase (see RLC_* above); at most ~45 s."""
+    from ray_tpu_torch.rllib.algorithms import alphazero, dreamerv3, qmix
+
+    t_phase = time.perf_counter()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    # (a) card against CPU; (b) the planted faults
+    rows, failed = [], []
+    cpu = {"qmix": _rlc_qmix("cpu"), "alphazero": _rlc_az("cpu"),
+           "dreamerv3": _rlc_dv3("cpu")}
+    run = {"qmix": _rlc_qmix, "alphazero": _rlc_az, "dreamerv3": _rlc_dv3}
+    for name, fn in run.items():
+        gates = _rlc_gates(fn("cuda"), cpu[name])
+        rows.append(f"{name}: {_rlc_fmt(gates)}")
+        if max(gates.values()) > 1:
+            failed.append(name)
+    from ray_tpu_torch.rllib.env.multi_agent_env import CoopPress
+
+    mixer = (qmix.QMIXConfig().environment(CoopPress).debugging(seed=4)
+             .build_algo().module)
+    neg = _rlc_negative_share(mixer)
+    with mock.patch.object(qmix.QMIXModule, "mix", _rlc_mix_no_abs):
+        neg_fault = _rlc_negative_share(mixer)
+    with mock.patch.object(dreamerv3.DreamerV3Learner, "_latent",
+                           _rlc_latent_no_stop_gradient):
+        st_fault = _rlc_gates(_rlc_dv3("cuda"), cpu["dreamerv3"])
+    with mock.patch.object(alphazero.AlphaZeroModule, "forward",
+                           _rlc_value_no_tanh):
+        tanh_fault = _rlc_gates(_rlc_az("cuda"), cpu["alphazero"])
+    log(f"[rllib-c] (a) one fixed update each, the card against the CPU "
+        f"(TF32 off; shares of each tolerance: gradients in float64 and "
+        f"metrics within {RL_GRAD_ATOL:g} + {RL_GRAD_RTOL:g} |CPU|, weights "
+        f"within {RL_STEP_ATOL:g} x lr; DreamerV3 a {RLC_DV3_BT[0]} x "
+        f"{RLC_DV3_BT[1]} batch, seeded Gumbel draws, ret_lo / ret_hi among "
+        f"its metrics): {'; '.join(rows)}; (b) planted faults: QMIX mixer "
+        f"without abs, dQ_tot/dQ_a < 0 on {neg_fault:.3g} of "
+        f"{RLC_MONO_ROWS} x 2 (the real mixer {neg:.3g}; gate 0); DreamerV3 "
+        f"straight-through without the stop-gradient: {_rlc_fmt(st_fault)}; "
+        f"AlphaZero value head without tanh: {_rlc_fmt(tanh_fault)}; "
+        f"{time.perf_counter() - t_phase:.1f} s; on {smi}")
+    assert not failed, failed
+    assert neg == 0.0 and neg_fault > 0, (neg, neg_fault)
+    assert st_fault["grads"] > 1, f"straight-through fault NOT rejected: " \
+        f"{st_fault}"
+    assert tanh_fault["grads"] > 1 and tanh_fault["metrics"] > 1, \
+        f"value head fault NOT rejected: {tanh_fault}"
+    # (c) learning and (d) times
+    _rlc_learn_qmix(smi)
+    _rlc_learn_dv3(smi)
+    _rlc_learn_az(smi)
+    log(f"[time] rllib-c {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     spent = {}
 
@@ -6475,6 +6916,7 @@ def main():
     vtm_launches, vtm_res = phase("vit-t5-mlp", vit_t5_mlp_phase, smi)
     phase("rllib", rllib_phase, smi)
     phase("train-data", train_data_phase, smi)
+    phase("rllib-c", rllib_c_phase, smi)
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
         + f"; total {sum(spent.values()):.1f} s")
     # the main path is bf16: its flash kernels are the wgmma ones

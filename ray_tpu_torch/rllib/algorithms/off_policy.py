@@ -16,7 +16,6 @@ networks on them directly.
 
 from __future__ import annotations
 
-import copy
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -24,7 +23,7 @@ import torch
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm
 from ray_tpu_torch.rllib.core.learner import TorchLearner, _tensor
 from ray_tpu_torch.rllib.core.rl_module import (RLModule, _leaf, _nest,
-                                                tree_paths)
+                                                frozen_copy, tree_paths)
 from ray_tpu_torch.rllib.utils.replay_buffers import ReplayBuffer
 
 
@@ -41,9 +40,7 @@ class TargetNetworkLearner(TorchLearner):
 
     def _make_target(self) -> RLModule:
         """A copy of the module that shares no storage with it."""
-        target = copy.deepcopy(self.module)
-        target.requires_grad_(False)
-        return target
+        return frozen_copy(self.module)
 
     def _target_pairs(self) -> List[Tuple[Tuple[Any, ...], torch.Tensor,
                                           torch.Tensor]]:

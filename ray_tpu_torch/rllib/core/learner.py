@@ -4,7 +4,8 @@ Port of `ray_tpu/rllib/core/learner.py` (``JaxLearner``). The module's
 parameters live on the learner's device (``"cuda"`` unless the caller
 passes ``device="cpu"``); a step is the loss, its gradients by
 autograd, and exactly optax's ``chain(clip_by_global_norm(c),
-adam(lr))`` written out on the parameter list:
+adam(lr))`` written out on the parameter list (`Adam`, which the
+algorithms with their own modules use too):
 
 - clipping scales every gradient by ``(g / norm) * c`` only when the
   global norm is ``>= c`` (``torch.nn.utils.clip_grad_norm_`` divides
@@ -77,7 +78,99 @@ def scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {k: out[k] for k in metrics}
 
 
-class TorchLearner:
+class Adam:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adam(lr))``
+    (``adam(lr)`` alone when ``grad_clip`` is None) and ``params +
+    updates``, in place, over a module's parameters in JAX's leaf order;
+    its state crosses as numpy trees in JAX's layout (``{"count", "mu",
+    "nu"}``)."""
+
+    def __init__(self, module: torch.nn.Module, lr: float, grad_clip=None):
+        pairs = tree_paths(module)
+        self.paths = [path for path, _ in pairs]
+        self.params: List[torch.nn.Parameter] = [p for _, p in pairs]
+        self.lr, self.grad_clip = float(lr), grad_clip
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def reset(self) -> None:
+        self.count = 0
+        with torch.no_grad():
+            for m, v in zip(self.mu, self.nu):
+                m.zero_()
+                v.zero_()
+
+    def step(self, grads: List[torch.Tensor]) -> None:
+        with torch.no_grad():
+            if self.grad_clip is not None:
+                c = self.grad_clip
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                keep = norm < c
+                grads = [torch.where(keep, g, (g / norm) * c) for g in grads]
+            self.count += 1
+            # optax computes decay ** count in float32
+            bc1 = float(np.float32(1) - np.float32(ADAM_B1)
+                        ** np.float32(self.count))
+            bc2 = float(np.float32(1) - np.float32(ADAM_B2)
+                        ** np.float32(self.count))
+            for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+                m.copy_((1 - ADAM_B1) * g + ADAM_B1 * m)
+                v.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * v)
+                step = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+                p.copy_(p + (-self.lr) * step)
+
+    def state(self) -> Dict[str, Any]:
+        def tree(xs):
+            return _nest([(path, x.detach().cpu().numpy().copy())
+                          for path, x in zip(self.paths, xs)])
+
+        return {"count": self.count, "mu": tree(self.mu), "nu": tree(self.nu)}
+
+    def load(self, state: Dict[str, Any]) -> None:
+        self.count = int(state["count"])
+        with torch.no_grad():
+            for path, m, v in zip(self.paths, self.mu, self.nu):
+                m.copy_(_tensor(_leaf(state["mu"], path), m.device))
+                v.copy_(_tensor(_leaf(state["nu"], path), v.device))
+
+
+class NoiseSeam:
+    """The random draws of a loss. A class using it sets ``device``,
+    ``_gen`` (a generator on that device) and ``_noise = None``."""
+
+    def noise(self, name: str, shape, kind: str = "normal"
+              ) -> torch.Tensor:
+        """One random draw of a loss: ``kind`` "normal" (standard),
+        "uniform" (in [0, 1)) or "gumbel" (standard Gumbel, ``-log(-log
+        u)`` with u uniform in [tiny, 1), as ``jax.random.gumbel``), f32
+        on the learner's device. ``name`` says which draw of the loss it
+        is, for an installed source."""
+        shape = tuple(int(n) for n in shape)
+        if self._noise is not None:
+            x = _tensor(self._noise(name, shape, kind), self.device)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"noise {name!r}: shape {tuple(x.shape)} "
+                                 f"!= {shape}")
+            return x
+        if kind == "normal":
+            return torch.randn(shape, generator=self._gen,
+                               device=self.device)
+        u = torch.rand(shape, generator=self._gen, device=self.device)
+        if kind == "uniform":
+            return u
+        if kind == "gumbel":
+            return -torch.log(-torch.log(
+                u.clamp_min(torch.finfo(torch.float32).tiny)))
+        raise ValueError(f"unknown noise kind {kind!r}")
+
+    def set_noise(self, source) -> None:
+        """Install ``source(name, shape, kind) -> array`` in place of the
+        generator (None restores it)."""
+        self._noise = source
+
+
+class TorchLearner(NoiseSeam):
     """Base learner; subclasses implement loss_fn."""
 
     def __init__(self, module_spec: RLModuleSpec, config: dict,
@@ -94,17 +187,10 @@ class TorchLearner:
                                                   device=self.device)
         self.lr = float(config.get("lr", 3e-4))
         self.grad_clip = float(config.get("grad_clip", 10.0))
-        self._paths = [path for path, _ in tree_paths(self.module)]
-        self.params: List[torch.nn.Parameter] = [
-            p for _, p in tree_paths(self.module)]
+        self.opt = Adam(self.module, self.lr, self.grad_clip)
+        self._paths, self.params = self.opt.paths, self.opt.params
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._noise = None
-        self._init_opt()
-
-    def _init_opt(self) -> None:
-        self._count = 0
-        self._mu = [torch.zeros_like(p) for p in self.params]
-        self._nu = [torch.zeros_like(p) for p in self.params]
 
     # ---- subclass hook ----
 
@@ -113,26 +199,6 @@ class TorchLearner:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (scalar loss, metrics dict of tensors)."""
         raise NotImplementedError
-
-    def noise(self, name: str, shape, kind: str = "normal"
-              ) -> torch.Tensor:
-        """One random draw of a loss: ``kind`` "normal" (standard) or
-        "uniform" (in [0, 1)), f32 on the learner's device. ``name``
-        says which draw of the loss it is, for an installed source."""
-        shape = tuple(int(n) for n in shape)
-        if self._noise is not None:
-            x = _tensor(self._noise(name, shape, kind), self.device)
-            if tuple(x.shape) != shape:
-                raise ValueError(f"noise {name!r}: shape {tuple(x.shape)} "
-                                 f"!= {shape}")
-            return x
-        draw = torch.randn if kind == "normal" else torch.rand
-        return draw(shape, generator=self._gen, device=self.device)
-
-    def set_noise(self, source) -> None:
-        """Install ``source(name, shape, kind) -> array`` in place of the
-        generator (None restores it)."""
-        self._noise = source
 
     # ---- update paths ----
 
@@ -149,28 +215,8 @@ class TorchLearner:
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """One SGD step on the full batch."""
         grads, metrics = self._grads(batch)
-        self._apply(grads)
+        self.opt.step(grads)
         return scalars(metrics)
-
-    def _apply(self, grads: List[torch.Tensor]) -> None:
-        """optax ``chain(clip_by_global_norm(c), adam(lr))`` and
-        ``params + updates``."""
-        with torch.no_grad():
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = norm < self.grad_clip
-            grads = [torch.where(keep, g, (g / norm) * self.grad_clip)
-                     for g in grads]
-            self._count += 1
-            # optax computes decay ** count in float32
-            bc1 = float(np.float32(1) - np.float32(ADAM_B1)
-                        ** np.float32(self._count))
-            bc2 = float(np.float32(1) - np.float32(ADAM_B2)
-                        ** np.float32(self._count))
-            for p, g, m, v in zip(self.params, grads, self._mu, self._nu):
-                m.copy_((1 - ADAM_B1) * g + ADAM_B1 * m)
-                v.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * v)
-                step = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-                p.copy_(p + (-self.lr) * step)
 
     # ---- distributed-data-parallel over a process group ----
 
@@ -183,7 +229,7 @@ class TorchLearner:
 
     def apply_gradients(self, grads) -> None:
         """Apply a JAX-layout tree of gradients (tensors or numpy)."""
-        self._apply([_tensor(_leaf(grads, path), self.device)
+        self.opt.step([_tensor(_leaf(grads, path), self.device)
                      for path in self._paths])
 
     def update_ddp(self, batch_shard: Dict[str, np.ndarray],
@@ -203,7 +249,7 @@ class TorchLearner:
         for p in self.params:
             out.append(flat[o:o + p.numel()].view(p.shape))
             o += p.numel()
-        self._apply(out)
+        self.opt.step(out)
         return scalars(metrics)
 
     # ---- state ----
@@ -213,25 +259,14 @@ class TorchLearner:
 
     def set_weights(self, params) -> None:
         params_from_numpy(self.module, params)
-        self._init_opt()
+        self.opt.reset()
 
     def get_state(self) -> Dict[str, Any]:
-        def tree(xs):
-            return _nest([(path, x.detach().cpu().numpy().copy())
-                          for path, x in zip(self._paths, xs)])
-
-        return {"params": self.get_weights(),
-                "opt_state": {"count": self._count, "mu": tree(self._mu),
-                              "nu": tree(self._nu)}}
+        return {"params": self.get_weights(), "opt_state": self.opt.state()}
 
     def set_state(self, state: Dict[str, Any]) -> None:
         params_from_numpy(self.module, state["params"])
-        opt = state["opt_state"]
-        self._count = int(opt["count"])
-        with torch.no_grad():
-            for path, m, v in zip(self._paths, self._mu, self._nu):
-                m.copy_(_tensor(_leaf(opt["mu"], path), m.device))
-                v.copy_(_tensor(_leaf(opt["nu"], path), v.device))
+        self.opt.load(state["opt_state"])
 
     def ping(self) -> bool:
         return True

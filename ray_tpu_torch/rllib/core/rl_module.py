@@ -18,6 +18,7 @@ actions are held to their distributions, deterministic outputs
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -99,6 +100,14 @@ def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor,
         if i < len(layers) - 1 or final_activation:
             x = torch.tanh(x)
     return x
+
+
+def frozen_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` that shares no storage with it, with
+    requires_grad off: a target network outside the optimizer."""
+    target = copy.deepcopy(module)
+    target.requires_grad_(False)
+    return target
 
 
 def _bounds(cfg: dict) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -704,7 +704,7 @@ def test_targets_are_not_learner_parameters():
         _, tl = _learners(name)
         online = {p.data_ptr() for p in tl.params}
         assert len(tl.params) == len(trlm.tree_paths(tl.module)) \
-            == len(tl._mu) == len(tl._nu)
+            == len(tl.opt.mu) == len(tl.opt.nu)
         targets = [t for _, t, _ in tl._target_pairs()]
         assert targets and not ({t.data_ptr() for t in targets} & online)
         assert not any(t.requires_grad for t in targets)
