@@ -4846,10 +4846,44 @@ def _moe_loss_grads(cfg, params, batch, wanted=None, ep=None):
     return loss.item(), norm, [(n, g) for (n, _), g in zip(named, grads)]
 
 
+def _tp1_same(label, first, ms, plain_first, plain_ms, smi):
+    """The step with a tp group of one rank against the same step with
+    no tp group: one rank runs no collective and the tp layer runs the
+    ops it runs without a mesh, so the first step's loss and grad norm
+    are equal bit for bit."""
+    log(f"{label} (a) the step with the tp = 1 group against it without "
+        f"one: first step's loss {first[0]!r} / {plain_first[0]!r}, grad "
+        f"norm {first[1]!r} / {plain_first[1]!r} (must be equal); step "
+        f"{ms:.1f} / {plain_ms:.1f} ms; on {smi}")
+    assert tuple(first) == tuple(plain_first), \
+        f"{label} (a) tp = 1 step differs from the step without tp FAILED"
+
+
+def _one_step(loss_fn, params, specs, batch, mesh, lr):
+    """((loss, grad norm) of a first step, ms of a second one) through
+    make_sharded_train_step on a copy of ``params``."""
+    from ray_tpu_torch import adamw, make_sharded_train_step
+
+    init_fn, step_fn = make_sharded_train_step(loss_fn, adamw(lr), mesh,
+                                               specs)
+    p, s = init_fn(params)
+    p, s, m = step_fn(p, s, batch)
+    first = (m["loss"].item(), m["grad_norm"].item())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s, m = step_fn(p, s, batch)
+    m["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    del p, s
+    torch.cuda.empty_cache()
+    return first, ms
+
+
 def _moe_one_rank(smi):
     """(a): the cut model's step kernel vs plain attention, then steps
-    over {"dp": 1, "ep": 1} on one NCCL rank. Returns the flash launches
-    of the timed steps."""
+    over {"dp": 1, "ep": 1, "tp": 1} on one NCCL rank, the tp = 1 step
+    against the step without a tp group. Returns the flash launches of
+    the timed steps."""
     import torch.distributed as dist
 
     from ray_tpu_torch import adamw, make_sharded_train_step
@@ -4897,16 +4931,21 @@ def _moe_one_rank(smi):
     assert _moe_ok(gate), f"[moe] (a) parity FAILED {gate}"
     initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
-        mesh = create_mesh({"dp": 1, "ep": 1})
-        ep = tp_group(mesh, "ep")
+        mesh = create_mesh({"dp": 1, "ep": 1, "tp": 1})
+        ep, tp = tp_group(mesh, "ep"), tp_group(mesh)
+        with _plain_attention_forbidden():
+            plain_first, plain_ms = _one_step(
+                lambda p, b: moe_loss(p, b, cfg, ep=ep), params,
+                moe_param_specs(cfg), batch, mesh, 3e-4)
         init_fn, step_fn = make_sharded_train_step(
-            lambda p, b: moe_loss(p, b, cfg, ep=ep),
+            lambda p, b: moe_loss(p, b, cfg, ep=ep, tp=tp),
             adamw(3e-4, weight_decay=0.0), mesh, moe_param_specs(cfg))
         torch.cuda.reset_peak_memory_stats()
         params, state = init_fn(params)
         with _plain_attention_forbidden():
             params, state, m = step_fn(params, state, batch)
             losses = [m["loss"].item()]
+            first = (losses[0], m["grad_norm"].item())
             _zero_flash_counts()
             times = []
             for _ in range(MOE_STEPS):
@@ -4916,6 +4955,8 @@ def _moe_one_rank(smi):
                 times.append(time.perf_counter() - t0)
             launches = _flash_counts()
         peak = torch.cuda.max_memory_allocated()
+        _tp1_same("[moe]", first, np.mean(times) * 1e3, plain_first,
+                  plain_ms, smi)
         assert np.isclose(losses[0], lk, rtol=1e-5), (losses[0], lk)
         assert losses[-1] < losses[0], f"[moe] loss did not fall {losses}"
         L = cfg.n_layers
@@ -4924,7 +4965,8 @@ def _moe_one_rank(smi):
         assert launches == want, f"[moe] launches {launches} != {want}"
         tok_s = G * MOE_STEPS / sum(times)
         mfu = tok_s * moe_flops_per_token(cfg, MOE_SEQ) / BF16_FLOPS_PER_S
-        log(f"[moe] (a) make_sharded_train_step over {{'dp': 1, 'ep': 1}} on "
+        log(f"[moe] (a) make_sharded_train_step over {{'dp': 1, 'ep': 1, "
+            f"'tp': 1}} on "
             f"one NCCL rank, adamw(3e-4): losses "
             f"{[round(x, 4) for x in losses]} (the first = the parity "
             f"step's); launches in {MOE_STEPS} steps {launches}; step "
@@ -5440,7 +5482,8 @@ def pipeline_phase(smi):
 
 def _a13_steps(label, loss_fn, params, specs, batch, mesh, lr):
     """Warm-up and A13_STEPS timed steps through make_sharded_train_step;
-    returns (losses, ms per step, flash launches, peak bytes)."""
+    returns (losses, ms per step, flash launches, peak bytes, the trained
+    params, the warm-up step's (loss, grad norm))."""
     from ray_tpu_torch import adamw, make_sharded_train_step
 
     init_fn, step_fn = make_sharded_train_step(loss_fn, adamw(lr), mesh,
@@ -5449,6 +5492,7 @@ def _a13_steps(label, loss_fn, params, specs, batch, mesh, lr):
     p, s = init_fn(params)
     p, s, m = step_fn(p, s, batch)
     losses, times = [m["loss"].item()], []
+    first = (losses[0], m["grad_norm"].item())
     _zero_flash_counts()
     for _ in range(A13_STEPS):
         t0 = time.perf_counter()
@@ -5458,7 +5502,7 @@ def _a13_steps(label, loss_fn, params, specs, batch, mesh, lr):
     assert all(np.isfinite(losses)), (label, losses)
     assert losses[-1] < losses[0], f"{label}: loss did not fall {losses}"
     return losses, np.mean(times) * 1e3, _flash_counts(), \
-        torch.cuda.max_memory_allocated(), p
+        torch.cuda.max_memory_allocated(), p, first
 
 
 def _parity(label, loss_fn, cfg, params, batch):
@@ -5509,14 +5553,16 @@ def _t5_generation(cfg, params, src):
 
 def vit_t5_mlp_phase(smi):
     """ViT, T5 and the MLP at their default configs: parity with the
-    plain attention, steps over {"dp": 1} on one NCCL rank, T5's greedy
+    plain attention, steps over {"dp": 1, "tp": 1} on one NCCL rank (the
+    tp = 1 step against the step without a tp group), T5's greedy
     generation against its uncached rollout, and the flash kernels at
     the new shapes. Returns the flash launches per model and the flash
     results."""
     import torch.distributed as dist
 
     from ray_tpu_torch.models import mlp, t5, vit
-    from ray_tpu_torch.parallel import create_mesh, initialize_distributed
+    from ray_tpu_torch.parallel import (create_mesh, initialize_distributed,
+                                        tp_group)
 
     fres = flash_phase(A13_FLASH_CASES,
                        tuple(c[0] for c in A13_FLASH_CASES),
@@ -5561,7 +5607,8 @@ def vit_t5_mlp_phase(smi):
     launches, res = {}, {}
     initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
-        mesh = create_mesh({"dp": 1})
+        mesh = create_mesh({"dp": 1, "tp": 1})
+        group = tp_group(mesh)
         from ray_tpu_torch.ops import flash_attention_kernel as fak
 
         with _plain_attention_forbidden():
@@ -5572,15 +5619,22 @@ def vit_t5_mlp_phase(smi):
                      1e-4),
                     ("mlp", mlp.mlp_loss, mc, mp,
                      _tree_map(lambda _: (), mp), mb, 1e-4)):
-                losses, ms, counts, peak, trained = _a13_steps(
+                # the MLP names no logical axis: it takes no tp group
+                kw = {} if name == "mlp" else {"tp": group}
+                plain_first, plain_ms = _one_step(
+                    lambda p, b, c=cfg, f=loss_fn: f(p, b, c), params,
+                    specs, batch, mesh, lr)
+                losses, ms, counts, peak, trained, first = _a13_steps(
                     f"[vit-t5-mlp] {name}",
-                    lambda p, b, c=cfg, f=loss_fn: f(p, b, c), params, specs,
-                    batch, mesh, lr)
+                    lambda p, b, c=cfg, f=loss_fn, kw=kw: f(p, b, c, **kw),
+                    params, specs, batch, mesh, lr)
+                _tp1_same(f"[vit-t5-mlp] {name}", first, ms, plain_first,
+                          plain_ms, smi)
                 masks = {m: dict(c) for m, c in fak.mask_launches.items()}
                 launches[name] = (counts, masks)
                 res[name] = trained
                 log(f"[vit-t5-mlp] {name}: make_sharded_train_step over "
-                    f"{{'dp': 1}}, adamw({lr:g}): losses "
+                    f"{{'dp': 1, 'tp': 1}}, adamw({lr:g}): losses "
                     f"{[round(x, 4) for x in losses]}; step {ms:.1f} ms "
                     f"mean; flash launches in {A13_STEPS} steps {counts} "
                     f"(by mask {masks}); peak {peak / 2**30:.2f} GiB; on "
@@ -5605,6 +5659,332 @@ def vit_t5_mlp_phase(smi):
         f"ms")
     assert gen["f32"][0] == 1.0, gen
     return launches, fres
+
+
+# a13-tp (ROADMAP A13b, its tp half): (b) MoE, ViT, T5 and the MLP at
+# nano widths in f32 (head dim 32, so the flash kernels run) over
+# {"tp": 2}: A13_TP_RANKS gloo processes on the one card, three AdamW
+# steps against the unsplit step that each rank runs itself on the card;
+# the metrics within 1e-4 relative and the rank's block of the params
+# within 1e-5 + lr / 10 (the CPU worlds' tolerances, with their AdamW
+# eps of 1e-6: Adam's first steps move a weight by about lr · sign(g),
+# and an eps far below a near-cancelling gradient lets the summation
+# order flip a step). One planted fault each for ViT, MoE and T5
+# (A13_TP_FAULTS) must fail the gate. The f32 widths take the exact f32
+# flash kernels; then each rank makes two bf16 steps over {"tp": 2} of
+# ViTConfig() and T5Config() at the vit-t5-mlp phase's batches and of
+# Mixtral's widths at MOE_RANK_LAYERS layer(s) at the moe phase's batch
+# (loss finite and falling), the flash counts zeroed just before the
+# second: the wgmma kernels' launches per step at each shape are read
+# from it. (c) B1, B3a and B3b at those shapes (A13_TP_FLASH_CASES: the
+# tp = 2 ranks' head counts), timed beside their bounds, plain versions
+# and SDPA; each row's launches are its own route's and shape's in that
+# counted step.
+A13_TP_RANKS, A13_TP_LR, A13_TP_EPS = 2, 1e-3, 1e-6
+A13_TP_FAULTS = {"vit": "wqkv-contiguous", "moe": "we_down-unsummed",
+                 "t5": "vocab-local-ce"}
+A13_TP_FLASH_CASES = [
+    ("vit_tp2", 256, 3, 3, 65, 65, 32, "bf16", False),
+    ("t5_enc_tp2", 32, 4, 4, 512, 512, 64, "bf16", False),
+    ("t5_dec_tp2", 32, 4, 4, 128, 128, 64, "bf16", True),
+    ("t5_cross_tp2", 32, 4, 4, 128, 512, 64, "bf16", False),
+    ("moe_tp2", 2, 16, 4, 2048, 2048, 128, "bf16", True),
+]
+# the cases each family's counted bf16 step runs, and its AdamW lr (the
+# vit-t5-mlp and moe phases' own)
+A13_TP_COUNTED = {"vit": (("vit_tp2",), 2e-5),
+                  "t5": (("t5_enc_tp2", "t5_dec_tp2", "t5_cross_tp2"), 1e-4),
+                  "moe": (("moe_tp2",), 3e-4)}
+
+
+def _a13_tp_case_key(case):
+    """`shape_launches`' key of an A13_TP_FLASH_CASES case (the wgmma
+    route: the cases are bf16)."""
+    from ray_tpu_torch.ops.flash_attention_kernel import shape_key
+
+    _, B, H, Hkv, Sq, Sk, D, dtype, causal = next(
+        c for c in A13_TP_FLASH_CASES if c[0] == case)
+    assert dtype == "bf16", case
+    return shape_key("sm90", causal, B, H, Hkv, Sq, Sk, D)
+
+
+def _a13_tp_models():
+    """[(name, loss_fn(params, batch, tp), params, specs, batch)]: the
+    four families at nano widths in f32, seeded, on the card."""
+    from ray_tpu_torch.models import mlp, moe, t5, vit
+    from ray_tpu_torch.models.training import _tree_map
+
+    rng = np.random.RandomState(11)
+
+    def card(x):
+        return torch.from_numpy(x).cuda()
+
+    f32 = torch.float32
+    mo = moe.MoeConfig.nano_moe(dim=128, dtype=f32)
+    vi = vit.ViTConfig(image_size=8, patch_size=4, dim=64, n_layers=2,
+                       n_heads=2, ffn_dim=96, dtype=f32)
+    tf = t5.T5Config.nano(dim=128, dtype=f32)
+    ml = mlp.MLPConfig(in_dim=20, hidden=(16, 12))
+    mp = mlp.mlp_init(ml, seed=3, device="cuda")
+    return [
+        ("moe", lambda p, b, tp: moe.moe_loss(p, b, mo, tp=tp),
+         moe.moe_init(mo, seed=0, device="cuda"), moe.moe_param_specs(mo),
+         {"tokens": card(rng.randint(0, mo.vocab_size, (4, 33)))}),
+        ("vit", lambda p, b, tp: vit.vit_loss(p, b, vi, tp=tp),
+         vit.vit_init(vi, seed=1, device="cuda"), vit.vit_param_specs(vi),
+         {"images": card(rng.rand(4, 8, 8, 3).astype(np.float32)),
+          "labels": card(rng.randint(0, 10, (4,)))}),
+        ("t5", lambda p, b, tp: t5.t5_loss(p, b, tf, tp=tp),
+         t5.t5_init(tf, seed=2, device="cuda"), t5.t5_param_specs(tf),
+         {"src": card(rng.randint(1, tf.vocab_size, (4, 24))),
+          "tgt": card(rng.randint(0, tf.vocab_size, (4, 17)))}),
+        ("mlp", lambda p, b, tp: mlp.mlp_loss(p, b, ml), mp,
+         _tree_map(lambda _: (), mp),
+         {"x": card(rng.rand(6, 20).astype(np.float32)),
+          "y": card(rng.randint(0, 10, (6,)))}),
+    ]
+
+
+def _a13_tp_full(name):
+    """(loss_fn(params, batch, tp), params, specs, batch) of ``name`` at
+    the counted bf16 step's size, seeded, on the card."""
+    from ray_tpu_torch.models import moe, t5, vit
+
+    rng = np.random.RandomState(13)
+
+    def card(x):
+        return torch.from_numpy(x).cuda()
+
+    if name == "vit":
+        c = vit.ViTConfig()
+        return (lambda p, b, tp: vit.vit_loss(p, b, c, tp=tp),
+                vit.vit_init(c, device="cuda"), vit.vit_param_specs(c),
+                {"images": card(rng.rand(256, 32, 32, 3).astype(np.float32)),
+                 "labels": card(rng.randint(0, 10, 256))})
+    if name == "t5":
+        c = t5.T5Config()
+        return (lambda p, b, tp: t5.t5_loss(p, b, c, tp=tp),
+                t5.t5_init(c, device="cuda"), t5.t5_param_specs(c),
+                {"src": card(rng.randint(1, c.vocab_size, (32, 512))),
+                 "tgt": card(rng.randint(1, c.vocab_size, (32, 129)))})
+    assert name == "moe", name
+    c = _moe_cfg(n_layers=MOE_RANK_LAYERS)
+    return (lambda p, b, tp: moe.moe_loss(p, b, c, tp=tp),
+            moe.moe_init(c, seed=0, device="cuda"), moe.moe_param_specs(c),
+            moe_batch(c))
+
+
+def _a13_tp_counted(name, mesh, tp):
+    """Two bf16 AdamW steps of ``name`` (`_a13_tp_full`) over the tp
+    mesh, the flash counts zeroed just before the second: {"losses",
+    "ms" (the second step), "shapes" (its `shape_launches`), "peak"}."""
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.ops import flash_attention_kernel as fak
+
+    loss_fn, params, specs, batch = _a13_tp_full(name)
+    init, step = make_sharded_train_step(
+        lambda p, b: loss_fn(p, b, tp), adamw(A13_TP_COUNTED[name][1]),
+        mesh, specs)
+    p, s = init(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, s, m = step(p, s, batch)
+    losses = [m["loss"].item()]
+    _zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s, m = step(p, s, batch)
+    losses.append(m["loss"].item())
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"losses": losses, "ms": ms,
+           "shapes": {k: dict(c) for k, c in fak.shape_launches.items()},
+           "peak": torch.cuda.max_memory_allocated()}
+    del p, s, m
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _a13_tp_fault(fault):
+    """A planted fault of the tp layer of ViT, MoE or T5."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import moe, vit
+    from ray_tpu_torch.parallel import tensor_parallel
+
+    if fault == "wqkv-contiguous":    # the shard used as if head-aligned
+        patch = (vit, "fused_heads", lambda w, tp, width, n_heads: w)
+    elif fault == "we_down-unsummed":  # no sum over tp after the combine
+        patch = (moe, "_from_experts",
+                 lambda x, ep, tp: moe.reduce_from_tp(x, ep))
+    else:                              # the rank's vocab shard alone
+        assert fault == "vocab-local-ce", fault
+
+        def local(logits, targets, tp):
+            n = logits.shape[-1]
+            t = (targets.long() - tp.rank * n).clamp(0, n - 1)
+            return F.cross_entropy(logits, t, reduction="none")
+
+        patch = (tensor_parallel, "vocab_cross_entropy", local)
+    with mock.patch.object(*patch):
+        yield
+
+
+def _a13_tp_steps(step_fn, params, state, batch):
+    """A13_STEPS steps: ([[loss, grad norm]], params)."""
+    metrics = []
+    for _ in range(A13_STEPS):
+        params, state, m = step_fn(params, state, batch)
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    return metrics, params
+
+
+def _a13_tp_gate(metrics, params, one_metrics, one_params, specs, mesh):
+    """(largest relative error of the metrics, largest excess of a param
+    of this rank's block over 1e-5 |want| + lr / 10, its leaf): ok when
+    the first is <= 1e-4 and the second <= 0."""
+    from ray_tpu_torch.parallel.sharding import local_region
+
+    got, want = np.asarray(metrics), np.asarray(one_metrics)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    excess = (-np.inf, "")
+    for (name, p), (_, w), (_, spec) in zip(_named_leaves(params),
+                                            _named_leaves(one_params),
+                                            _named_leaves(specs)):
+        w = w[local_region(w.shape, spec, mesh)]
+        excess = max(excess, (((p - w).abs() - 1e-5 * w.abs()
+                               - A13_TP_LR / 10).max().item(), name))
+    return (rel,) + excess
+
+
+def _a13_tp_ok(gate):
+    return gate[0] <= 1e-4 and gate[1] <= 0
+
+
+def a13_tp_rank_main(rank, job_path):
+    """One rank of the a13-tp phase's (b), started as ``python3
+    chip_smoke.py --a13-tp-rank RANK JOB``: a gloo world of A13_TP_RANKS
+    processes on the one card."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import adamw, make_sharded_train_step
+    from ray_tpu_torch.models.training import _tree_map, make_train_step
+    from ray_tpu_torch.parallel import create_mesh, tp_group
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("cpu:gloo,cuda:gloo", init_method=job["store"],
+                            world_size=A13_TP_RANKS, rank=rank)
+    out = {"rank": rank, "gates": {}, "launches": {}, "ms": {}}
+    try:
+        mesh = create_mesh({"tp": A13_TP_RANKS})
+        tp = tp_group(mesh)
+        for name, loss_fn, params, specs, batch in _a13_tp_models():
+            opt = adamw(A13_TP_LR, eps=A13_TP_EPS)
+            init, step = make_train_step(
+                lambda p, b, f=loss_fn: f(p, b, None), opt)
+            # the one-card step updates its leaves in place: a copy
+            one_metrics, one_params = _a13_tp_steps(
+                step, *init(_tree_map(torch.clone, params)), batch)
+            # one step for the sound run and the fault's: a fault is
+            # patched in where the model looks its function up
+            init, step = make_sharded_train_step(
+                lambda p, b, f=loss_fn: f(p, b, tp), opt, mesh, specs)
+            faults = (A13_TP_FAULTS[name],) if name in A13_TP_FAULTS else ()
+            for fault in (None,) + faults:
+                p, s = init(params)
+                with _a13_tp_fault(fault) if fault else \
+                        contextlib.nullcontext():
+                    _zero_flash_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics, p = _a13_tp_steps(step, p, s, batch)
+                    ms = (time.perf_counter() - t0) * 1e3 / A13_STEPS
+                    counts = _flash_counts()
+                key = f"{name}:{fault or 'sound'}"
+                out["gates"][key] = _a13_tp_gate(metrics, p, one_metrics,
+                                                 one_params, specs, mesh)
+                if fault is None:
+                    out["launches"][name] = counts
+                    out["ms"][name] = ms
+                del p, s
+        out["counted"] = {name: _a13_tp_counted(name, mesh, tp)
+                          for name in A13_TP_COUNTED}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job['out']}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def a13_tp_phase(smi):
+    """(b) the four families over {"tp": 2} in gloo processes on the card
+    with planted faults; (c) the flash kernels at the tp = 2 ranks'
+    shapes. Returns ((b)'s launches in its counted bf16 step by case of
+    A13_TP_FLASH_CASES, (c)'s flash results)."""
+    t0 = time.perf_counter()
+    ranks = _rank_world("a13-tp-rank", A13_TP_RANKS, "a13-tp")
+    for r in ranks:
+        for key, (rel, excess, leaf) in r["gates"].items():
+            log(f"[a13-tp] (b) rank {r['rank']} {key}: metrics rel. error "
+                f"{rel:.3e} (<= 1e-4), params excess over 1e-5 |want| + "
+                f"lr / 10: {excess:.3e} (<= 0, {leaf})")
+    for r in ranks:
+        for name in ("moe", "vit", "t5", "mlp"):
+            assert _a13_tp_ok(r["gates"][f"{name}:sound"]), \
+                f"[a13-tp] (b) {name} tp = 2 FAILED on rank {r['rank']}"
+    for name, fault in A13_TP_FAULTS.items():
+        assert not all(_a13_tp_ok(r["gates"][f"{name}:{fault}"])
+                       for r in ranks), \
+            f"[a13-tp] (b) planted fault {fault} passed the gate"
+    r0 = ranks[0]
+    nano = {name: {k: v / A13_STEPS for k, v in counts.items()}
+            for name, counts in r0["launches"].items()}
+    assert all(n > 0 for name in ("moe", "vit", "t5")
+               for n in nano[name].values()), \
+        f"[a13-tp] (b) a flash kernel of the f32 tp = 2 steps never ran {nano}"
+    log(f"[a13-tp] (b) {A13_TP_RANKS} rank processes on one card (gloo): "
+        "MoE, ViT, T5 and the MLP over {'tp': 2} at nano widths in f32, "
+        f"{A13_STEPS} AdamW steps against the unsplit step: sound on every "
+        f"rank; planted faults {tuple(A13_TP_FAULTS.values())} each "
+        "rejected; step ms (gloo through the host: not a speed) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["ms"].items())
+        + "; f32 flash launches per step on rank 0 (fwd/dq/dkv): "
+        + ", ".join(f"{k} {tuple(c.values())}" for k, c in nano.items()
+                    if k != "mlp") + f"; on {smi}")
+    # the bf16 steps at the default widths: every launch of the counted
+    # step on the wgmma route at the family's named shapes, the same on
+    # every rank
+    counted = {}
+    for name, (cases, lr) in A13_TP_COUNTED.items():
+        runs = [r["counted"][name] for r in ranks]
+        for r, run in zip(ranks, runs):
+            losses = run["losses"]
+            assert np.all(np.isfinite(losses)) and losses[1] < losses[0], \
+                f"[a13-tp] (b) {name} bf16 rank {r['rank']}: {losses}"
+        keys = {case: _a13_tp_case_key(case) for case in cases}
+        shapes = runs[0]["shapes"]
+        assert all(run["shapes"] == shapes for run in runs), \
+            f"[a13-tp] (b) {name} bf16: ranks launched differently"
+        assert set(shapes) == set(keys.values()) and all(
+            n > 0 for c in shapes.values() for n in c.values()), \
+            f"[a13-tp] (b) {name} bf16: launches {shapes}, want {keys}"
+        counted.update({case: shapes[key] for case, key in keys.items()})
+        log(f"[a13-tp] (b) {name} bf16 over {{'tp': 2}}, adamw({lr:g}): "
+            f"losses {[round(x, 4) for x in runs[0]['losses']]} on rank 0; "
+            f"counted step {runs[0]['ms']:.1f} ms (gloo through the host: "
+            f"not a speed); flash launches in it {shapes}; peak "
+            + ", ".join(f"{run['peak'] / 2**30:.2f}" for run in runs)
+            + f" GiB a rank; on {smi}")
+    log(f"[a13-tp] (b) {time.perf_counter() - t0:.1f} s")
+    fres = flash_phase(A13_TP_FLASH_CASES,
+                       tuple(c[0] for c in A13_TP_FLASH_CASES),
+                       phase="a13-tp")
+    return counted, fres
 
 
 # --ep-cards N / --pp-cards N: the moe and pipeline phases' models over N
@@ -6914,6 +7294,7 @@ def main():
     moe_launches = phase("moe", moe_phase, smi)
     pp_launches = phase("pipeline", pipeline_phase, smi)
     vtm_launches, vtm_res = phase("vit-t5-mlp", vit_t5_mlp_phase, smi)
+    tp2_launches, tp2_res = phase("a13-tp", a13_tp_phase, smi)
     phase("rllib", rllib_phase, smi)
     phase("train-data", train_data_phase, smi)
     phase("rllib-c", rllib_c_phase, smi)
@@ -6988,6 +7369,24 @@ def main():
         for name, line, key in (("flash_fwd", 130, "fwd"),
                                 ("flash_bwd_dq", 192, "dq"),
                                 ("flash_bwd_dkv", 239, "dkv"))
+    ] + [
+        # the tp = 2 path (a13-tp): each kernel at a tp rank's shape of
+        # the default configs, with its launches on the wgmma route at
+        # that shape in (b)'s counted bf16 step on rank 0
+        _kernel_entry(f"{name} (tp = 2 rank, {label})", sm90_src,
+                      f"{flash_py}:{line}", tp2_launches[case][key],
+                      tp2_res[case][key])
+        for case, label in (
+            ("vit_tp2", "vit [256,3,65,32] non-causal"),
+            ("t5_enc_tp2", "t5 encoder [32,4,512,64] non-causal"),
+            ("t5_dec_tp2", "t5 decoder [32,4,128,64] causal"),
+            ("t5_cross_tp2", "t5 cross-attention [32,4,128 x 512,64] "
+             "non-causal"),
+            ("moe_tp2", f"moe, Mixtral's [2,16/4,2048,128] causal, "
+             f"{MOE_RANK_LAYERS} layer"))
+        for name, line, key in (("flash_fwd", 130, "fwd"),
+                                ("flash_bwd_dq", 192, "dq"),
+                                ("flash_bwd_dkv", 239, "dkv"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
@@ -7008,6 +7407,8 @@ if __name__ == "__main__":
         sp_card_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--sp-cards"]:
         sp_cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--a13-tp-rank"]:
+        a13_tp_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--moe-rank"]:
         moe_rank_main(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--pp-rank"]:

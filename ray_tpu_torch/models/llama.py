@@ -36,11 +36,12 @@ from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.ops.ulysses import ulysses_attention
 from ray_tpu_torch.parallel import sequence_parallel as seqp
 from ray_tpu_torch.parallel.sequence_parallel import SPGroup
-from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, copy_to_tp,
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, check_tp_width,
+                                                    copy_to_tp,
                                                     gather_logits, is_split,
                                                     reduce_from_tp,
                                                     select_kv, vocab_embed,
-                                                    vocab_cross_entropy)
+                                                    vocab_nll)
 
 Params = Dict[str, Any]
 
@@ -388,16 +389,11 @@ def _remat_context(cfg: LlamaConfig):
     return context_fn
 
 
-def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
-                   cfg: LlamaConfig, tp: Optional[TPGroup] = None,
-                   sp: Optional[SPGroup] = None) -> torch.Tensor:
-    """One decoder layer. Under a tp group ``tp`` the layer holds this
-    rank's heads and MLP columns: f before the q/k/v and gate/up
-    products, g after wo and w_down (`parallel.tensor_parallel`); kv
-    weights replicated over tp are cut to the heads this rank's q heads
-    read, so the attention runs at the local head counts. Under an sp
-    group ``sp`` ``h`` is this rank's block of the sequence and only
-    the attention crosses blocks (`_attention_call`)."""
+def _attention_block(h: torch.Tensor, layer: Params,
+                     positions: torch.Tensor, cfg: LlamaConfig,
+                     tp: Optional[TPGroup] = None,
+                     sp: Optional[SPGroup] = None) -> torch.Tensor:
+    """``h`` plus the attention half of a decoder layer (also MoE's)."""
     dt = cfg.dtype
     x = copy_to_tp(_rmsnorm(h, layer["attn_norm"], cfg.norm_eps), tp)
     wk = select_kv(layer["wk"], tp, cfg, 1)
@@ -411,8 +407,21 @@ def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
     o = _attention_call(q, k, v, cfg, sp)
     with _named("wo_out"):
         attn = torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
-    h = h + reduce_from_tp(attn, tp)
+    return h + reduce_from_tp(attn, tp)
 
+
+def _decoder_layer(h: torch.Tensor, layer: Params, positions: torch.Tensor,
+                   cfg: LlamaConfig, tp: Optional[TPGroup] = None,
+                   sp: Optional[SPGroup] = None) -> torch.Tensor:
+    """One decoder layer. Under a tp group ``tp`` the layer holds this
+    rank's heads and MLP columns: f before the q/k/v and gate/up
+    products, g after wo and w_down (`parallel.tensor_parallel`); kv
+    weights replicated over tp are cut to the heads this rank's q heads
+    read, so the attention runs at the local head counts. Under an sp
+    group ``sp`` ``h`` is this rank's block of the sequence and only
+    the attention crosses blocks (`_attention_call`)."""
+    dt = cfg.dtype
+    h = _attention_block(h, layer, positions, cfg, tp, sp)
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
     x = copy_to_tp(x, tp)
     with _named("ffn_gate"):
@@ -429,11 +438,7 @@ def _check_shards(params: Params, cfg: LlamaConfig,
                   tp: Optional[TPGroup]) -> None:
     """Refuse tp shards without their tp group: they would run as a
     smaller model."""
-    heads = params["layers"]["wq"].shape[-2]
-    if not is_split(tp) and heads != cfg.n_heads:
-        raise ValueError(
-            f"params hold {heads} of {cfg.n_heads} q heads: tensor-"
-            "parallel shards need their group (tp=)")
+    check_tp_width("wq", params["layers"]["wq"].shape[-2], cfg.n_heads, tp)
 
 
 def llama_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -530,18 +535,10 @@ def llama_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
 def _nll(h: torch.Tensor, targets: torch.Tensor, lm_head: torch.Tensor,
          cfg: LlamaConfig, tp: Optional[TPGroup] = None) -> torch.Tensor:
-    """[.., S, d] hidden + [.., S] targets -> [.., S] token nll (f32).
-    With ``lm_head`` split over ``tp`` by vocab: f, the rank's logit
-    columns and the vocab-parallel cross-entropy."""
-    if is_split(tp) and lm_head.shape[-1] != cfg.vocab_size:
-        logits = _logits(copy_to_tp(h, tp), lm_head, cfg)
-        nll = vocab_cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                  targets.reshape(-1), tp)
-        return nll.reshape(targets.shape)
-    logits = _logits(h, lm_head, cfg)
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          targets.reshape(-1).long(), reduction="none")
-    return nll.reshape(targets.shape)
+    """[.., S, d] hidden + [.., S] targets -> [.., S] token nll (f32),
+    vocab-parallel where ``lm_head`` is split over ``tp`` (`vocab_nll`)."""
+    return vocab_nll(h, lm_head, targets, tp, cfg.vocab_size,
+                     lambda x, w: _logits(x, w, cfg))
 
 
 def llama_loss(params: Params, batch: Dict[str, torch.Tensor],

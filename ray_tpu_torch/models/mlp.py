@@ -1,7 +1,10 @@
 """Minimal MLP classifier (the MNIST end-to-end slice model).
 
 Port of `ray_tpu/models/mlp.py`: `MLPConfig`, `mlp_init`, `mlp_forward`
-and `mlp_loss`, in f32, params ``{"layer{i}": {"w", "b"}}``.
+and `mlp_loss`, in f32, params ``{"layer{i}": {"w", "b"}}``. The JAX
+model names no logical axes, so GSPMD runs it replicated over tp; so
+does the port's step: every tp rank runs the whole step on the same
+rows, and no gradient is summed over tp.
 """
 
 from __future__ import annotations

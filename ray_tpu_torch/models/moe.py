@@ -6,10 +6,10 @@ Port of `ray_tpu/models/moe.py`: `MoeConfig` with `mixtral_8x7b` and
 `moe_flops_per_token`. Top-k token-choice routing at a static capacity:
 dispatch and combine are one-hot einsums, every shape is static, and
 tokens past an expert's capacity are dropped. Attention, RoPE and
-rmsnorm are the Llama layer's (`llama._attention_call`: B1/B3 on the
+rmsnorm are the Llama layer's (`llama._attention_block`: B1/B3 on the
 card).
 
-Two parallel forms of what GSPMD does for the JAX step:
+Three parallel forms of what GSPMD does for the JAX step:
 
 - the ``expert`` axis (-> ``ep``): a rank holds ``E / ep`` experts
   (`moe_loss(..., ep=tp_group(mesh, "ep"))`). The router and the combine
@@ -17,6 +17,15 @@ Two parallel forms of what GSPMD does for the JAX step:
   experts' slots. f (`copy_to_tp`) sits where the replicated ``xf`` and
   combine weights enter the rank-local part, g (`reduce_from_tp`) after
   the combine einsum;
+- the ``heads``, ``mlp`` and ``vocab`` axes (-> ``tp``, `moe_loss(...,
+  tp=tp_group(mesh))`): the attention is Llama's tp layer
+  (`llama._attention_block`), the experts' ``we_gate`` / ``we_up`` are
+  column-parallel over the expert width and ``we_down`` row-parallel,
+  so their partial sums are summed over tp as well as ep: the f on
+  ``xf`` and the combine weights and the g after the combine run over
+  both cuts. The router stays replicated: every tp rank routes the
+  same, and the aux loss is not summed over tp. ``tok_embed`` and
+  ``lm_head`` are vocab-parallel (`vocab_embed`, `llama._nll`);
 - the batch axes: the JAX step routes the GLOBAL batch, so inside a
   split train step (`parallel.data_parallel`) each rank's capacity
   positions are offset by the per-expert counts of the lower-ranked
@@ -35,14 +44,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.models.llama import (LlamaConfig, _attention_call,
-                                        _layer_shapes, _logits, _rmsnorm,
-                                        _rope, resolve_device)
+from ray_tpu_torch.models.llama import (LlamaConfig, _attention_block,
+                                        _check_shards, _layer_shapes,
+                                        _logits, _nll, _rmsnorm,
+                                        resolve_device)
 from ray_tpu_torch.parallel import data_parallel as dp
 from ray_tpu_torch.parallel.sharding import logical_tree_to_mesh
-from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, copy_to_tp,
-                                                    is_split,
-                                                    reduce_from_tp)
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, check_tp_width,
+                                                    copy_to_tp,
+                                                    gather_logits, is_split,
+                                                    reduce_from_tp,
+                                                    vocab_embed)
 
 Params = Dict[str, Any]
 
@@ -208,15 +220,31 @@ def _local_experts(layer: Params, cfg: MoeConfig,
     return ep.rank * held, held
 
 
+def _to_experts(x: torch.Tensor, ep: Optional[TPGroup],
+                tp: Optional[TPGroup]) -> torch.Tensor:
+    """f over both cuts of the experts: a replicated tensor entering the
+    rank-local experts, its gradient summed over ep and tp."""
+    return copy_to_tp(copy_to_tp(x, ep), tp)
+
+
+def _from_experts(x: torch.Tensor, ep: Optional[TPGroup],
+                  tp: Optional[TPGroup]) -> torch.Tensor:
+    """g over both cuts: the rank's experts' partial sums (over its
+    experts and its columns of their width) made whole."""
+    return reduce_from_tp(reduce_from_tp(x, tp), ep)
+
+
 def _moe_ffn(x: torch.Tensor, layer: Params, cfg: MoeConfig,
              ep: Optional[TPGroup] = None,
-             split: Optional[dp.BatchSplit] = None
+             split: Optional[dp.BatchSplit] = None,
+             tp: Optional[TPGroup] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] -> (out [B,S,d], aux_loss scalar f32). Static-capacity
     token-choice top-k dispatch, rounded where JAX's is: the router in
     f32, ``combine`` in cfg.dtype, ``dispatch = combine > 0``, the
     expert products and ``out`` in cfg.dtype. ``split``: the train
-    step's batch split (global capacity, positions and means)."""
+    step's batch split (global capacity, positions and means); ``ep``
+    and ``tp``: the experts' cuts (the module docstring)."""
     dt = cfg.dtype
     b, s, d = x.shape
     g = b * s
@@ -238,19 +266,21 @@ def _moe_ffn(x: torch.Tensor, layer: Params, cfg: MoeConfig,
     pos_onehot = (position[..., None] == slots).to(dt)           # [G,k,C]
     exp_onehot = F.one_hot(expert_idx, e).to(dt)                 # [G,k,E]
     # this rank's experts: f where the replicated combine weights and
-    # tokens enter (their gradients summed over ep), g after the combine
-    combine = torch.einsum("gk,gke,gkc->gec", copy_to_tp(keep, ep).to(dt),
+    # tokens enter (their gradients summed over ep and tp), g after the
+    # combine
+    combine = torch.einsum("gk,gke,gkc->gec",
+                           _to_experts(keep, ep, tp).to(dt),
                            exp_onehot[:, :, e0:e0 + el], pos_onehot)
     dispatch = (combine > 0).to(dt)                              # [G,El,C]
 
     expert_in = torch.einsum("gec,gd->ecd", dispatch,
-                             copy_to_tp(xf, ep).to(dt))
+                             _to_experts(xf, ep, tp).to(dt))
     gate = torch.einsum("ecd,edf->ecf", expert_in, layer["we_gate"].to(dt))
     up = torch.einsum("ecd,edf->ecf", expert_in, layer["we_up"].to(dt))
     expert_out = torch.einsum("ecf,efd->ecd", F.silu(gate) * up,
                               layer["we_down"].to(dt))
-    out = reduce_from_tp(torch.einsum("gec,ecd->gd", combine, expert_out),
-                         ep)
+    out = _from_experts(torch.einsum("gec,ecd->gd", combine, expert_out),
+                        ep, tp)
 
     # Load-balancing aux loss (Switch/GShard): E * sum_e f_e * p_e, with
     # both means over the global batch.
@@ -268,38 +298,31 @@ def _moe_ffn(x: torch.Tensor, layer: Params, cfg: MoeConfig,
 def _moe_decoder_layer(h: torch.Tensor, aux_sum: torch.Tensor,
                        layer: Params, positions: torch.Tensor,
                        cfg: MoeConfig, ep: Optional[TPGroup] = None,
-                       split: Optional[dp.BatchSplit] = None):
-    dt = cfg.dtype
-    x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", x, layer["wq"].to(dt))
-    kk = torch.einsum("bsd,dhk->bshk", x, layer["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, layer["wv"].to(dt))
-    q = _rope(q, positions, cfg.rope_theta)
-    kk = _rope(kk, positions, cfg.rope_theta)
-    o = _attention_call(q, kk, v, cfg)
-    h = h + torch.einsum("bshk,hkd->bsd", o, layer["wo"].to(dt))
-
+                       split: Optional[dp.BatchSplit] = None,
+                       tp: Optional[TPGroup] = None):
+    h = _attention_block(h, layer, positions, cfg, tp)
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
-    moe_out, aux = _moe_ffn(x, layer, cfg, ep, split)
+    moe_out, aux = _moe_ffn(x, layer, cfg, ep, split, tp)
     return h + moe_out, aux_sum + aux
 
 
-def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
+def _moe_hidden(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
                 positions: Optional[torch.Tensor] = None,
-                ep: Optional[TPGroup] = None
+                ep: Optional[TPGroup] = None, tp: Optional[TPGroup] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (logits [B,S,V] f32, mean aux loss). ``ep``: the
-    params' expert weights are this rank's experts. The train step's
-    batch split is read here and bound into each layer, so a layer's
-    recompute sees it whatever thread runs the backward."""
+    """tokens [B,S] -> (final-norm hidden [B,S,d], mean aux loss)."""
+    _check_shards(params, cfg, tp)
+    check_tp_width("we_gate", params["layers"]["we_gate"].shape[-1],
+                   cfg.ffn_dim, tp)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    h = params["tok_embed"][tokens.long()].to(cfg.dtype)
+    h = vocab_embed(params["tok_embed"], tokens.long(), tp,
+                    cfg.vocab_size).to(cfg.dtype)
     per_layer = {name: torch.unbind(w) for name, w in
                  params["layers"].items()}
     layer_fn = functools.partial(_moe_decoder_layer, positions=positions,
-                                 cfg=cfg, ep=ep, split=dp.current())
+                                 cfg=cfg, ep=ep, split=dp.current(), tp=tp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
@@ -307,21 +330,37 @@ def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
             h, aux = checkpoint(layer_fn, h, aux, layer, use_reentrant=False)
         else:
             h, aux = layer_fn(h, aux, layer)
-    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(h, params["lm_head"], cfg), aux / cfg.n_layers
+    return _rmsnorm(h, params["final_norm"], cfg.norm_eps), \
+        aux / cfg.n_layers
+
+
+def moe_forward(params: Params, tokens: torch.Tensor, cfg: MoeConfig,
+                positions: Optional[torch.Tensor] = None,
+                ep: Optional[TPGroup] = None, tp: Optional[TPGroup] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (logits [B,S,V] f32, mean aux loss). ``ep``: the
+    params' expert weights are this rank's experts; ``tp``: the params
+    are this rank's tp shards, and the logits are gathered whole
+    (inference: not differentiable over a vocab split). The train
+    step's batch split is read here and bound into each layer, so a
+    layer's recompute sees it whatever thread runs the backward."""
+    h, aux = _moe_hidden(params, tokens, cfg, positions, ep, tp)
+    logits = _logits(h, params["lm_head"], cfg)
+    return gather_logits(logits, tp, cfg.vocab_size), aux
 
 
 def moe_loss(params: Params, batch: Dict[str, torch.Tensor],
-             cfg: MoeConfig, ep: Optional[TPGroup] = None) -> torch.Tensor:
-    """Next-token CE + router aux loss."""
+             cfg: MoeConfig, ep: Optional[TPGroup] = None,
+             tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """Next-token CE + router aux loss; under ``tp`` the vocab-parallel
+    cross-entropy (no rank holds the [N, vocab] logits)."""
     dp.refuse_model_split("moe_loss")
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    logits, aux = moe_forward(params, inputs, cfg, ep=ep)
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
-                          targets.reshape(-1).long(), reduction="none")
+    h, aux = _moe_hidden(params, inputs, cfg, ep=ep, tp=tp)
+    nll = _nll(h, targets, params["lm_head"], cfg, tp)
     return nll.mean() + cfg.router_aux_coef * aux
 
 

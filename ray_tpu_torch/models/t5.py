@@ -17,6 +17,15 @@ einsums over a preallocated cache, as in JAX.
 `t5_loss` is a pad-masked mean over the labels: it reports its live
 count to a split train step (`parallel.data_parallel.count_tokens`), so
 the step weights each rank's mean by its share of the global count.
+
+Under a tp group (`t5_loss(..., tp=tp_group(mesh))`, the explicit form
+of the JAX step's GSPMD split) a rank computes its heads of every
+attention and its columns of every MLP: f before the q/k/v and gate/up
+products, g after wo and w_down. The encoder's memory is whole on every
+rank; one f on it before the decoder sums the cross k/v products'
+gradients over tp. The tied ``embed`` is vocab-parallel: `vocab_embed`
+for source and target and `vocab_nll` for the tied logits,
+so the shard's gradient takes both uses. `t5_generate` takes no tp.
 """
 
 from __future__ import annotations
@@ -32,6 +41,11 @@ from ray_tpu_torch.models.llama import _rmsnorm, _rope, resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.parallel import data_parallel as dp
 from ray_tpu_torch.parallel.sharding import logical_tree_to_mesh
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, check_tp_width,
+                                                    copy_to_tp,
+                                                    gather_logits,
+                                                    reduce_from_tp,
+                                                    vocab_embed, vocab_nll)
 
 Params = Dict[str, Any]
 
@@ -168,48 +182,56 @@ def _attend(q, k, v, cfg: T5Config, causal: bool):
 
 
 def _self_attention(x, layer, prefix, positions, cfg: T5Config,
-                    causal: bool):
+                    causal: bool, tp: Optional[TPGroup] = None):
     dt = cfg.dtype
+    x = copy_to_tp(x, tp)
     q = _rope(_proj(x, layer[f"{prefix}_wq"], dt), positions,
               cfg.rope_theta)
     k = _rope(_proj(x, layer[f"{prefix}_wk"], dt), positions,
               cfg.rope_theta)
     v = _proj(x, layer[f"{prefix}_wv"], dt)
-    return torch.einsum("bshk,hkd->bsd", _attend(q, k, v, cfg, causal),
-                        layer[f"{prefix}_wo"].to(dt))
+    return reduce_from_tp(torch.einsum(
+        "bshk,hkd->bsd", _attend(q, k, v, cfg, causal),
+        layer[f"{prefix}_wo"].to(dt)), tp)
 
 
-def _cross_attention(x, memory, layer, cfg: T5Config):
+def _cross_attention(x, memory, layer, cfg: T5Config,
+                     tp: Optional[TPGroup] = None):
+    """``memory`` has passed its f (`_decode_hidden`)."""
     dt = cfg.dtype
-    q = _proj(x, layer["cross_wq"], dt)
+    q = _proj(copy_to_tp(x, tp), layer["cross_wq"], dt)
     k = _proj(memory, layer["cross_wk"], dt)
     v = _proj(memory, layer["cross_wv"], dt)
-    return torch.einsum("bshk,hkd->bsd", _attend(q, k, v, cfg, False),
-                        layer["cross_wo"].to(dt))
+    return reduce_from_tp(torch.einsum(
+        "bshk,hkd->bsd", _attend(q, k, v, cfg, False),
+        layer["cross_wo"].to(dt)), tp)
 
 
-def _mlp(x, layer, cfg: T5Config):
+def _mlp(x, layer, cfg: T5Config, tp: Optional[TPGroup] = None):
     dt = cfg.dtype
+    x = copy_to_tp(x, tp)
     gate = torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(dt))
     up = torch.einsum("bsd,df->bsf", x, layer["w_up"].to(dt))
-    return torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                        layer["w_down"].to(dt))
+    return reduce_from_tp(torch.einsum(
+        "bsf,fd->bsd", F.silu(gate) * up, layer["w_down"].to(dt)), tp)
 
 
-def _encoder_layer(h, layer, positions, cfg: T5Config):
+def _encoder_layer(h, layer, positions, cfg: T5Config,
+                   tp: Optional[TPGroup] = None):
     x = _rmsnorm(h, layer["attn_norm"], cfg.norm_eps)
-    h = h + _self_attention(x, layer, "attn", positions, cfg, causal=False)
+    h = h + _self_attention(x, layer, "attn", positions, cfg, False, tp)
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + _mlp(x, layer, cfg)
+    return h + _mlp(x, layer, cfg, tp)
 
 
-def _decoder_layer(h, layer, memory, positions, cfg: T5Config):
+def _decoder_layer(h, layer, memory, positions, cfg: T5Config,
+                   tp: Optional[TPGroup] = None):
     x = _rmsnorm(h, layer["self_norm"], cfg.norm_eps)
-    h = h + _self_attention(x, layer, "self", positions, cfg, causal=True)
+    h = h + _self_attention(x, layer, "self", positions, cfg, True, tp)
     x = _rmsnorm(h, layer["cross_norm"], cfg.norm_eps)
-    h = h + _cross_attention(x, memory, layer, cfg)
+    h = h + _cross_attention(x, memory, layer, cfg, tp)
     x = _rmsnorm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + _mlp(x, layer, cfg)
+    return h + _mlp(x, layer, cfg, tp)
 
 
 def _run_stack(fn, h, stack: Params, cfg: T5Config, *args):
@@ -227,13 +249,28 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def t5_encode(params: Params, src_tokens: torch.Tensor,
-              cfg: T5Config) -> torch.Tensor:
-    """src_tokens [B, S] -> memory [B, S, dim] (activations dtype)."""
+def _check_shards(params: Params, cfg: T5Config,
+                  tp: Optional[TPGroup]) -> None:
+    for stack, prefixes in (("encoder", ("attn",)),
+                            ("decoder", ("self", "cross"))):
+        layers = params[stack]
+        for p in prefixes:
+            check_tp_width(f"{stack}/{p}_wq", layers[f"{p}_wq"].shape[-2],
+                           cfg.n_heads, tp)
+        check_tp_width(f"{stack}/w_gate", layers["w_gate"].shape[-1],
+                       cfg.ffn_dim, tp)
+
+
+def t5_encode(params: Params, src_tokens: torch.Tensor, cfg: T5Config,
+              tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """src_tokens [B, S] -> memory [B, S, dim] (activations dtype), whole
+    on every rank of ``tp``."""
+    _check_shards(params, cfg, tp)
     B, S = src_tokens.shape
-    h = params["embed"][src_tokens.long()].to(cfg.dtype)
+    h = vocab_embed(params["embed"], src_tokens.long(), tp,
+                    cfg.vocab_size).to(cfg.dtype)
     h = _run_stack(_encoder_layer, h, params["encoder"], cfg,
-                   _positions(B, S, h.device), cfg)
+                   _positions(B, S, h.device), cfg, tp)
     return _rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -242,21 +279,36 @@ def _tied_logits(h: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btd,vd->btv", h, embed.to(h.dtype)).float()
 
 
-def t5_decode(params: Params, memory: torch.Tensor,
-              tgt_tokens: torch.Tensor, cfg: T5Config) -> torch.Tensor:
-    """memory [B, S, d] + tgt_tokens [B, T] -> logits [B, T, vocab]."""
+def _decode_hidden(params: Params, memory: torch.Tensor,
+                   tgt_tokens: torch.Tensor, cfg: T5Config,
+                   tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """memory [B, S, d] + tgt_tokens [B, T] -> final-norm hidden [B, T, d]."""
+    _check_shards(params, cfg, tp)
     B, T = tgt_tokens.shape
-    h = params["embed"][tgt_tokens.long()].to(cfg.dtype)
-    h = _run_stack(_decoder_layer, h, params["decoder"], cfg, memory,
-                   _positions(B, T, h.device), cfg)
-    h = _rmsnorm(h, params["dec_final_norm"], cfg.norm_eps)
-    return _tied_logits(h, params["embed"])
+    h = vocab_embed(params["embed"], tgt_tokens.long(), tp,
+                    cfg.vocab_size).to(cfg.dtype)
+    h = _run_stack(_decoder_layer, h, params["decoder"], cfg,
+                   copy_to_tp(memory, tp), _positions(B, T, h.device), cfg,
+                   tp)
+    return _rmsnorm(h, params["dec_final_norm"], cfg.norm_eps)
+
+
+def t5_decode(params: Params, memory: torch.Tensor,
+              tgt_tokens: torch.Tensor, cfg: T5Config,
+              tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """memory [B, S, d] + tgt_tokens [B, T] -> logits [B, T, vocab];
+    under ``tp`` gathered whole on every rank (inference: not
+    differentiable over a vocab split)."""
+    h = _decode_hidden(params, memory, tgt_tokens, cfg, tp)
+    return gather_logits(_tied_logits(h, params["embed"]), tp,
+                         cfg.vocab_size)
 
 
 def t5_forward(params: Params, src_tokens: torch.Tensor,
-               tgt_tokens: torch.Tensor, cfg: T5Config) -> torch.Tensor:
-    return t5_decode(params, t5_encode(params, src_tokens, cfg),
-                     tgt_tokens, cfg)
+               tgt_tokens: torch.Tensor, cfg: T5Config,
+               tp: Optional[TPGroup] = None) -> torch.Tensor:
+    return t5_decode(params, t5_encode(params, src_tokens, cfg, tp),
+                     tgt_tokens, cfg, tp)
 
 
 # ------------------------------------------------------------- generation
@@ -363,18 +415,21 @@ def t5_generate(params: Params, src_tokens: torch.Tensor, cfg: T5Config,
 
 
 def t5_loss(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: T5Config) -> torch.Tensor:
+            cfg: T5Config, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """batch: {'src': [B,S], 'tgt': [B,T+1]} — teacher forcing: the
     decoder sees tgt[:, :-1] and predicts tgt[:, 1:]; pad positions
-    (cfg.pad_id) in the LABELS are masked out of the mean."""
+    (cfg.pad_id) in the LABELS are masked out of the mean. ``tp``: the
+    params are this rank's tp shards (the module docstring), the loss
+    the same on every rank of the group."""
     dp.refuse_model_split("t5_loss")
     src = batch["src"]
     tgt_in = batch["tgt"][:, :-1]
     labels = batch["tgt"][:, 1:]
-    logits = t5_forward(params, src, tgt_in, cfg)
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          labels.reshape(-1).long(),
-                          reduction="none").reshape(labels.shape)
+    h = _decode_hidden(params, t5_encode(params, src, cfg, tp), tgt_in,
+                       cfg, tp)
+    # the tied head: the embed's rows are the classes
+    nll = vocab_nll(h, params["embed"], labels, tp, cfg.vocab_size,
+                    _tied_logits, axis=0)
     live = (labels != cfg.pad_id).float()
     dp.count_tokens(live.sum())
     return (nll * live).sum() / torch.clamp(live.sum(), min=1.0)

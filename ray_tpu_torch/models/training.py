@@ -18,8 +18,10 @@ batch, and the step runs the collectives the data axes imply:
 - ``tp`` splits the compute, not the storage: a leaf split over tp stays
   split (no all-gather before the forward, no reduce-scatter after), and
   the loss_fn runs the tp layer (`llama_loss(..., tp=tp_group(mesh))`,
+  likewise `moe_loss`, `vit_loss` and `t5_loss`;
   `parallel.tensor_parallel`), whose f and g make each rank's gradient
-  the one of its own shard. A leaf replicated over tp whose use is split
+  the one of its own shard (the MLP names no logical axis and runs
+  whole on every tp rank, as GSPMD runs it). A leaf replicated over tp whose use is split
   (`wk`/`wv` under the training rules, cut to the rank's kv heads) gets
   its partial gradients summed over tp by the f at that cut. The batch
   is replicated over tp;

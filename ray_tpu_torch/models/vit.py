@@ -8,6 +8,17 @@ package's layout (per-layer weights stacked with a leading
 tokens (`ops.attention.attention`: B1/B3 on the card; the default
 config's head dim is 32). bf16 activations over f32 master weights, a
 per-layer checkpoint under ``remat``.
+
+Under a tp group (`vit_loss(..., tp=tp_group(mesh))`, the explicit form
+of the JAX step's GSPMD split) a rank computes its heads and its
+columns of the MLP: f before the qkv and w_in products, g after wo and
+w_out (``b_out`` added once, after the g). ``wqkv`` stays the
+contiguous tp shard its spec gives, which is not head-aligned; the rank
+forms its heads' q/k/v columns with an all-gather each way
+(`tensor_parallel.fused_heads`). The classifier ``head`` is
+vocab-parallel where the classes split over tp (`vocab_nll`)
+and replicated where the pruned rules replicate it. ``patch_embed``,
+``cls_token``, ``pos_embed`` and the norms stay replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +34,10 @@ from ray_tpu_torch.models.llama import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.parallel import data_parallel as dp
 from ray_tpu_torch.parallel.sharding import logical_tree_to_mesh
+from ray_tpu_torch.parallel.tensor_parallel import (TPGroup, check_tp_width,
+                                                    copy_to_tp, fused_heads,
+                                                    gather_logits,
+                                                    reduce_from_tp, vocab_nll)
 
 Params = Dict[str, Any]
 
@@ -151,25 +166,38 @@ def _layernorm(x, scale, bias, eps):
 
 
 def _encoder_layer(x: torch.Tensor, layer: Dict[str, torch.Tensor],
-                   cfg: ViTConfig) -> torch.Tensor:
+                   cfg: ViTConfig, tp: Optional[TPGroup] = None
+                   ) -> torch.Tensor:
     B, N, d = x.shape
-    h, hd = cfg.n_heads, cfg.dim // cfg.n_heads
+    hd = cfg.dim // cfg.n_heads
     y = _layernorm(x, layer["ln1_scale"], layer["ln1_bias"], cfg.norm_eps)
-    qkv = (y @ layer["wqkv"].to(y.dtype)).reshape(B, N, 3, h, hd)
+    wqkv = fused_heads(layer["wqkv"], tp, cfg.dim, cfg.n_heads)
+    h = wqkv.shape[-1] // (3 * hd)           # this rank's heads
+    qkv = (copy_to_tp(y, tp) @ wqkv.to(y.dtype)).reshape(B, N, 3, h, hd)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     att = attention(q, k, v, causal=False, impl=cfg.attn_impl)  # [B,h,N,hd]
-    att = att.transpose(1, 2).reshape(B, N, d)
-    x = x + att @ layer["wo"].to(att.dtype)
+    att = att.transpose(1, 2).reshape(B, N, h * hd)
+    x = x + reduce_from_tp(att @ layer["wo"].to(att.dtype), tp)
     y = _layernorm(x, layer["ln2_scale"], layer["ln2_bias"], cfg.norm_eps)
     # jax.nn.gelu's default is the tanh approximation
-    y = F.gelu(y @ layer["w_in"].to(y.dtype) + layer["b_in"].to(y.dtype),
-               approximate="tanh")
-    return x + (y @ layer["w_out"].to(y.dtype) + layer["b_out"].to(y.dtype))
+    y = F.gelu(copy_to_tp(y, tp) @ layer["w_in"].to(y.dtype)
+               + layer["b_in"].to(y.dtype), approximate="tanh")
+    return x + (reduce_from_tp(y @ layer["w_out"].to(y.dtype), tp)
+                + layer["b_out"].to(y.dtype))
 
 
-def vit_forward(params: Params, images: torch.Tensor,
-                cfg: ViTConfig) -> torch.Tensor:
-    """images [B, H, W, C] -> class logits [B, num_classes] (f32)."""
+def _check_shards(params: Params, cfg: ViTConfig,
+                  tp: Optional[TPGroup]) -> None:
+    layers, d = params["layers"], cfg.dim
+    check_tp_width("wqkv", layers["wqkv"].shape[-1], 3 * d, tp)
+    check_tp_width("wo", layers["wo"].shape[-2], d, tp)
+    check_tp_width("w_in", layers["w_in"].shape[-1], cfg.ffn_dim, tp)
+
+
+def _features(params: Params, images: torch.Tensor, cfg: ViTConfig,
+              tp: Optional[TPGroup]) -> torch.Tensor:
+    """images [B, H, W, C] -> the final-norm class token [B, dim]."""
+    _check_shards(params, cfg, tp)
     B = images.shape[0]
     p = cfg.patch_size
     g = cfg.image_size // p
@@ -184,18 +212,31 @@ def vit_forward(params: Params, images: torch.Tensor,
     for i in range(cfg.n_layers):
         layer = {name: ws[i] for name, ws in per_layer.items()}
         if cfg.remat:
-            x = checkpoint(_encoder_layer, x, layer, cfg,
+            x = checkpoint(_encoder_layer, x, layer, cfg, tp,
                            use_reentrant=False)
         else:
-            x = _encoder_layer(x, layer, cfg)
-    x = _layernorm(x[:, 0], params["final_ln_scale"],
-                   params["final_ln_bias"], cfg.norm_eps)
-    return (x @ params["head"].to(x.dtype)).float()
+            x = _encoder_layer(x, layer, cfg, tp)
+    return _layernorm(x[:, 0], params["final_ln_scale"],
+                      params["final_ln_bias"], cfg.norm_eps)
+
+
+def vit_forward(params: Params, images: torch.Tensor, cfg: ViTConfig,
+                tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """images [B, H, W, C] -> class logits [B, num_classes] (f32); under
+    ``tp`` (the params this rank's tp shards) gathered whole on every
+    rank (inference: not differentiable over a class split)."""
+    x = _features(params, images, cfg, tp)
+    logits = (x @ params["head"].to(x.dtype)).float()
+    return gather_logits(logits, tp, cfg.num_classes)
 
 
 def vit_loss(params: Params, batch: Dict[str, torch.Tensor],
-             cfg: ViTConfig) -> torch.Tensor:
-    """Softmax cross-entropy on {'images': [B,H,W,C], 'labels': [B]}."""
+             cfg: ViTConfig, tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """Softmax cross-entropy on {'images': [B,H,W,C], 'labels': [B]};
+    ``tp``: the params are this rank's tp shards (the module
+    docstring), the loss the same on every rank of the group."""
     dp.refuse_model_split("vit_loss")
-    logits = vit_forward(params, batch["images"], cfg)
-    return F.cross_entropy(logits, batch["labels"].long())
+    x = _features(params, batch["images"], cfg, tp)
+    return vocab_nll(x, params["head"], batch["labels"].long(), tp,
+                     cfg.num_classes,
+                     lambda h, w: (h @ w.to(h.dtype)).float()).mean()

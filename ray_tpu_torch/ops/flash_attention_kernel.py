@@ -19,15 +19,17 @@ are `ops.flash_attention._flash_fwd_reference` and
 
 `fwd_launches`, `dq_launches` and `dkv_launches` count kernel launches
 (one per call that reached its kernel), and `mask_launches` splits them
-by mask (``mask_launches["causal"]["fwd"]``, ``["non-causal"]...``);
-a run sets them to 0 (`reset_launches`) before the path it wants to
+by mask (``mask_launches["causal"]["fwd"]``, ``["non-causal"]...``)
+and `shape_launches` by route, mask and shape (``shape_launches[
+shape_key("sm90", True, B, H, Hkv, Sq, Sk, D)]["fwd"]``); a run sets
+them to 0 (`reset_launches`) before the path it wants to
 account for.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +40,7 @@ dq_launches = 0
 dkv_launches = 0
 mask_launches = {m: {"fwd": 0, "dq": 0, "dkv": 0}
                  for m in ("causal", "non-causal")}
+shape_launches: Dict[str, Dict[str, int]] = {}
 
 
 def reset_launches() -> None:
@@ -46,10 +49,24 @@ def reset_launches() -> None:
     fwd_launches = dq_launches = dkv_launches = 0
     for counts in mask_launches.values():
         counts.update(fwd=0, dq=0, dkv=0)
+    shape_launches.clear()
 
 
-def _count(kernel: str, causal: bool) -> None:
+def shape_key(route: str, causal: bool, B: int, H: int, Hkv: int, Sq: int,
+              Sk: int, D: int) -> str:
+    """The key of `shape_launches` for launches on ``route`` ("sm90": the
+    wgmma kernels, "f32": the exact f32 ones) at q [B,H,Sq,D] and k/v
+    [B,Hkv,Sk,D]."""
+    mask = "causal" if causal else "non-causal"
+    return f"{route} {mask} [{B},{H}/{Hkv},{Sq}x{Sk},{D}]"
+
+
+def _count(kernel: str, causal: bool, dtype: torch.dtype,
+           dims: Tuple[int, ...]) -> None:
     mask_launches["causal" if causal else "non-causal"][kernel] += 1
+    key = shape_key("sm90" if _sm90(dtype) else "f32", causal, *dims)
+    counts = shape_launches.setdefault(key, {"fwd": 0, "dq": 0, "dkv": 0})
+    counts[kernel] += 1
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -184,7 +201,7 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], *shape)
     fwd_launches += 1
-    _count("fwd", causal)
+    _count("fwd", causal, q.dtype, (B, H, Hkv, Sq, Sk, D))
     return o, lse
 
 
@@ -213,7 +230,7 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, sm_scale: float,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], _CODES[out_dtype], *shape)
     dq_launches += 1
-    _count("dq", causal)
+    _count("dq", causal, q.dtype, (B, H, Hkv, Sq, Sk, D))
     return dq
 
 
@@ -244,5 +261,5 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, sm_scale: float,
                 lib.ray_tpu_torch_flash_error_string, q.device, *ptrs,
                 _CODES[q.dtype], _CODES[out_dtype], *shape)
     dkv_launches += 1
-    _count("dkv", causal)
+    _count("dkv", causal, q.dtype, (B, H, Hkv, Sq, Sk, D))
     return dk, dv

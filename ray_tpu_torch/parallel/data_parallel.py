@@ -24,8 +24,8 @@ global quantity here:
 - `count_tokens(n)`: a loss_fn that is a mean over a data-dependent
   count reports this rank's count, and the step weights its loss by its
   share of the global count (`training._Mesh.weight`);
-- `refuse_model_split(name)`: a model without a tp or sp layer refuses
-  to run under a step whose mesh splits either (ROADMAP A13b).
+- `refuse_model_split(name)`: a model without an sp layer refuses to
+  run under a step whose mesh splits the sequence (ROADMAP A13b).
 
 A split of one rank runs no collective.
 """
@@ -132,15 +132,11 @@ def count_tokens(n: torch.Tensor) -> None:
 
 
 def refuse_model_split(name: str) -> None:
-    """Raise NotImplementedError under a step whose mesh splits tp or sp:
-    ``name`` has no tensor- or sequence-parallel layer yet, and would
-    compute with tp shards or within sequence blocks."""
+    """Raise NotImplementedError under a step whose mesh splits sp:
+    ``name`` has no sequence-parallel layer yet, and would compute
+    within sequence blocks."""
     split = current()
-    if split is None:
-        return
-    bad = {a: n for a, n in split.sizes.items()
-           if a in ("tp", "sp") and n > 1}
-    if bad:
+    if split is not None and split.sizes.get("sp", 1) > 1:
         raise NotImplementedError(
-            f"{name} under a train step over {bad}: the model has no "
-            "tensor- or sequence-parallel layer yet, ROADMAP A13b")
+            f"{name} under a train step over sp={split.sizes['sp']}: the "
+            "model has no sequence-parallel layer yet, ROADMAP A13b")

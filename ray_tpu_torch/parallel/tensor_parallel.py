@@ -24,8 +24,19 @@ inserts there:
 - the vocab-parallel ends: `vocab_embed` (a masked local gather summed
   over tp), `gather_logits` (the logits made whole for sampling) and
   `vocab_cross_entropy` (max, sum of exponentials and target logit each
-  reduced over tp; the full ``[N, vocab]`` row never exists);
-- `local_heads`: the q heads a rank computes and the kv heads they read.
+  reduced over tp; the full ``[N, vocab]`` row never exists), and
+  `vocab_nll`, the models' one choice between it (a split head) and the
+  whole-vocab loss (a replicated one);
+- `local_heads`: the q heads a rank computes and the kv heads they read;
+- `fused_heads`: a rank's head columns of a fused projection (ViT's
+  ``wqkv``) held as its contiguous, not head-aligned tp shard: an
+  all-gather of ``[d, 3·d / tp]`` each way a layer (forward: the shard;
+  backward: the head columns' gradient), 2 x (tp - 1) / tp x 3·d² f32
+  words received a rank a layer (442 KB at ViT's d = 192, tp = 2; a
+  layer checkpoint's recompute gathers the shard once more);
+- `check_tp_width`: a leaf axis the tp layer splits must hold the
+  rank's block (a shard without its group, or a whole leaf under a
+  split, raises).
 
 Every collective runs through `collective`, which does nothing for a
 group of one, so tp = 1 launches no collective. With ``tp=None`` no function
@@ -35,7 +46,7 @@ here is called at all: the model runs the ops it runs without a mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -105,9 +116,13 @@ def collective(op: str, x: torch.Tensor, tp: Optional[TPGroup],
 
     group = tp.host_group if host else tp.group
     if op == "gather":
-        out = x.new_empty((tp.size,) + x.shape)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out
+        # gloo gathers host tensors: a CUDA tensor goes through the host
+        staged = x.is_cuda and not host and not tp.capturable
+        part = x.reshape(-1)
+        part = part.cpu() if staged else part.contiguous()
+        out = part.new_empty((tp.size * part.numel(),))
+        dist.all_gather_into_tensor(out, part, group=group)
+        return out.to(x.device).reshape((tp.size,) + x.shape)
     if op == "broadcast":
         dist.broadcast(x, group_src=0, group=group)
     else:
@@ -222,6 +237,24 @@ def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return _VocabCrossEntropy.apply(logits, targets, tp)
 
 
+def vocab_nll(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+              tp: Optional[TPGroup], full: int,
+              logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+              axis: int = -1) -> torch.Tensor:
+    """Per-token nll, shaped as ``targets``, of the f32 logits
+    ``logits_fn(h, w)`` over ``full`` classes. Where ``w`` holds this
+    rank's block of them along ``axis`` (split over ``tp``): f on ``h``,
+    the rank's logit columns and `vocab_cross_entropy`; where it holds
+    them all, the whole-vocab cross-entropy (no f: every rank computes
+    the same loss)."""
+    if not is_split(tp) or w.shape[axis] == full:
+        tp = None
+    logits = logits_fn(copy_to_tp(h, tp), w)
+    nll = vocab_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              targets.reshape(-1), tp)
+    return nll.reshape(targets.shape)
+
+
 def local_heads(cfg, rules, rank: int, size: int
                 ) -> Tuple[slice, List[int]]:
     """(q-head slice, kv-head list) of rank ``rank`` of ``size``: its q
@@ -272,3 +305,87 @@ def select_kv(w: torch.Tensor, tp: Optional[TPGroup], cfg,
     if kv == list(range(cfg.n_kv_heads)):
         return w
     return w.index_select(dim, torch.tensor(kv, device=w.device))
+
+
+def fused_head_columns(width: int, rank: int, size: int) -> torch.Tensor:
+    """The columns of a fused q/k/v projection ``[..., 3 · width]`` (ViT's
+    ``wqkv``: q, k and v side by side, each ``width = n_heads ·
+    head_dim`` columns, head-major) that rank ``rank`` of ``size``
+    computes with: its block of ``width / size`` columns (its heads) of
+    each of q, k and v, in ``[3, heads, head_dim]`` order."""
+    n = width // size
+    return torch.cat([torch.arange(p * width + rank * n,
+                                   p * width + (rank + 1) * n)
+                      for p in range(3)])
+
+
+def fused_shard_columns(width: int, rank: int, size: int) -> torch.Tensor:
+    """Where the columns of rank ``rank``'s contiguous tp shard of a
+    fused q/k/v projection (block ``rank`` of ``size`` equal blocks of
+    its ``3 · width`` columns) stand among the ranks' head columns laid
+    side by side in rank order (`fused_head_columns` of rank 0, 1, ...)."""
+    order = torch.cat([fused_head_columns(width, r, size)
+                       for r in range(size)])
+    n = 3 * width // size
+    return torch.argsort(order)[rank * n:(rank + 1) * n]
+
+
+def _side_by_side(blocks: torch.Tensor) -> torch.Tensor:
+    """[n, ..., c] -> [..., n · c]: the blocks in order along the last
+    axis."""
+    return torch.cat(blocks.unbind(0), dim=-1)
+
+
+class _FusedHeads(torch.autograd.Function):
+    """A fused q/k/v projection's contiguous tp shard -> the rank's head
+    columns. Forward: all-gather the shards, take the rank's columns.
+    Backward: all-gather the ranks' column gradients, take the shard's
+    columns; the ranks' columns are disjoint, so this is the reduce-
+    scatter of the full-width gradient, without its additions of zeros."""
+
+    @staticmethod
+    def forward(ctx, w, tp, width):
+        ctx.tp, ctx.width = tp, width
+        cols = fused_head_columns(width, tp.rank, tp.size)
+        return _side_by_side(collective("gather", w, tp)).index_select(
+            -1, cols.to(w.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        cols = fused_shard_columns(ctx.width, tp.rank, tp.size)
+        return _side_by_side(collective("gather", g, tp)).index_select(
+            -1, cols.to(g.device)), None, None
+
+
+def fused_heads(w: torch.Tensor, tp: Optional[TPGroup], width: int,
+                n_heads: int) -> torch.Tensor:
+    """The columns of this rank's heads, ``[..., 3 · width / tp]`` in
+    ``[3, heads, head_dim]`` order, of a fused q/k/v projection leaf
+    ``w`` held as its contiguous tp shard (the layout of the leaf's
+    spec, as JAX shards it: at tp = 2 rank 0 holds all of q and half of
+    k, so the shard is not head-aligned). An all-gather of the shard
+    each way (`_FusedHeads`). Without a split ``w`` passes; the caller
+    checks the shard's width (`check_tp_width`)."""
+    if not is_split(tp):
+        return w
+    if n_heads % tp.size:
+        raise ValueError(f"n_heads={n_heads} does not split over "
+                         f"tp={tp.size}")
+    return _FusedHeads.apply(w, tp, width)
+
+
+def check_tp_width(name: str, held: int, full: int,
+                   tp: Optional[TPGroup]) -> None:
+    """Refuse a leaf that holds ``held`` of the ``full`` entries of an
+    axis the tp layer splits, unless that is the rank's block: a shard
+    without its group would run as a smaller model, and a whole leaf
+    under a split group (its logical axis not on tp) has no rank-local
+    form here."""
+    size = tp.size if is_split(tp) else 1
+    if full % size or held != full // size:
+        raise ValueError(
+            f"{name} holds {held} of {full} entries along its tp axis, "
+            f"where a rank of tp={size} holds {full / size:g}: tensor-"
+            "parallel shards need their group (tp=), and the group needs "
+            "the axis split over tp")

@@ -1,6 +1,6 @@
 """PyTorch port, Mixtral-style MoE: `ray_tpu_torch.models.moe` against
-`ray_tpu.models.moe`, and its `ep` axis and global routing under
-`make_sharded_train_step` against JAX's step.
+`ray_tpu.models.moe`, and its `ep` and `tp` axes and global routing
+under `make_sharded_train_step` against JAX's step.
 
 The same seeded numpy weights and tokens go to both packages (the
 port's through `ray_tpu_torch.convert`). f32 throughout. Tolerances:
@@ -10,7 +10,9 @@ The {"dp": 2, "ep": 2} world runs once per session in fresh
 interpreters (`torch_port_a13`), its JAX side on the virtual CPU
 devices: losses and grad norms within 1e-4 relative, the first step's
 gradient shards within 1e-4 of JAX's, the params after three AdamW steps
-within 1e-5 with an absolute floor of lr / 10.
+within 1e-5 with an absolute floor of lr / 10. The {"tp": 2} and
+{"ep": 2, "tp": 2} steps are held the same way, and each rank's leaf
+shapes to JAX's shards'.
 """
 
 import faulthandler
@@ -219,6 +221,24 @@ def test_dp_ep_step_matches_jax(worlds):
             if "/we_" in k:
                 want = want[:, e0:e0 + el]
             np.testing.assert_allclose(p, want, rtol=1e-5, atol=a13.LR / 10)
+
+
+@pytest.mark.parametrize("case,shards", [
+    ("moe-tp2", {"layers/we_down": [2, 4, 64, 64], "tok_embed": [128, 64],
+                 "layers/wq": [2, 64, 2, 16],
+                 "layers/w_router": [2, 64, 4]}),
+    ("moe-ep2-tp2", {"layers/we_gate": [2, 2, 64, 64],
+                     "layers/we_down": [2, 2, 64, 64],
+                     "lm_head": [64, 128]})])
+def test_tp_step_matches_jax(worlds, case, shards):
+    """`moe_loss(..., tp=)` under make_sharded_train_step over {"tp": 2}
+    and {"ep": 2, "tp": 2} against JAX's step on the same mesh
+    (`a13.check_tp_case`): the heads as Llama's, the expert widths and
+    the vocab split over tp, the router whole on every rank."""
+    specs = flat_tree(tmoe.moe_param_specs(_configs()[1]))
+    for out in a13.check_tp_case(worlds, case, specs, _rel):
+        for name, shape in shards.items():
+            assert out["shapes"][name] == shape, (name, out["shapes"][name])
 
 
 def test_batch_split_reaches_a_recompute_on_another_thread():

@@ -1,15 +1,21 @@
 """PyTorch port, the other model families: ViT, T5 (with its cached
 generation) and the MLP against `ray_tpu.models.vit`, `.t5` and `.mlp`;
-T5's step over {"dp": 2} against JAX's; the refusal of a tp-split step
-(ROADMAP A13b); and the flash kernels' plain versions at head dim 32
-(ViT's) against JAX's `mha_reference`.
+T5's step over {"dp": 2} against JAX's; the three families under steps
+that split tp ({"tp": 2}, and ViT and T5 over {"fsdp": 2, "tp": 2})
+against JAX's step on the same mesh; the fused-qkv exchange's index
+math; a tp group of one rank against no group (MoE too); the refusal of an sp-split step (ROADMAP A13b); and the flash
+kernels' plain versions at head dim 32 (ViT's) against JAX's
+`mha_reference`.
 
 The same seeded numpy weights and inputs go to both packages. f32
 throughout. Tolerances: logits and losses 1e-5, gradients 1e-4
 (relative to each leaf's largest: summation order), generated greedy
-tokens exactly; the dp = 2 step (once per session, `torch_port_a13`):
-losses and grad norms within 1e-4 relative, the params after three
-AdamW steps within 1e-5 with an absolute floor of lr / 10.
+tokens exactly; the dp = 2 and the tp steps (once per session,
+`torch_port_a13`): losses and grad norms within 1e-4 relative, the
+first step's gradient blocks within 1e-4 (relative to the leaf's
+largest), the params after three AdamW steps within 1e-5 with an
+absolute floor of lr / 10, and each rank's leaf shapes equal to JAX's
+shards'; the index math and the one-rank group exactly.
 """
 
 import faulthandler
@@ -33,6 +39,7 @@ from ray_tpu_torch.models.training import _leaves, _tree_map
 from ray_tpu_torch.ops import flash_attention as tflash
 from ray_tpu_torch.ops import flash_attention_kernel as fak
 from ray_tpu_torch.parallel import data_parallel as dp
+from ray_tpu_torch.parallel import tensor_parallel as ttp
 from torch_port_helpers import flat_tree, once
 
 VIT = dict(image_size=8, patch_size=4, dim=64, n_layers=2, n_heads=2,
@@ -257,14 +264,129 @@ def test_t5_dp_step_uneven_pads_matches_jax(worlds):
                                        atol=a13.LR / 10)
 
 
-@pytest.mark.parametrize("model", ["moe", "vit", "t5", "mlp"])
-def test_tp_split_step_refuses(worlds, model):
-    """Under a {"tp": 2} step each model's loss raises
-    NotImplementedError naming ROADMAP A13b on every rank."""
-    ranks, _ = worlds["w2"]
-    for out in ranks:
-        msg = out["tp_refused"][model]
-        assert msg is not None and "ROADMAP A13b" in msg, msg
+# one leaf a case whose rank shard the JAX tests name: ViT's wqkv as
+# [L, d / fsdp, 3d / tp], T5's cross_wq as [L, d / fsdp, heads / tp, k]
+TP_SHARDS = {
+    "vit-tp2": {"layers/wqkv": [2, 64, 96], "head": [64, 5]},
+    "vit-fsdp2-tp2": {"layers/wqkv": [2, 32, 96], "head": [32, 5]},
+    "t5-tp2": {"decoder/cross_wq": [2, 64, 2, 16], "embed": [128, 64]},
+    "t5-fsdp2-tp2": {"decoder/cross_wq": [2, 32, 2, 16], "embed": [128, 32]},
+    "mlp-tp2": {"layer0/w": [20, 16]},
+}
+
+
+@pytest.mark.parametrize("case", list(TP_SHARDS))
+def test_tp_split_step_matches_jax(worlds, case):
+    """ViT, T5 and the MLP under make_sharded_train_step over {"tp": 2}
+    (ViT and T5 also over {"fsdp": 2, "tp": 2}, the JAX tests' fsdp x
+    tp) against JAX's step on the same mesh (`a13.check_tp_case`); the
+    shards are really split, as the JAX tests check them, and the MLP,
+    which names no logical axes, runs whole on every rank."""
+    model = case.split("-")[0]
+    if model == "vit":
+        specs = tvit.vit_param_specs(tvit.ViTConfig(**a13.torch_kw(
+            a13.TP_VIT_KW)))
+    elif model == "t5":
+        specs = tt5.t5_param_specs(tt5.T5Config.nano())
+    else:
+        specs = _tree_map(lambda _: (), a13.mlp_numpy_params(
+            tmlp.MLPConfig(**a13.TP_MLP_KW)))
+    got = a13.check_tp_case(worlds, case, flat_tree(specs), _rel)
+    for out in got:
+        for name, shape in TP_SHARDS[case].items():
+            assert out["shapes"][name] == shape, (name, out["shapes"][name])
+
+
+@pytest.mark.parametrize("tp", [2, 3, 4])
+def test_fused_heads_index_math(tp):
+    """The fused-qkv exchange at tp 2, 3 and 4 (12 heads of 4): each
+    rank's contiguous shard of ``wqkv`` [5, 3·48] gathered gives its
+    heads' q/k/v columns, the full matrix's ``[3, heads, head_dim]``
+    slice; and its backward hands each rank the columns of its own
+    shard of the full-width gradient the ranks' head columns make up.
+    `_FusedHeads` runs with the gathers faked from the shards."""
+    from unittest import mock
+
+    rng = np.random.RandomState(tp)
+    d, h, hd = 48, 12, 4
+    full = torch.tensor(rng.standard_normal((5, 3 * d)))
+    heads = full.reshape(5, 3, h, hd)
+    hl = h // tp
+    grads = [torch.tensor(rng.standard_normal((5, 3 * d // tp)))
+             for _ in range(tp)]
+    whole = torch.zeros(5, 3, h, hd, dtype=full.dtype)
+    for r in range(tp):
+        whole[:, :, r * hl:(r + 1) * hl] = grads[r].reshape(5, 3, hl, hd)
+    whole = whole.reshape(5, 3 * d)
+    shards = full.chunk(tp, dim=-1)
+    for r in range(tp):
+        cols = ttp.fused_head_columns(d, r, tp)
+        want = heads[:, :, r * hl:(r + 1) * hl].reshape(5, -1)
+        assert torch.equal(full[:, cols], want)
+        group = ttp.TPGroup(object(), r, tp, False)
+        # the forward gathers the shards, the backward the ranks' grads
+        calls = iter([shards, grads])
+
+        def gathered(op, x, g, host=False, calls=calls, group=group):
+            assert op == "gather" and g is group
+            return torch.stack(next(calls))
+
+        w = shards[r].clone().requires_grad_()
+        with mock.patch.object(ttp, "collective", gathered):
+            out = ttp.fused_heads(w, group, d, h)
+            assert torch.equal(out, want)
+            (gw,) = torch.autograd.grad(out, w, grads[r])
+        assert torch.equal(gw, whole.chunk(tp, dim=-1)[r])
+
+
+def test_tp_shards_need_their_group():
+    """ViT's and T5's tp shards without their group, or a whole leaf
+    under a split group, raise instead of running as another model."""
+    vcfg = tvit.ViTConfig(**a13.torch_kw(a13.TP_VIT_KW))
+    params = tvit.vit_init(vcfg, device="cpu")
+    params["layers"]["wqkv"] = params["layers"]["wqkv"][..., :96]
+    with pytest.raises(ValueError, match="need their group"):
+        tvit.vit_forward(params, torch.zeros(1, 8, 8, 3), vcfg)
+    tcfg = tt5.T5Config.nano(dtype=torch.float32)
+    tparams = tt5.t5_init(tcfg, device="cpu")
+    with pytest.raises(ValueError, match="split over tp"):
+        tt5.t5_encode(tparams, torch.ones(1, 4, dtype=torch.long), tcfg,
+                      ttp.TPGroup(object(), 0, 2, False))
+
+
+@pytest.mark.parametrize("model", ["moe", "vit", "t5"])
+def test_size_one_tp_group_is_the_unsplit_step(model):
+    """A tp group of one rank (what `tp_group` gives for a mesh whose tp
+    axis has size 1) runs no collective and no other op: the loss and
+    every gradient equal those of the call without a group, bit for
+    bit."""
+    from ray_tpu_torch.models import moe as tmoe
+
+    rng = np.random.RandomState(5)
+    if model == "moe":
+        cfg = tmoe.MoeConfig.nano_moe(dtype=torch.float32)
+        params = tmoe.moe_init(cfg, device="cpu")
+        batch = {"tokens": torch.from_numpy(rng.randint(0, 256, (2, 9)))}
+        loss_fn = tmoe.moe_loss
+    elif model == "vit":
+        cfg = tvit.ViTConfig(**VIT, dtype=torch.float32)
+        params = tvit.vit_init(cfg, device="cpu")
+        batch = {"images": torch.from_numpy(
+            rng.rand(2, 8, 8, 3).astype(np.float32)),
+            "labels": torch.from_numpy(rng.randint(0, 10, 2))}
+        loss_fn = tvit.vit_loss
+    else:
+        cfg = tt5.T5Config.nano(dtype=torch.float32)
+        params = tt5.t5_init(cfg, device="cpu")
+        batch = {"src": torch.from_numpy(rng.randint(1, 256, (2, 6))),
+                 "tgt": torch.from_numpy(rng.randint(0, 256, (2, 5)))}
+        loss_fn = tt5.t5_loss
+    leaves = [p.requires_grad_() for p in _leaves(params)]
+    runs = []
+    for tp in (None, ttp.tp_group(None)):
+        loss = loss_fn(params, batch, cfg, tp=tp)
+        runs.append([loss] + list(torch.autograd.grad(loss, leaves)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_sp_split_step_refuses_in_process():

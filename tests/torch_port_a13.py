@@ -4,18 +4,26 @@ tests/test_torch_port_pipeline.py, tests/test_torch_port_vit_t5.py).
 
 Inputs are made from a seed with numpy and handed to both packages.
 Two worlds of fresh interpreters (`rank_main`, gloo on the CPU) run
-every distributed case in one launch each, while two more interpreters
-run the JAX side (`jax_main`) on 8 virtual CPU devices:
+every distributed case in one launch each, while three more
+interpreters run the JAX side (`jax_main`) on 8 virtual CPU devices,
+one a world for its cases but the tp ones and one for the tp cases of
+both:
 
 - "w2" (2 ranks): `make_pipelined_fn` over {"pp": 2} against the stack
   of stages run in turn; the step over {"pp": 2} with stage-specced
   leaves and a replicated leaf before the pipeline; T5's step over
-  {"dp": 2} on a batch whose shards hold different pad counts; each
-  model's loss under a {"tp": 2} step, which must refuse;
+  {"dp": 2} on a batch whose shards hold different pad counts; MoE,
+  ViT, T5 and the MLP each under a {"tp": 2} step;
 - "w4" (4 ranks): MoE over {"dp": 2, "ep": 2}, three AdamW steps and
-  the first step's gradients; `make_pipelined_fn` over {"pp": 4}.
+  the first step's gradients; `make_pipelined_fn` over {"pp": 4}; ViT
+  and T5 over {"fsdp": 2, "tp": 2} and MoE over {"ep": 2, "tp": 2}.
 
-`compute` runs all four interpreters at once; the test modules share
+Each tp case (`TP_CASES`) makes three AdamW steps and records the
+metrics, the first step's gradients, the params after the steps and
+each leaf's shape on the rank; the JAX side the same on the same mesh,
+with each leaf's addressable shard shape (`check_tp_case`).
+
+`compute` runs the worlds and the JAX side at once; the test modules share
 its result through `torch_port_helpers.once`. This module imports no
 JAX at its top: the rank interpreters import it.
 """
@@ -44,6 +52,17 @@ MOE_KW = dict(dtype="float32", remat=False, capacity_factor=0.5)
 # the pipeline: stages x microbatches x global batch x width
 PIPE = {2: (2, 4, 8, 16), 4: (4, 8, 16, 32)}
 T5_KW = dict(dtype="float32", remat=False)
+# tensor parallelism: each family's step on the world's meshes, ViT and
+# T5 with a layer checkpoint (its recompute reruns the collectives)
+TP_VIT_KW = dict(image_size=8, patch_size=4, dim=64, n_layers=2, n_heads=2,
+                 ffn_dim=96, num_classes=10, dtype="float32", remat=True)
+TP_T5_KW = dict(dtype="float32", remat=True)
+TP_MLP_KW = dict(in_dim=20, hidden=(16, 12))
+TP_CASES = {2: {"moe-tp2": ("moe", {"tp": 2}), "vit-tp2": ("vit", {"tp": 2}),
+                "t5-tp2": ("t5", {"tp": 2}), "mlp-tp2": ("mlp", {"tp": 2})},
+            4: {"vit-fsdp2-tp2": ("vit", {"fsdp": 2, "tp": 2}),
+                "t5-fsdp2-tp2": ("t5", {"fsdp": 2, "tp": 2}),
+                "moe-ep2-tp2": ("moe", {"ep": 2, "tp": 2})}}
 
 
 def torch_kw(kw):
@@ -146,6 +165,37 @@ def t5_batch(cfg, seed, rows=4, src=12, tgt=9):
     return {k: v.astype(np.int32) for k, v in batch.items()}
 
 
+def _tp_inputs(model, seed):
+    """A tp case's numpy params and batch (flat npz keys)."""
+    from ray_tpu.models.mlp import MLPConfig
+    from ray_tpu.models.moe import MoeConfig
+    from ray_tpu.models.t5 import T5Config
+    from ray_tpu.models.vit import ViTConfig
+
+    rng, _ = _rng(seed)
+    if model == "moe":
+        cfg = MoeConfig.nano_moe(**jax_kw(MOE_KW))
+        params = moe_numpy_params(cfg, seed)
+        batch = {"tokens": rng.randint(0, cfg.vocab_size, (4, 17))}
+    elif model == "vit":
+        cfg = ViTConfig(**jax_kw(TP_VIT_KW))
+        params = vit_numpy_params(cfg, seed)
+        batch = {"images": rng.rand(4, 8, 8, 3).astype(np.float32),
+                 "labels": rng.randint(0, 10, (4,))}
+    elif model == "t5":
+        cfg = T5Config.nano(**jax_kw(TP_T5_KW))
+        params = t5_numpy_params(cfg, seed)
+        batch = t5_batch(cfg, seed + 1)
+    else:
+        params = mlp_numpy_params(MLPConfig(**TP_MLP_KW), seed)
+        batch = {"x": rng.rand(6, 20).astype(np.float32),
+                 "y": rng.randint(0, 10, (6,))}
+    batch = {k: v.astype(np.int32) if v.dtype.kind == "i" else v
+             for k, v in batch.items()}
+    return {**{f"p/{k}": v for k, v in flat_tree(params).items()},
+            **{f"b/{k}": v for k, v in batch.items()}}
+
+
 def inputs(world):
     """The seeded numpy inputs of a world (flat npz keys)."""
     from ray_tpu.models.moe import MoeConfig
@@ -172,6 +222,9 @@ def inputs(world):
                     flat_tree(moe_numpy_params(mcfg, seed=6)).items()})
         out["moe_tokens"] = rng.randint(0, mcfg.vocab_size,
                                         (4, 17)).astype(np.int32)
+    for i, (case, (model, _)) in enumerate(TP_CASES[world].items()):
+        out.update({f"{case}/{k}": v for k, v in
+                    _tp_inputs(model, 30 + 10 * world + i).items()})
     return out
 
 
@@ -280,52 +333,53 @@ def _t5_step(data, out):
         k: v.detach().tolist() for k, v in flat_tree(p).items()}}
 
 
-def _tp_refusals(out):
-    """Each model's loss under a {"tp": 2} step: NotImplementedError."""
-    from ray_tpu_torch.models import training
-    from ray_tpu_torch.models.mlp import MLPConfig, mlp_init, mlp_loss
-    from ray_tpu_torch.models.moe import (MoeConfig, moe_init, moe_loss,
-                                          moe_param_specs)
-    from ray_tpu_torch.models.t5 import (T5Config, t5_init, t5_loss,
-                                         t5_param_specs)
-    from ray_tpu_torch.models.vit import (ViTConfig, vit_init, vit_loss,
-                                          vit_param_specs)
-    from ray_tpu_torch.parallel import create_mesh
+def _tp_step(data, world, case, out):
+    """``case`` of `TP_CASES[world]`: three AdamW steps of the family's
+    loss with the tp layer, over its mesh."""
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.models import mlp, moe, t5, training, vit
+    from ray_tpu_torch.parallel import create_mesh, tp_group
 
-    mesh = create_mesh({"tp": 2}, device_type="cpu")
-    rng = np.random.RandomState(0)
-    mo = MoeConfig.nano_moe(dtype=torch.float32, remat=False)
-    vi = ViTConfig(image_size=8, dim=32, n_layers=1, n_heads=2, ffn_dim=64,
-                   dtype=torch.float32, remat=False)
-    t5 = T5Config.nano(dtype=torch.float32, remat=False)
-    ml = MLPConfig(in_dim=16, hidden=(8,))
-    cases = {
-        "moe": (lambda p, b: moe_loss(p, b, mo), moe_init(mo, device="cpu"),
-                moe_param_specs(mo),
-                {"tokens": rng.randint(0, 256, (2, 9))}),
-        "vit": (lambda p, b: vit_loss(p, b, vi), vit_init(vi, device="cpu"),
-                vit_param_specs(vi),
-                {"images": rng.rand(2, 8, 8, 3).astype(np.float32),
-                 "labels": rng.randint(0, 10, (2,))}),
-        "t5": (lambda p, b: t5_loss(p, b, t5), t5_init(t5, device="cpu"),
-               t5_param_specs(t5),
-               {"src": rng.randint(1, 256, (2, 6)),
-                "tgt": rng.randint(1, 256, (2, 5))}),
-        "mlp": (lambda p, b: mlp_loss(p, b, ml), mlp_init(ml, device="cpu"),
-                training._tree_map(lambda _: (), mlp_init(ml, device="cpu")),
-                {"x": rng.rand(2, 16).astype(np.float32),
-                 "y": rng.randint(0, 10, (2,))}),
-    }
-    out["tp_refused"] = {}
-    for name, (loss_fn, params, specs, batch) in cases.items():
-        init, step = training.make_sharded_train_step(
-            loss_fn, training.adamw(LR), mesh, specs)
-        p, s = init(params)
-        try:
-            step(p, s, batch)
-            out["tp_refused"][name] = None
-        except NotImplementedError as e:
-            out["tp_refused"][name] = str(e)
+    model, axes = TP_CASES[world][case]
+    mesh = create_mesh(axes, device_type="cpu")
+    tp = tp_group(mesh)
+    tree = subtree(data, f"{case}/p")
+    batch = {k[len(case) + 3:]: v for k, v in data.items()
+             if k.startswith(f"{case}/b/")}
+    kw = dict(device="cpu", dtype=torch.float32)
+    if model == "moe":
+        cfg = moe.MoeConfig.nano_moe(**torch_kw(MOE_KW))
+        ep = tp_group(mesh, "ep")
+        loss_fn = lambda p, b: moe.moe_loss(p, b, cfg, ep=ep, tp=tp)  # noqa: E731
+        specs = moe.moe_param_specs(cfg)
+        params = convert.moe_params_from_numpy(tree, cfg, **kw)
+    elif model == "vit":
+        cfg = vit.ViTConfig(**torch_kw(TP_VIT_KW))
+        loss_fn = lambda p, b: vit.vit_loss(p, b, cfg, tp=tp)  # noqa: E731
+        specs = vit.vit_param_specs(cfg)
+        params = convert.vit_params_from_numpy(tree, cfg, **kw)
+    elif model == "t5":
+        cfg = t5.T5Config.nano(**torch_kw(TP_T5_KW))
+        loss_fn = lambda p, b: t5.t5_loss(p, b, cfg, tp=tp)  # noqa: E731
+        specs = t5.t5_param_specs(cfg)
+        params = convert.t5_params_from_numpy(tree, cfg, **kw)
+    else:
+        cfg = mlp.MLPConfig(**TP_MLP_KW)
+        loss_fn = lambda p, b: mlp.mlp_loss(p, b, cfg)  # noqa: E731
+        params = convert.mlp_params_from_numpy(tree, cfg, **kw)
+        specs = training._tree_map(lambda _: (), params)
+    init, step = training.make_sharded_train_step(
+        loss_fn, training.adamw(LR, eps=EPS), mesh, specs)
+    p1, s1, m1 = step(*init(params), batch)
+    first = [[m1["loss"].item(), m1["grad_norm"].item()]]
+    grads = _first_grads(s1, p1)
+    p, _, metrics = _steps(step, p1, s1, batch, STEPS - 1)
+    out[case] = {
+        "coord": dict(zip(mesh.mesh_dim_names,
+                          map(int, mesh.get_coordinate()))),
+        "metrics": first + metrics, "grads": grads,
+        "params": {k: v.detach().tolist() for k, v in flat_tree(p).items()},
+        "shapes": {k: list(v.shape) for k, v in flat_tree(p).items()}}
 
 
 def _moe_step(data, out):
@@ -377,10 +431,11 @@ def rank_main():
         _pipeline_case(data, 2, out)
         _pp_step(data, out)
         _t5_step(data, out)
-        _tp_refusals(out)
     else:
         _moe_step(data, out)
         _pipeline_case(data, 4, out)
+    for case in TP_CASES[job["world"]]:
+        _tp_step(data, job["world"], case, out)
     with open(f"{job['out']}/rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -411,11 +466,47 @@ def _jax_pipeline(data, n, devices):
             "db": np.asarray(dp["b"]).tolist()}
 
 
+def _as_step_returns(params, state, specs, mesh):
+    """JAX's init placed as its step returns params and AdamW state
+    (each spec without its size-1 axes and trailing Nones, the count
+    replicated; the init leaves the state on one device), so that the
+    step compiles once and not again at its second call. Placement only:
+    the values are the init's."""
+    import jax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    sizes = dict(mesh.shape)
+
+    def returned(spec):
+        out = []
+        for e in spec:
+            axes = [a for a in ((e,) if isinstance(e, str) else e or ())
+                    if sizes[a] > 1]
+            out.append(tuple(axes) if len(axes) > 1 else
+                       axes[0] if axes else None)
+        while out and out[-1] is None:
+            out.pop()
+        return NamedSharding(mesh, P(*out))
+
+    shardings = jax.tree_util.tree_map(
+        returned, specs, is_leaf=lambda x: isinstance(x, P))
+
+    def put(tree):
+        return jax.tree_util.tree_map(jax.device_put, tree, shardings)
+
+    adam = state[0]
+    adam = adam._replace(count=jax.device_put(adam.count,
+                                              NamedSharding(mesh, P())),
+                         mu=put(adam.mu), nu=put(adam.nu))
+    return put(params), (adam,) + tuple(state[1:])
+
+
 def _jax_steps(loss_fn, mesh, specs, params, batch):
     """JAX's step: metrics of STEPS AdamW steps, the first step's
-    gradients (of the loss on the global batch) and the final params."""
+    gradients (AdamW's first moment after it, m = (1 - b1) g), the final
+    params and each leaf's addressable shard shape under its spec."""
     import jax
-    import jax.numpy as jnp
     import optax
 
     from ray_tpu.models.training import make_sharded_train_step
@@ -423,18 +514,61 @@ def _jax_steps(loss_fn, mesh, specs, params, batch):
     init, step = make_sharded_train_step(
         loss_fn, optax.adamw(LR, eps=EPS), mesh, specs, donate=False)
     p, s = init(params)
+    # the shards as the specs place them (the step may return a leaf in
+    # another layout: MoE's replicated wk and wv come back split on tp)
+    shapes = {k: list(v.addressable_shards[0].data.shape)
+              for k, v in flat_tree(p).items()}
+    p, s = _as_step_returns(p, s, specs, mesh)
     metrics = []
-    for _ in range(STEPS):
+    for i in range(STEPS):
         p, s, m = step(p, s, batch)
         metrics.append([float(m["loss"]), float(m["grad_norm"])])
-    return {"metrics": metrics, "params": {
+        if i == 0:
+            grads = {k: (np.asarray(v) / 0.1).tolist() for k, v in
+                     flat_tree(jax.device_get(s[0].mu)).items()}
+    return {"metrics": metrics, "grads": grads, "params": {
         k: np.asarray(v).tolist() for k, v in flat_tree(
-            jax.device_get(p)).items()}}
+            jax.device_get(p)).items()}, "shapes": shapes}
 
 
-def jax_main(world, path):
-    """The JAX side of a world, in a fresh interpreter: ``python -c
-    "import torch_port_a13 as t; t.jax_main(W, PATH)"``."""
+def _jax_tp_case(data, case, world, devices):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from ray_tpu.models import mlp, moe, t5, vit
+    from ray_tpu.parallel import MeshSpec, create_mesh
+
+    model, axes = TP_CASES[world][case]
+    n = int(np.prod(list(axes.values())))
+    mesh = create_mesh(MeshSpec(**axes).resolve(n), devices[:n])
+    params = jax.tree_util.tree_map(jnp.asarray, subtree(data, f"{case}/p"))
+    batch = {k[len(case) + 3:]: jnp.asarray(v) for k, v in data.items()
+             if k.startswith(f"{case}/b/")}
+    # JAX's remat changes no value, only what its compile must plan
+    if model == "moe":
+        cfg = moe.MoeConfig.nano_moe(**jax_kw(MOE_KW))
+        loss, specs = moe.moe_loss, moe.moe_param_specs(cfg)
+    elif model == "vit":
+        cfg = vit.ViTConfig(**jax_kw(dict(TP_VIT_KW, remat=False)))
+        loss, specs = vit.vit_loss, vit.vit_param_specs(cfg)
+    elif model == "t5":
+        cfg = t5.T5Config.nano(**jax_kw(dict(TP_T5_KW, remat=False)))
+        loss, specs = t5.t5_loss, t5.t5_param_specs(cfg)
+    else:
+        cfg = mlp.MLPConfig(**TP_MLP_KW)
+        loss = mlp.mlp_loss
+        specs = jax.tree_util.tree_map(lambda _: P(), params)
+    return _jax_steps(lambda p, b: loss(p, b, cfg), mesh, specs, params,
+                      batch)
+
+
+def jax_main(part, path):
+    """One part of the JAX side, in a fresh interpreter: ``python -c
+    "import torch_port_a13 as t; t.jax_main(PART, PATH)"``; "w2" and
+    "w4" run their world's cases but the tp ones, "tp" the `TP_CASES`
+    of both worlds (one interpreter: a second would pay JAX's start and
+    first compiles again, and the three run side by side)."""
     die_with_parent()
     import jax
     import jax.numpy as jnp
@@ -443,10 +577,15 @@ def jax_main(world, path):
     from ray_tpu.parallel import MeshSpec, create_mesh
     from ray_tpu.parallel.pipeline import make_pipelined_fn
 
-    data = inputs(WORLDS[world])
     devices = jax.devices()
     out = {}
-    if world == "w2":
+    if part == "tp":
+        for n, cases in TP_CASES.items():
+            data = inputs(n)
+            for case in cases:
+                out[case] = _jax_tp_case(data, case, n, devices)
+    elif part == "w2":
+        data = inputs(2)
         out["pipe2"] = _jax_pipeline(data, 2, devices)
         S, M, gb, d = PIPE[2]
         mesh = create_mesh({"pp": 2}, devices[:2])
@@ -486,6 +625,7 @@ def jax_main(world, path):
     else:
         from ray_tpu.models.moe import MoeConfig, moe_loss, moe_param_specs
 
+        data = inputs(4)
         cfg = MoeConfig.nano_moe(**jax_kw(MOE_KW))
         params = jax.tree_util.tree_map(jnp.asarray, subtree(data, "moe"))
         tokens = jnp.asarray(data["moe_tokens"])
@@ -535,15 +675,20 @@ def compute(out_dir):
     rank's results, JAX's)}."""
     deadline = time.monotonic() + COMPUTE_S
     out_dir.mkdir(exist_ok=True)
-    started = {w: _start_world(w, out_dir / w) for w in WORLDS}
-    env = child_env(JAX_PLATFORMS="cpu",
-                    XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    # the JAX side's programs are tiny: its time is XLA's compiles, which
+    # these flags halve (the programs' values are checked as before)
+    env = child_env(JAX_PLATFORMS="cpu", XLA_FLAGS=" ".join((
+        "--xla_force_host_platform_device_count=8",
+        "--xla_backend_optimization_level=0",
+        "--xla_llvm_disable_expensive_passes=true")))
+    parts = list(WORLDS) + ["tp"]
     jax_procs = [subprocess.Popen(
         [sys.executable, "-c",
-         f"import torch_port_a13 as t; t.jax_main({w!r}, "
-         f"{str(out_dir / f'jax-{w}.json')!r})"],
+         f"import torch_port_a13 as t; t.jax_main({part!r}, "
+         f"{str(out_dir / f'jax-{part}.json')!r})"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for w in WORLDS]
+        for part in parts]
+    started = {w: _start_world(w, out_dir / w) for w in WORLDS}
     procs = jax_procs + [p for ranks, _ in started.values() for p in ranks]
     errs = []
     try:
@@ -556,5 +701,48 @@ def compute(out_dir):
             p.kill()
     failed = [e for p, e in zip(procs, errs) if p.returncode != 0]
     assert not failed, "\n".join(failed)
-    return {w: (read(), json.loads((out_dir / f"jax-{w}.json").read_text()))
+
+    jax = {part: json.loads((out_dir / f"jax-{part}.json").read_text())
+           for part in parts}
+    return {w: (read(), {**jax[w], **{case: jax["tp"][case] for case in
+                                      TP_CASES[WORLDS[w]]}})
             for w, (_, read) in started.items()}
+
+
+# ------------------------------------------------------------ the checks
+
+def tp_world(case):
+    return next(f"w{n}" for n, cases in TP_CASES.items() if case in cases)
+
+
+def check_tp_case(worlds, case, specs, rel):
+    """Every rank of ``case`` (`TP_CASES`) against JAX's step on the same
+    mesh: the loss and grad norm of the three steps within 1e-4
+    relative; the rank's block (``specs``, flat) of the first step's
+    gradients within 1e-4 of JAX's relative to the leaf's largest
+    (``rel``); its block of the params after the steps within 1e-5 with
+    an absolute floor of lr / 10; and each leaf's shape on the rank
+    equal to JAX's addressable shard's. Returns the ranks' results."""
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    from ray_tpu_torch.parallel.sharding import local_region
+
+    ranks, ref = worlds[tp_world(case)]
+    want = ref[case]
+    axes = TP_CASES[int(tp_world(case)[1:])][case][1]
+    sizes = {a: axes.get(a, 1) for a in AXIS_ORDER}
+    for out in ranks:
+        got = out[case]
+        assert got["shapes"] == want["shapes"]
+        np.testing.assert_allclose(got["metrics"], want["metrics"],
+                                   rtol=1e-4)
+        for kind in ("grads", "params"):
+            for name, v in got[kind].items():
+                full = np.asarray(want[kind][name])
+                block = full[local_region(full.shape, specs[name], sizes,
+                                          got["coord"])]
+                if kind == "grads":
+                    assert rel(v, block) <= 1e-4, (name, rel(v, block))
+                else:
+                    np.testing.assert_allclose(v, block, rtol=1e-5,
+                                               atol=LR / 10, err_msg=name)
+    return [out[case] for out in ranks]
